@@ -1,0 +1,245 @@
+"""Fused gather-refine sweep of the L2 self-join: CUDA kernel and plain version.
+
+One launch sweeps every stencil offset for a batch of query rows. Per
+(offset, row) the candidate window is a contiguous span of the padded,
+grid-sorted points, described by ``win_start`` / ``win_count``; each slot is
+refined against epsilon and masked (window length, merged last-dimension
+boundary, UNICOMP triangle or self pair). The launch returns
+
+    hits      (n_off, Q_pad, C) int8  -- masked epsilon hits
+    counts    (Q_pad,)          int32 -- per-row hits over all offsets
+    slot_base (Q_pad,)          int32 -- exclusive scan of counts per tile
+
+so the emit scatters pairs without computing a distance again.
+
+Two implementations of the same function live here:
+
+  * ``_fused_join_hits_cuda`` launches ``csrc/fused_join.cu`` (the port of
+    the JAX package's Pallas kernel ``_fused_kernel``) on CUDA tensors;
+  * ``_fused_join_hits_reference`` is the plain PyTorch version, the
+    counterpart of the JAX package's ``_fused_join_hits_reference``. The CPU
+    runs it, and the kernel is held to it bit for bit on the card.
+
+``fused_join_hits`` picks by where the tensors lie: the kernel for CUDA
+tensors, the plain version for CPU tensors. There is no fallback: a kernel
+that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import metric as metric_lib
+
+NP_PAD = 8        # minimum lane padding of the coordinate axis
+TQ_DEFAULT = 128  # query tile rows
+
+# Launches of the CUDA kernel since import (or since a caller reset it):
+# one per call that reaches the kernel, and nowhere else.
+KERNEL_LAUNCHES = 0
+
+
+def pad_width(n_lanes: int) -> int:
+    """Padded lane count for ``n_lanes`` occupied lanes: at least NP_PAD,
+    rounded up to a multiple of 8."""
+    return max(NP_PAD, -(-int(n_lanes) // 8) * 8)
+
+
+def resolve_merge_last_dim(n_dims: int, merge_last_dim: bool | None) -> bool:
+    """Merged-range sweeps default on, and need a free pad lane for the
+    last-dimension cell coordinate (``n_dims < NP_PAD``)."""
+    if merge_last_dim is None:
+        merge_last_dim = True
+    return bool(merge_last_dim) and n_dims < NP_PAD
+
+
+def pad_points(points_sorted: torch.Tensor, tail: int,
+               last_coord: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, n) -> (N + tail, L) zero-padded copy for window reads.
+
+    ``tail`` >= C keeps every C-slot window read in bounds. ``last_coord``
+    (merged sweeps) is each point's last-dimension cell coordinate, stored
+    as an exact float in lane n; tail rows hold 0.
+    """
+    n_pts, n = points_sorted.shape
+    lanes = pad_width(n + (0 if last_coord is None else 1))
+    out = points_sorted.new_zeros((n_pts + tail, lanes))
+    out[:n_pts, :n] = points_sorted
+    if last_coord is not None:
+        out[:n_pts, n] = last_coord.to(points_sorted.dtype)
+    return out
+
+
+def _mask_hits(hit, cand_pos, q_pos, zero, unicomp: bool):
+    """UNICOMP triangle on the zero offset, else the self-pair mask."""
+    if unicomp:
+        return hit & ((cand_pos > q_pos) | (zero == 0))
+    return hit & (cand_pos != q_pos)
+
+
+def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
+                 n_real, unicomp, merged):
+    """Masked (Q, C) hits of every query row against one offset's windows."""
+    slots = torch.arange(c, dtype=torch.int32, device=points_pad.device)
+    cand_pos = ws[:, None] + slots[None, :]
+    hit = metric_lib.plane_refine_hits("l2", points_pad, q_batch, cand_pos,
+                                       scal, n_real=n_real)
+    hit = hit & (slots[None, :] < wc[:, None])
+    if merged:
+        # cell coordinates ride lane n_real as exact integers
+        ldiff = (points_pad[:, n_real][cand_pos.long()]
+                 - q_batch[:, n_real][:, None])
+        hit = hit & (torch.abs(ldiff) <= 1)
+    return _mask_hits(hit, cand_pos, q_pos[:, None], zero, unicomp)
+
+
+def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
+                               is_zero, q_pos, scal, *, c, tq, n_real,
+                               unicomp, merged, keep_hits):
+    """The plain PyTorch version of the kernel."""
+    n_off, qp = win_start.shape
+    dev = points_pad.device
+    counts = torch.zeros(qp, dtype=torch.int32, device=dev)
+    hits = torch.zeros((n_off if keep_hits else 1, qp, c), dtype=torch.int8,
+                       device=dev)
+    for j in range(n_off):
+        hit = _offset_hits(points_pad, q_batch, win_start[j], win_count[j],
+                           is_zero[j], q_pos, scal, c=c, n_real=n_real,
+                           unicomp=unicomp, merged=merged)
+        counts = counts + hit.sum(dim=1, dtype=torch.int32)
+        if keep_hits:
+            hits[j] = hit.to(torch.int8)
+    ctile = counts.reshape(-1, tq)
+    base = (torch.cumsum(ctile, dim=1, dtype=torch.int32) - ctile).reshape(-1)
+    return hits, counts, base
+
+
+_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _kernel_library():
+    from repro_torch.kernels import build
+
+    lib = build.load("fused_join")
+    lib.fused_join_launch.argtypes = _ARGTYPES
+    lib.fused_join_launch.restype = ctypes.c_int
+    return lib
+
+
+def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
+                          q_pos, scal, *, c, tq, n_real, unicomp, merged,
+                          keep_hits):
+    """Launch ``csrc/fused_join.cu`` on the current stream (no sync)."""
+    global KERNEL_LAUNCHES
+    dev = points_pad.device
+    dtype = points_pad.dtype
+    n_off, qp = win_start.shape
+    lanes = points_pad.shape[1]
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_join kernel takes float32/float64, got {dtype}")
+    for name, t, dt, shape in (
+            ("q_batch", q_batch, dtype, (qp, lanes)),
+            ("win_start", win_start, torch.int32, (n_off, qp)),
+            ("win_count", win_count, torch.int32, (n_off, qp)),
+            ("is_zero", is_zero, torch.int32, (n_off,)),
+            ("q_pos", q_pos, torch.int32, (qp,)),
+            ("scal", scal, dtype, (1, 1))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dt} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not points_pad.is_contiguous():
+        raise ValueError("points_pad must be contiguous")
+    if tq <= 0 or qp % tq:
+        raise ValueError(f"query rows {qp} must be a multiple of tq={tq}")
+    if n_real + (1 if merged else 0) > lanes:
+        raise ValueError(f"{lanes} lanes cannot hold {n_real} coordinates"
+                         f"{' and the merged lane' if merged else ''}")
+    smem = tq * lanes * points_pad.element_size() + 4 * tq * 4
+    if smem > 48 * 1024:
+        raise ValueError(f"tile of {tq} rows x {lanes} lanes needs {smem} B "
+                         f"of shared memory, above the 48 KiB default")
+    counts = torch.empty(qp, dtype=torch.int32, device=dev)
+    base = torch.empty(qp, dtype=torch.int32, device=dev)
+    hits = (torch.empty((n_off, qp, c), dtype=torch.int8, device=dev)
+            if keep_hits else
+            torch.zeros((1, qp, c), dtype=torch.int8, device=dev))
+    lib = _kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_join_launch(
+            int(dtype == torch.float64), int(merged), int(unicomp),
+            int(keep_hits), points_pad.data_ptr(), q_batch.data_ptr(),
+            win_start.data_ptr(), win_count.data_ptr(), is_zero.data_ptr(),
+            q_pos.data_ptr(), scal.data_ptr(), hits.data_ptr(),
+            counts.data_ptr(), base.data_ptr(), n_off, qp, c, n_real, lanes,
+            tq, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_join kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return hits, counts, base
+
+
+def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
+                    q_pos, eps, *, c, n_real, unicomp, external=False,
+                    merged=False, gid_pairs=False, tq=TQ_DEFAULT,
+                    keep_hits=True, run_ord=None, run_loop=False,
+                    method=None, metric="l2", n_feat=0):
+    """Fused gather-refine sweep over all stencil offsets in one launch.
+
+    Args:
+      points_pad: (N + tail, L) ``pad_points`` output, tail >= c.
+      q_batch:    (Q_pad, L) query rows (rows of ``points_pad`` at sorted
+                  positions ``q_pos``), Q_pad % tq == 0.
+      win_start / win_count: (n_off, Q_pad) int32 window descriptors; count
+                  0 for padding rows and absent cells.
+      is_zero:    (n_off,) int32, 1 for the zero offset.
+      q_pos:      (Q_pad,) int32 sorted position of every query row.
+      eps:        the L2 radius, unsquared (squared once in the points'
+                  dtype by ``metric.device_refine_scalar``).
+      c:          window capacity of this launch.
+      n_real:     true dimensionality (lanes >= n_real are not distance).
+      unicomp:    triangle rule on the zero offset, else the self mask.
+      merged:     windows are merged last-dimension ranges, and lane
+                  ``n_real`` carries last-dimension cell coordinates.
+      keep_hits:  False returns a zero (1, Q_pad, c) plane, counts only.
+      method:     None picks by device: the CUDA kernel for CUDA tensors,
+                  the plain version for CPU tensors. "kernel" and
+                  "reference" force one; "kernel" on CPU tensors raises.
+
+    ``external``, ``gid_pairs``, ``run_ord``/``run_loop`` and metrics other
+    than l2 are not ported yet and raise ``NotImplementedError``.
+
+    Returns (hits, counts, slot_base).
+    """
+    for flag, item in ((external, "A9 / B1(b)"), (run_loop, "A6 / B1(c)"),
+                       (gid_pairs, "A14 / B1(d)"),
+                       (run_ord is not None, "A6 / B1(c)")):
+        if flag:
+            raise NotImplementedError(
+                f"this fused_join option is not ported yet (ROADMAP {item})")
+    metric_lib.check_metric(metric)
+    if n_feat:
+        raise NotImplementedError("feature lanes are not ported yet "
+                                  "(ROADMAP A8 / B1(e))")
+    if method is None:
+        method = "kernel" if points_pad.is_cuda else "reference"
+    scal = metric_lib.device_refine_scalar(metric, eps, points_pad.dtype,
+                                           points_pad.device)
+    kw = dict(c=c, tq=tq, n_real=n_real, unicomp=unicomp, merged=merged,
+              keep_hits=keep_hits)
+    if method == "kernel":
+        if not points_pad.is_cuda:
+            raise RuntimeError("the fused_join CUDA kernel needs CUDA "
+                               "tensors; these lie on the CPU")
+        return _fused_join_hits_cuda(
+            points_pad, q_batch, win_start, win_count,
+            is_zero.to(torch.int32), q_pos.to(torch.int32), scal, **kw)
+    if method == "reference":
+        return _fused_join_hits_reference(
+            points_pad, q_batch, win_start, win_count, is_zero, q_pos, scal,
+            **kw)
+    raise ValueError(f"unknown fused_join method {method!r}")
