@@ -1,33 +1,48 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the fused L2 self-join on one CUDA card.
+"""Chip smoke of the PyTorch port: the L2 self-join and its kernels on one card.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-The first run builds the CUDA kernel from ``src/repro_torch/kernels/csrc``
-into ``build/repro_torch/``. Phases, each printing one JSON line:
+The first run builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one nvcc per source, started together) into ``build/repro_torch/``. Phases,
+each printing one JSON line:
 
   env             torch / CUDA versions, the card's name and power limit
-  build           nvcc build of the kernel library, timed
-  kernel_vs_plain the kernel against its plain PyTorch version, exactly, on
-                  every launch the drivers schedule for three bench
-                  workloads, across merged x unicomp x keep_hits x dtype
+  build           nvcc builds of the kernel libraries, timed
+  kernel_vs_plain the fused-join kernel (B1) against its plain PyTorch
+                  version, exactly, on every launch the drivers schedule for
+                  three bench workloads, across merged x unicomp x keep_hits x
+                  dtype x run loop on/off
   bench_totals    self_join_count and len(self_join) of the port equal the
                   recorded pair totals of the seven bench workloads
-  main_path       self_join on 2,000,000 uniform 2-D f64 points at eps 0.2:
-                  the launch counter, pair-set checks against a direct
-                  on-card evaluation, kernel-vs-plain on every launch, and
-                  the join's and the kernel's times (median of 3 after one
-                  warm-up)
+  main_path       self_join on 2,000,000 uniform 2-D f64 points at eps 0.2,
+                  through the cell-run loop: the launch counter, kernel-vs-
+                  plain on every launch, B1's run-loop and row-loop times on
+                  the same launches, sampled neighbour lists against a direct
+                  on-card evaluation, and the full-scale oracle: B3's
+                  per-point counts over all points against the join's,
+                  and against B3's plain version on sampled rows
+  batched         self_join_batched(n_batches=3) at the main path against
+                  self_join, time and peak memory side by side; then the
+                  paper's 10,000,000-point scale, its total against
+                  self_join_count
+  brute           the brute-force tiles B2 and B3 against their plain
+                  versions, bit for bit, on three bench workloads;
+                  brute_force_count(distance_impl="pallas") against the
+                  recorded totals; each kernel's time and bound
   profile         one main-path join under torch.profiler: host and device
-                  time per stage span of the driver, device time by kernel
-                  name and the device's busy share
-  kernels         one line per kernel: launches, agreement and times
+                  time per stage span, B1's device time by name, device time
+                  by kernel name and the device's busy share
+  kernels         one line: every kernel with launches, agreement and times
 
-The last lines are the card's ``nvidia-smi`` name and power limit, then
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without a CUDA device the script exits non-zero before printing a result.
+Launch counters are set to 0 just before each path (main_path for B1 and B3,
+brute for B2) and read just after; comparisons with the plain versions run
+outside those windows. The last lines are the card's ``nvidia-smi`` name and
+power limit, then ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero; without a CUDA device the script exits non-zero before
+printing a result.
 """
 from __future__ import annotations
 
@@ -53,10 +68,15 @@ BENCH_TOTALS = {
     "clustered-6d": 531810,
 }
 MAIN_POINTS, MAIN_DIMS, MAIN_EPS = 2_000_000, 2, 0.2
+# the paper's synthetic scale: ~10 points a cell, ~314 M ordered pairs
+PAPER_POINTS, PAPER_EPS = 10_000_000, 0.1
 SAMPLED_QUERIES = 1024
+BRUTE_WORKLOADS = ("uniform-2d", "expo-3d", "clustered-4d")
 # H100 SXM data sheet peaks: HBM3 bytes/s, and non-tensor-core FP64 / FP32.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+# the f64 band of the expanded form (tests/test_torch_brute.py::_band)
+BAND_SCALE = 2.0 ** -50
 
 
 class SmokeFailure(RuntimeError):
@@ -116,32 +136,58 @@ def sync():
     torch.cuda.synchronize()
 
 
-def prepared_launches(index, *, merged, unicomp):
-    """The drivers' launch schedule for ``index`` with each launch's inputs."""
-    from repro_torch.core import selfjoin as sj
+def event_ms(fn, repeats: int = 1) -> float:
+    """Device ms of ``fn()`` by CUDA events, averaged over ``repeats``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def prepared_launches(index, *, merged, unicomp, run_loop=False):
+    """The drivers' launch schedule for ``index`` with each launch's inputs;
+    with ``run_loop``, the table-prep inputs and the launch's run plan."""
+    from repro_torch.core import grid, selfjoin as sj
     tables = sj._merged_offset_tables if merged else sj._offset_tables
     deltas, is_zero = tables(index, unicomp)
-    launches, points_pad, _ = sj._fused_launches(index, bucketed=None,
-                                                 merged=merged)
+    tabs = (grid.cell_window_tables(index, deltas, merged=merged,
+                                    tag=unicomp) if run_loop else None)
+    launches, points_pad, _ = sj._fused_launches(index, merged=merged)
     out = []
     for launch in launches:
         ws, wc, _, qb, qpos = sj._launch_prep(index, points_pad, deltas,
-                                              launch, merged=merged)
-        out.append(dict(launch=launch, args=(points_pad, qb, ws, wc, is_zero,
-                                             qpos, index.eps),
+                                              launch, merged=merged,
+                                              tables=tabs)
+        plan = (sj._launch_run_plan(index, qpos, tile=launch[5])
+                if run_loop else None)
+        out.append(dict(launch=launch, plan=plan,
+                        args=(points_pad, qb, ws, wc, is_zero, qpos,
+                              index.eps),
                         kw=dict(c=launch[4], tq=launch[5],
                                 n_real=index.n_dims, unicomp=unicomp,
                                 merged=merged)))
     return out
 
 
-def compare_kernel_and_plain(prepared, keep_hits: bool) -> int:
+def _loop_kw(p, run_loop: bool) -> dict:
+    if run_loop:
+        return dict(run_ord=p["plan"].run_ord, run_loop=True)
+    return {}
+
+
+def compare_kernel_and_plain(prepared, keep_hits: bool,
+                             run_loop: bool = False) -> int:
     """Max |kernel - plain| over hits, counts and slot_base of each launch."""
     from repro_torch.kernels import fused_join as fj
     worst = 0
     for p in prepared:
         a = fj.fused_join_hits(*p["args"], method="kernel",
-                               keep_hits=keep_hits, **p["kw"])
+                               keep_hits=keep_hits, **_loop_kw(p, run_loop),
+                               **p["kw"])
         b = fj.fused_join_hits(*p["args"], method="reference",
                                keep_hits=keep_hits, **p["kw"])
         sync()
@@ -154,30 +200,31 @@ def compare_kernel_and_plain(prepared, keep_hits: bool) -> int:
     return worst
 
 
-def timed_launches(prepared, method: str, keep_hits: bool = True) -> float:
-    """Device ms of all launches, by CUDA events around each."""
+def timed_launches(prepared, method: str, run_loop: bool = False,
+                   reps: int = 5) -> float:
+    """Device ms of one pass over all launches: CUDA events around ``reps``
+    passes queued back to back behind an untimed pass, so the host's work
+    per launch overlaps the kernels instead of adding idle device time
+    (events around each launch alone would count that idle time)."""
     from repro_torch.kernels import fused_join as fj
-    total = 0.0
-    for p in prepared:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fj.fused_join_hits(*p["args"], method=method, keep_hits=keep_hits,
-                           **p["kw"])
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total
+
+    def one_pass():
+        for p in prepared:
+            fj.fused_join_hits(*p["args"], method=method,
+                               **_loop_kw(p, run_loop), **p["kw"])
+
+    one_pass()
+    return event_ms(one_pass, reps)
 
 
 def kernel_bound(prepared):
-    """Least time the card could take for the launches' work: the larger of
+    """Least time the card could take for B1's launches: the larger of
     bytes over HBM bandwidth and floating-point operations over the peak.
     Bytes: each input read once (descriptors, query rows, q_pos, the
     distinct window rows' coordinate lanes) and each output written once
     (the int8 hit plane, counts, slot_base). Operations: 3 * n_real per live
     slot (subtract, multiply, add), the slots this data needs (sum of
-    win_count)."""
+    win_count). The run loop does the same work, so it has the same bound."""
     total_bytes = 0
     flops = 0
     dtype = None
@@ -201,10 +248,94 @@ def kernel_bound(prepared):
                         + n_off * qp * c                      # hits, int8
                         + qp * 4 * 2)                         # counts, base
         flops += 3 * n_real * int(wc.sum(dtype=torch.int64))
-    t_bytes = total_bytes / HBM_BYTES_PER_S * 1e3
+    return bound(total_bytes, flops, dtype) + (total_bytes, flops)
+
+
+def bound(nbytes: int, flops: int, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            total_bytes, flops)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def hits_tile_work(nq: int, npts: int, n: int, item: int, tq=256, tc=256):
+    """B2's work for one (nq, N) call, counted from the kernel: bytes = the
+    query and candidate rows read once, the int8 plane written once;
+    operations = (2n + 2) per pair (n multiplies and n - 1 adds of the dot
+    product, then add, multiply by 2, subtract) plus each block's norms of
+    its tq + tc rows (2n - 1 each)."""
+    blocks = -(-nq // tq) * -(-npts // tc)
+    nbytes = (nq + npts) * n * item + nq * npts
+    flops = nq * npts * (2 * n + 2) + blocks * (tq + tc) * (2 * n - 1)
+    return nbytes, flops
+
+
+def counts_tile_work(npts: int, n: int, item: int, tq=256):
+    """B3's work for one (N,) call, counted from the kernel: bytes = the
+    rows read once and the counts written once; operations = (2n + 2) per
+    pair over all N^2 pairs, the query rows' norms, and every block's norms
+    of all candidate rows ((2n - 1) each)."""
+    blocks = -(-npts // tq)
+    nbytes = npts * n * item + npts * 4
+    flops = (npts * npts * (2 * n + 2) + (blocks + 1) * npts * (2 * n - 1))
+    return nbytes, flops
+
+
+def band_points(pts_gpu, ids, eps: float) -> int:
+    """How many of the points ``ids`` have a neighbour whose direct f64 d2
+    lies within the expanded form's band of eps^2, |d2 - eps^2| <=
+    (qn + pn) * 2^-50 (the only pairs where the direct and expanded forms
+    may disagree)."""
+    eps2 = float(eps) ** 2
+    sq = (pts_gpu * pts_gpu).sum(dim=1)
+    found = 0
+    for chunk in range(0, ids.shape[0], 64):
+        q = ids[chunk:chunk + 64]
+        d2 = torch.zeros((q.shape[0], pts_gpu.shape[0]), dtype=torch.float64,
+                         device=pts_gpu.device)
+        for k in range(pts_gpu.shape[1]):
+            t = pts_gpu[q, k][:, None] - pts_gpu[:, k][None, :]
+            d2 = d2 + t * t
+        band = (sq[q][:, None] + sq[None, :]) * BAND_SCALE
+        near = (d2 - eps2).abs() <= band
+        near[torch.arange(q.shape[0], device=q.device), q] = False
+        found += int(near.any(dim=1).sum())
+    return found
+
+
+def counts_rows_vs_plain(pts_gpu, counts, eps: float, rows) -> int:
+    """B3's counts of the points ``rows`` against its plain version's
+    arithmetic for those rows (all points as candidates, self excluded):
+    the largest absolute difference. The plain version over every point of
+    the main path would take minutes, so it is held there on a sample."""
+    from repro_torch.core import metric
+    from repro_torch.kernels import distance_tile as dt
+    scal = metric.device_refine_scalar("l2", eps, pts_gpu.dtype,
+                                       pts_gpu.device)
+    worst = 0
+    for chunk in range(0, rows.shape[0], 64):
+        q = rows[chunk:chunk + 64]
+        hit = dt._distance_tile_hits_reference(pts_gpu[q], pts_gpu, scal)
+        hit[torch.arange(q.shape[0], device=q.device), q] = False
+        plain = hit.sum(dim=1, dtype=torch.int32)
+        worst = max(worst, int((plain - counts[q]).abs().max()))
+    return worst
+
+
+def oracle_counts(pts_gpu, pairs_first, eps: float, where: str):
+    """B3's per-point counts against a join's (a bincount of the pairs'
+    first column): the points where they differ, all of which must have a
+    neighbour in the band. Returns (differing points, B3 counts)."""
+    from repro_torch.kernels import distance_tile as dt
+    npts = pts_gpu.shape[0]
+    counts = dt.distance_tile_counts(pts_gpu, eps)
+    joined = torch.bincount(pairs_first.long(), minlength=npts)
+    differ = torch.nonzero(counts.long() != joined).flatten()
+    if differ.numel():
+        explained = band_points(pts_gpu, differ, eps)
+        check(explained == differ.numel(),
+              f"{where}: {differ.numel() - explained} points differ between "
+              f"B3's counts and the join's with no neighbour in the band")
+    return int(differ.numel()), counts
 
 
 # --- phases -----------------------------------------------------------------
@@ -218,15 +349,18 @@ def phase_env():
 
 
 def phase_build():
-    from repro_torch.kernels import build, fused_join as fj
+    from repro_torch.kernels import build, distance_tile as dt, fused_join as fj
     t0 = time.perf_counter()
-    path, log = build.build("fused_join")
+    built = build.build_all()
     fj._kernel_library()
+    dt._kernel_library()
     seconds = time.perf_counter() - t0
-    ptxas = sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln})
-    emit("build", library=str(path.relative_to(ROOT)), seconds=seconds,
-         built=bool(log), ptxas=ptxas)
+    emit("build", seconds=seconds, libraries={
+        name: dict(path=str(path.relative_to(ROOT)), built=bool(log),
+                   ptxas=sorted({ln.split(":", 1)[-1].strip()
+                                 for ln in log.splitlines()
+                                 if "registers" in ln or "spill" in ln}))
+        for name, (path, log) in built.items()})
 
 
 def phase_kernel_vs_plain(workloads):
@@ -240,18 +374,22 @@ def phase_kernel_vs_plain(workloads):
                                            device=DEVICE)
             for merged in (True, False):
                 for unicomp in (True, False):
-                    prepared = prepared_launches(index, merged=merged,
-                                                 unicomp=unicomp)
-                    for keep_hits in (True, False):
-                        err = compare_kernel_and_plain(prepared, keep_hits)
-                        check(err == 0, f"{name} {np.dtype(dtype).name} "
-                              f"merged={merged} unicomp={unicomp} "
-                              f"keep_hits={keep_hits}: kernel differs from "
-                              f"the plain version by {err}")
-                        worst = max(worst, err)
-                        compared += len(prepared)
+                    for run_loop in (False, True):
+                        prepared = prepared_launches(
+                            index, merged=merged, unicomp=unicomp,
+                            run_loop=run_loop)
+                        for keep_hits in (True, False):
+                            err = compare_kernel_and_plain(
+                                prepared, keep_hits, run_loop)
+                            check(err == 0, f"{name} {np.dtype(dtype).name} "
+                                  f"merged={merged} unicomp={unicomp} "
+                                  f"run_loop={run_loop} keep_hits="
+                                  f"{keep_hits}: kernel differs from the "
+                                  f"plain version by {err}")
+                            worst = max(worst, err)
+                            compared += len(prepared)
         emit("kernel_vs_plain", workload=name, points=len(pts), eps=eps,
-             variants=16, launches_compared=compared, max_abs_err=worst,
+             variants=32, launches_compared=compared, max_abs_err=worst,
              exact=True)
     return worst
 
@@ -267,15 +405,20 @@ def phase_bench_totals(workloads):
         pairs = repro_torch.self_join(pts, eps, device=DEVICE)
         sync()
         t2 = time.perf_counter()
+        run = repro_torch.self_join_count(pts, eps, route="dense-run",
+                                          device=DEVICE)
         want = BENCH_TOTALS[name]
-        check(stats.total_pairs == want, f"{name}: count "
-              f"{stats.total_pairs} != recorded {want}")
+        check(stats.total_pairs == want == run.total_pairs, f"{name}: count "
+              f"{stats.total_pairs} / dense-run {run.total_pairs} != "
+              f"recorded {want}")
         check(pairs.shape[0] == want, f"{name}: join emitted "
               f"{pairs.shape[0]} pairs, recorded {want}")
         emit("bench_totals", workload=name, points=len(pts), eps=eps,
              total_pairs=want, count_s=t1 - t0, join_s=t2 - t1,
              offsets=stats.offsets, cells_visited=stats.cells_visited,
-             candidates_checked=stats.candidates_checked)
+             candidates_checked=stats.candidates_checked,
+             windows_row=stats.dma_windows_issued,
+             windows_run=run.dma_windows_issued)
 
 
 def check_pairs(pairs, pts_gpu, eps: float, n: int):
@@ -314,71 +457,246 @@ def check_pairs(pairs, pts_gpu, eps: float, n: int):
 def phase_main_path():
     import repro_torch
     from repro_torch.core import selfjoin as sj
+    from repro_torch.kernels import distance_tile as dt
     from repro_torch.kernels import fused_join as fj
     pts = syn(MAIN_POINTS, MAIN_DIMS)
     eps = MAIN_EPS
 
     index = repro_torch.build_grid(pts, eps, device=DEVICE)
-    expected = len(sj._fused_launches(
-        index, bucketed=None, merged=sj._resolve_merge(index, None))[0])
+    merged = sj._resolve_merge(index, None)
+    check(sj._join_run_loop(index), "the main path does not take the run "
+          "loop (fewer than 2 points a cell)")
+    expected = len(sj._fused_launches(index, merged=merged)[0])
     del index
     repro_torch.self_join(pts, eps, device=DEVICE)       # warm-up
     sync()
+    pts_gpu = torch.as_tensor(pts).to(DEVICE)
     e2e, launches = [], []
     for rep in range(3):
         torch.cuda.reset_peak_memory_stats()
-        fj.KERNEL_LAUNCHES = 0
+        fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
+        dt.COUNTS_LAUNCHES = 0
         t0 = time.perf_counter()
         pairs = repro_torch.self_join(pts, eps, device=DEVICE)
         sync()
         e2e.append(time.perf_counter() - t0)
-        launches.append(fj.KERNEL_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-    check(all(n == expected for n in launches) and expected > 0,
-          f"main path launched the kernel {launches} times, scheduled "
-          f"{expected} per run")
+        if rep == 2:
+            # the path's full-scale oracle: B3 over all points
+            t0 = time.perf_counter()
+            n_differ, b3_counts = oracle_counts(pts_gpu, pairs[:, 0], eps,
+                                                "main path")
+            sync()
+            oracle_s = time.perf_counter() - t0
+        launches.append((fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES,
+                         dt.COUNTS_LAUNCHES))
+    check(all(k == r == expected for k, r, _ in launches) and expected > 0,
+          f"main path launched B1 (total, run loop) {launches} times, "
+          f"scheduled {expected} run-loop launches per run")
+    check(launches[-1][2] == 1, "the oracle did not launch B3 once")
 
     stats = repro_torch.self_join_count(pts, eps, device=DEVICE)
     check(stats.total_pairs == pairs.shape[0],
           f"count {stats.total_pairs} != emitted {pairs.shape[0]}")
-    pts_gpu = torch.as_tensor(pts).to(DEVICE)
+    check(int(b3_counts.sum(dtype=torch.int64)) == pairs.shape[0]
+          or n_differ > 0, "B3's total differs with no differing point")
     check_pairs(pairs, pts_gpu, eps, MAIN_POINTS)
-    del pts_gpu
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    b3_rows = torch.randperm(MAIN_POINTS, generator=gen)[:SAMPLED_QUERIES]
+    b3_err = counts_rows_vs_plain(pts_gpu, b3_counts, eps, b3_rows.to(DEVICE))
+    check(b3_err == 0, f"main path: B3 differs from its plain version by "
+          f"{b3_err} on sampled rows")
+    b3_ms = event_ms(lambda: dt.distance_tile_counts(pts_gpu, eps))
+    b3_bound = bound(*counts_tile_work(MAIN_POINTS, MAIN_DIMS, 8), "float64")
 
     index = repro_torch.build_grid(pts, eps, device=DEVICE)
-    prepared = prepared_launches(index, merged=sj._resolve_merge(index, None),
-                                 unicomp=True)
-    worst = compare_kernel_and_plain(prepared, keep_hits=True)
-    check(worst == 0, f"main path: kernel differs from plain by {worst}")
-    timed = {}
-    for method in ("kernel", "reference"):
-        timed_launches(prepared, method)                 # warm-up
-        timed[method] = statistics.median(timed_launches(prepared, method)
-                                          for _ in range(3))
+    prepared = prepared_launches(index, merged=merged, unicomp=True,
+                                 run_loop=True)
+    worst = compare_kernel_and_plain(prepared, keep_hits=True, run_loop=True)
+    check(worst == 0, f"main path: run-loop kernel differs from plain by "
+          f"{worst}")
+    # the variants in turns, three rounds, the median of each
+    variants = (("run", "kernel", True), ("row", "kernel", False),
+                ("plain", "reference", False))
+    rounds = [{key: timed_launches(prepared, method, run_loop)
+               for key, method, run_loop in variants} for _ in range(3)]
+    timed = {key: statistics.median(r[key] for r in rounds)
+             for key, _, _ in variants}
     bound_ms, bound_by, nbytes, flops = kernel_bound(prepared)
-    caps = [p["kw"]["c"] for p in prepared]
+    runs = [p["plan"].n_runs for p in prepared]
     rows = [p["args"][1].shape[0] for p in prepared]
+    del pts_gpu, b3_counts
     emit("main_path", points=MAIN_POINTS, dims=MAIN_DIMS, eps=eps,
          dtype="float64", total_pairs=int(pairs.shape[0]),
-         launches=launches[-1], launch_caps=caps, launch_rows=rows,
-         offsets=stats.offsets, candidates_checked=stats.candidates_checked,
+         run_loop=True, launches=launches[-1][0],
+         launch_caps=[p["kw"]["c"] for p in prepared], launch_rows=rows,
+         launch_runs=runs, offsets=stats.offsets,
+         candidates_checked=stats.candidates_checked,
          sampled_queries_checked=SAMPLED_QUERIES,
-         e2e_s=statistics.median(e2e), e2e_runs_s=e2e,
-         kernel_ms=timed["kernel"], plain_ms=timed["reference"],
+         e2e_s=statistics.median(e2e), e2e_runs_s=e2e, peak_mem_bytes=peak,
+         kernel_run_loop_ms=timed["run"], kernel_row_loop_ms=timed["row"],
+         plain_ms=timed["plain"], timed_rounds_ms=rounds,
          bound_ms=bound_ms, bound_by=bound_by,
-         bound_bytes=nbytes, bound_flops=flops, peak_mem_bytes=peak,
-         kernel_equals_plain=True)
-    return dict(launches=launches[-1], ms=timed["kernel"],
-                plain_ms=timed["reference"], bound_ms=bound_ms,
-                bound_by=bound_by)
+         bound_bytes=nbytes, bound_flops=flops, kernel_equals_plain=True,
+         oracle_points=MAIN_POINTS, oracle_differing_points=n_differ,
+         oracle_s=oracle_s, b3_ms=b3_ms, b3_bound_ms=b3_bound[0],
+         b3_bound_by=b3_bound[1], b3_rows_vs_plain=SAMPLED_QUERIES,
+         b3_rows_max_abs_err=b3_err)
+    return dict(b1=dict(launches=launches[-1][0],
+                        run_loop_launches=launches[-1][1],
+                        ms=timed["run"], row_loop_ms=timed["row"],
+                        plain_ms=timed["plain"], bound_ms=bound_ms,
+                        bound_by=bound_by),
+                b3_launches=launches[-1][2], b3_ms=b3_ms, b3_err=b3_err,
+                b3_bound=b3_bound, e2e=statistics.median(e2e), peak=peak)
+
+
+def phase_batched(main):
+    import repro_torch
+    from repro_torch.core.selfjoin import sort_pairs
+    pts = syn(MAIN_POINTS, MAIN_DIMS)
+    repro_torch.self_join_batched(pts, MAIN_EPS, n_batches=3,
+                                  sort_result=False, device=DEVICE)  # warm-up
+    times, peaks = {}, {}
+    for key in ("one_shot", "batched"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if key == "one_shot":
+            one = repro_torch.self_join(pts, MAIN_EPS, sort_result=False,
+                                        device=DEVICE)
+        else:
+            got = repro_torch.self_join_batched(pts, MAIN_EPS, n_batches=3,
+                                                sort_result=False,
+                                                device=DEVICE)
+        sync()
+        times[key] = time.perf_counter() - t0
+        peaks[key] = torch.cuda.max_memory_allocated()
+    check(got.device.type == "cpu", "self_join_batched left its pairs on "
+          "the card")
+    check(torch.equal(sort_pairs(got.to(DEVICE), MAIN_POINTS),
+                      sort_pairs(one, MAIN_POINTS)),
+          "batched pairs differ from self_join's")
+    n_main = int(got.shape[0])
+    del got, one
+
+    pts = syn(PAPER_POINTS, MAIN_DIMS)
+    stats = repro_torch.self_join_count(pts, PAPER_EPS, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big = repro_torch.self_join_batched(pts, PAPER_EPS, n_batches=3,
+                                        sort_result=False, device=DEVICE)
+    sync()
+    big_s = time.perf_counter() - t0
+    big_peak = torch.cuda.max_memory_allocated()
+    check(big.shape[0] == stats.total_pairs,
+          f"10 M batched join emitted {big.shape[0]} pairs, the count says "
+          f"{stats.total_pairs}")
+    check(bool((big[:, 0] != big[:, 1]).all()), "self pair at 10 M points")
+    emit("batched", points=MAIN_POINTS, eps=MAIN_EPS, n_batches=3,
+         total_pairs=n_main, batched_s=times["batched"],
+         one_shot_s=times["one_shot"], batched_peak_bytes=peaks["batched"],
+         one_shot_peak_bytes=peaks["one_shot"],
+         paper_points=PAPER_POINTS, paper_eps=PAPER_EPS,
+         paper_total_pairs=int(big.shape[0]), paper_batched_s=big_s,
+         paper_peak_bytes=big_peak, sort_result=False,
+         note="both joins unsorted; the batched result is on the host")
+
+
+def phase_brute(workloads):
+    import repro_torch
+    from repro_torch.kernels import distance_tile as dt
+    worst = 0
+    shapes = {}
+    for name in BRUTE_WORKLOADS:
+        pts, eps = workloads[name]
+        p = torch.as_tensor(pts).to(DEVICE)
+        n = p.shape[1]
+        for r0 in range(0, p.shape[0], 256):
+            a = dt.distance_tile_hits(p[r0:r0 + 256], p, eps, method="kernel")
+            b = dt.distance_tile_hits(p[r0:r0 + 256], p, eps,
+                                      method="reference")
+            check(torch.equal(a, b), f"{name}: B2 differs from its plain "
+                  f"version on rows {r0}..")
+        a = dt.distance_tile_counts(p, eps, method="kernel")
+        b = dt.distance_tile_counts(p, eps, method="reference")
+        worst = max(worst, int((a.long() - b.long()).abs().max()))
+        check(torch.equal(a, b), f"{name}: B3 differs from its plain version")
+        shapes[name] = (p, eps, n)
+
+    # the brute path: B2 through brute_force_count, counted alone
+    dt.HITS_LAUNCHES = 0
+    totals = {}
+    t0 = time.perf_counter()
+    for name in BRUTE_WORKLOADS:
+        pts, eps = workloads[name]
+        totals[name] = repro_torch.brute_force_count(
+            pts, eps, distance_impl="pallas", device=DEVICE)
+    brute_s = time.perf_counter() - t0
+    hits_launches = dt.HITS_LAUNCHES
+    check(hits_launches == sum(-(-len(workloads[w][0]) // 256)
+                               for w in BRUTE_WORKLOADS),
+          f"brute path launched B2 {hits_launches} times")
+    band = {}
+    for name in BRUTE_WORKLOADS:
+        p, eps, _ = shapes[name]
+        pairs = repro_torch.self_join(p.cpu().numpy(), eps, device=DEVICE)
+        n_differ, counts = oracle_counts(p, pairs[:, 0], eps, name)
+        check(int(counts.sum(dtype=torch.int64)) == totals[name],
+              f"{name}: brute_force_count {totals[name]} != B3's total")
+        check(totals[name] == BENCH_TOTALS[name] or n_differ > 0,
+              f"{name}: brute total {totals[name]} != recorded "
+              f"{BENCH_TOTALS[name]} with no band point")
+        band[name] = n_differ
+
+    # times at the uniform-2d shapes: the brute sweep's B2 launches, and B3
+    p, eps, n = shapes["uniform-2d"]
+    npts = p.shape[0]
+
+    def sweep(method):
+        for r0 in range(0, npts, 256):
+            dt.distance_tile_hits(p[r0:r0 + 256], p, eps, method=method)
+
+    timed = {}
+    for key, fn in (("b2", lambda: sweep("kernel")),
+                    ("b2_plain", lambda: sweep("reference")),
+                    ("b3", lambda: dt.distance_tile_counts(
+                        p, eps, method="kernel")),
+                    ("b3_plain", lambda: dt.distance_tile_counts(
+                        p, eps, method="reference"))):
+        fn()                                              # warm-up
+        timed[key] = statistics.median(event_ms(fn) for _ in range(3))
+    b2_bytes = b2_flops = 0
+    for r0 in range(0, npts, 256):
+        nb, nf = hits_tile_work(min(256, npts - r0), npts, n, 8)
+        b2_bytes += nb
+        b2_flops += nf
+    b2_bound = bound(b2_bytes, b2_flops, "float64")
+    b3_bound = bound(*counts_tile_work(npts, n, 8), "float64")
+    emit("brute", workloads=list(BRUTE_WORKLOADS), totals=totals,
+         band_points=band, brute_count_s=brute_s,
+         b2_launches=hits_launches, b2_equals_plain=True,
+         b3_equals_plain=True, timed_on="uniform-2d", timed_points=npts,
+         b2_ms=timed["b2"], b2_plain_ms=timed["b2_plain"],
+         b2_bound_ms=b2_bound[0], b2_bound_by=b2_bound[1],
+         b2_bound_bytes=b2_bytes, b2_bound_flops=b2_flops,
+         b2_launches_timed=-(-npts // 256),
+         b3_ms=timed["b3"], b3_plain_ms=timed["b3_plain"],
+         b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1])
+    return dict(b2=dict(launches=hits_launches, ms=timed["b2"],
+                        plain_ms=timed["b2_plain"], bound_ms=b2_bound[0],
+                        bound_by=b2_bound[1]),
+                b3=dict(ms=timed["b3"], plain_ms=timed["b3_plain"],
+                        bound_ms=b3_bound[0], bound_by=b3_bound[1]),
+                worst=worst)
 
 
 def phase_profile():
     """One main-path join under ``torch.profiler``: per stage span of the
     driver (``self_join.grid`` / ``.plan`` / ``.kernel`` / ``.emit``) its host
-    time and the device time of the kernels it launched, device time by
-    kernel name, and the device's busy share of the wall time. Reports null
-    device figures when the profiler records no device activity."""
+    time and the device time of the kernels it launched, B1's device time by
+    name, device time by kernel name, and the device's busy share of the wall
+    time. Reports null device figures when the profiler records no device
+    activity."""
     import repro_torch
     from torch.profiler import ProfilerActivity, profile
     pts = syn(MAIN_POINTS, MAIN_DIMS)
@@ -415,8 +733,13 @@ def phase_profile():
               and device_us(e) > 0
               and not e.key.startswith(("Activity Buffer", "self_join."))]
     busy_ms = sum(device_us(e) for e in events) / 1e3
+    b1 = [e for e in events if "fused_join_kernel" in e.key]
+    b1_ms = sum(device_us(e) for e in b1) / 1e3 if b1 else None
     top = sorted(events, key=device_us, reverse=True)[:12]
     emit("profile", points=MAIN_POINTS, wall_ms=wall_ms, stages=stages,
+         b1_device_ms=b1_ms, b1_calls=sum(e.count for e in b1),
+         b1_in_kernel_span=(b1_ms is not None and
+                            stages["self_join.kernel"]["device_ms"] >= b1_ms),
          device_busy_ms=busy_ms if events else None,
          device_busy_share=busy_ms / wall_ms if events else None,
          top_device_ms={e.key[:80]: device_us(e) / 1e3 for e in top},
@@ -436,22 +759,45 @@ def main() -> int:
     worst = phase_kernel_vs_plain(workloads)
     phase_bench_totals(workloads)
     main = phase_main_path()
+    phase_batched(main)
+    brute = phase_brute(workloads)
     phase_profile()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
+    csrc = "src/repro_torch/kernels/csrc"
+    b1 = main["b1"]
     kernels = [{
-        "name": "fused_join",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_join.cu",
+        "name": "fused_join", "route": "cuda",
+        "source": f"{csrc}/fused_join.cu",
         "replaces": "src/repro/kernels/fused_join.py:215",
-        "launches": main["launches"],
-        "max_abs_err": worst,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
+        "launches": b1["launches"],
+        "launches_by_variant": {"run_loop": b1["run_loop_launches"],
+                                "row_loop": (b1["launches"]
+                                             - b1["run_loop_launches"])},
+        "max_abs_err": worst, "ms": b1["ms"], "row_loop_ms": b1["row_loop_ms"],
+        "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
+        "bound_by": b1["bound_by"], "library_ms": None,
         "matched_plain": True,
+    }, {
+        "name": "distance_tile_hits", "route": "cuda",
+        "source": f"{csrc}/distance_tile.cu",
+        "replaces": "src/repro/kernels/distance_tile.py:45",
+        "launches": brute["b2"]["launches"], "max_abs_err": 0,
+        "ms": brute["b2"]["ms"], "plain_ms": brute["b2"]["plain_ms"],
+        "bound_ms": brute["b2"]["bound_ms"],
+        "bound_by": brute["b2"]["bound_by"], "library_ms": None,
+        "matched_plain": True, "timed_on": "uniform-2d brute sweep",
+    }, {
+        "name": "distance_tile_counts", "route": "cuda",
+        "source": f"{csrc}/distance_tile.cu",
+        "replaces": "src/repro/kernels/distance_tile.py:62",
+        "launches": main["b3_launches"],
+        "max_abs_err": max(brute["worst"], main["b3_err"]),
+        "ms": brute["b3"]["ms"], "plain_ms": brute["b3"]["plain_ms"],
+        "bound_ms": brute["b3"]["bound_ms"],
+        "bound_by": brute["b3"]["bound_by"], "library_ms": None,
+        "matched_plain": True, "timed_on": "uniform-2d, 100,000 points",
+        "main_path_ms": main["b3_ms"], "main_path_bound_ms": main["b3_bound"][0],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

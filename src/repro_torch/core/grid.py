@@ -389,6 +389,114 @@ def point_last_coords(index: GridIndex) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Cell runs: query rows that share a grid cell have the same window
+# descriptors for every stencil offset (both descriptor families derive
+# them from the row's cell rank alone), so a kernel can read each window
+# once per run of such rows and descriptors can be computed once per cell:
+# the paper's duplicate-search removal (SIV-C).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RunPlan:
+    """Cell-run partition of one fused launch's query rows.
+
+    ``run_ord[i]`` is row i's run ordinal within its tq-row tile: 0 at every
+    tile's first row, +1 exactly where the row's cell changes. ``head``
+    marks each run's first row. ``n_runs`` and ``run_lengths`` (the JAX
+    package's fields) are derived from ``head`` on demand, so a plan costs
+    the join no host synchronisation.
+    """
+
+    run_ord: torch.Tensor   # (qp,) int32 per-tile run ordinals
+    head: torch.Tensor      # (qp,) bool, True at each run's first row
+
+    @property
+    def n_runs(self) -> int:
+        """Runs over all tiles."""
+        return int(self.head.sum())
+
+    @property
+    def run_lengths(self) -> torch.Tensor:
+        """(n_runs,) int32 rows per run, in row order."""
+        starts = torch.nonzero(self.head).flatten()
+        ends = torch.cat([starts[1:], starts.new_tensor([self.head.shape[0]])])
+        return (ends - starts).to(torch.int32)
+
+
+def cell_run_plan(cell_of_row: torch.Tensor, tq: int) -> RunPlan:
+    """Partition a launch's rows into maximal same-cell runs, per tile.
+
+    ``cell_of_row`` is any per-row cell identity in launch order (the
+    self-join uses ``point_cell_rank`` at each row's sorted position). Runs
+    also split at tq-row tile boundaries, where a kernel block starts. The
+    plan is computed on the identities' device.
+    """
+    ids = torch.as_tensor(cell_of_row)
+    qp = ids.shape[0]
+    if tq <= 0 or qp % tq:
+        raise ValueError(f"run plan rows {qp} must be a positive multiple "
+                         f"of tq={tq}")
+    head = torch.ones(qp, dtype=torch.bool, device=ids.device)
+    head[1:] = ids[1:] != ids[:-1]
+    head[::tq] = True
+    run_ord = torch.cumsum(head.reshape(-1, tq), dim=1, dtype=torch.int32) - 1
+    return RunPlan(run_ord=run_ord.reshape(-1), head=head)
+
+
+def _cell_window_table_device(index: GridIndex, deltas,
+                              *, merged: bool):
+    """Per-cell window descriptor tables, each (n_off, num_points) int32.
+
+    Column r holds (win_start, win_count, win_cells) of cell rank r: the
+    arithmetic of ``window_descriptors_at`` / ``range_window_descriptors_at``
+    done once per cell instead of once per query row. Columns from
+    ``num_cells`` on are dead (all zero), as in the JAX package; they are
+    not computed, only filled.
+    """
+    npts = index.num_points
+    ncells = int(index.num_cells)
+    keys = _keys64(index)
+    own_key = keys[:ncells]
+    if merged:
+        dtab, lo_off, hi_off = (deltas[k].long() for k in range(3))
+        dim_last = index.dims[-1].long()
+        q_last = own_key % dim_last
+        base = own_key[None, :] + dtab[:, None]
+        lo = torch.maximum(lo_off[:, None], -q_last[None, :])
+        hi = torch.minimum(hi_off[:, None], dim_last - 1 - q_last[None, :])
+        lo_rank = torch.searchsorted(keys, base + lo).to(torch.int32)
+        hi_rank = torch.searchsorted(keys, base + hi, right=True).to(torch.int32)
+        live = hi_rank > lo_rank
+        start = _rank_to_point(index, lo_rank)
+        end = _rank_to_point(index, hi_rank)
+        cols = (torch.where(live, start, 0), torch.where(live, end - start, 0),
+                torch.where(live, hi_rank - lo_rank, 0))
+    else:
+        nbr = neighbor_rank(index, own_key[None, :] + deltas.long()[:, None])
+        live = nbr >= 0
+        nbr_c = torch.clamp(nbr, min=0).long()
+        wc = torch.where(live, index.cell_count[nbr_c], 0)
+        cols = (torch.where(live, index.cell_start[nbr_c], 0), wc,
+                (wc > 0).to(torch.int32))
+    out = []
+    for col in cols:
+        tab = col.new_zeros((col.shape[0], npts), dtype=torch.int32)
+        tab[:, :ncells] = col
+        out.append(tab)
+    return tuple(out)
+
+
+def cell_window_tables(index: GridIndex, deltas, *, merged: bool, tag):
+    """Per-cell descriptor tables (``_cell_window_table_device``), cached
+    per index under ``wintab/{merged}/{tag}``. ``deltas`` is the linearized
+    offset table, or the (3, n_off) merged table; ``tag`` tells apart
+    offset tables that share ``merged`` (the drivers pass ``unicomp``)."""
+    return index_cached(
+        index, f"wintab/{bool(merged)}/{tag}",
+        lambda: _cell_window_table_device(index, deltas, merged=merged))
+
+
+# ---------------------------------------------------------------------------
 # Occupancy bucketing: query rows partition into capacity classes so each
 # launch pads its windows to its class's capacity, not the global maximum.
 # ---------------------------------------------------------------------------

@@ -26,6 +26,11 @@ def eps_squared(eps):
     return eps * eps
 
 
+def l2_sq_hits(d2, eps):
+    """``d2 <= eps^2`` against an unsquared threshold (the oracle form)."""
+    return d2 <= eps_squared(eps)
+
+
 def l2_sq_hits_presquared(d2, eps2):
     """``d2 <= eps2`` against an already-squared threshold."""
     return d2 <= eps2

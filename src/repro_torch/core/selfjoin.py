@@ -12,9 +12,16 @@ fill:
      hit plane, per-row counts and per-tile slot bases;
   4. emit the pairs from the hit plane, with no second distance pass.
 
-Only ``distance_impl="fused"`` with the L2 metric and the ``"dense"`` count
-route is ported so far; the other options of the JAX package raise
-``NotImplementedError`` naming their ROADMAP item.
+On data with two or more points a cell the launches take the cell-run loop
+(``_join_run_loop``): descriptors are gathered from per-cell tables and the
+kernel reads each window once per run of rows that share a cell.
+``self_join_batched`` is the paper's batching scheme (SV-A): launches are cut
+to a third of the rows (by default) and each batch's pairs go to the host
+while the next batch runs.
+
+Only ``distance_impl="fused"`` with the L2 metric and the ``"dense"`` and
+``"dense-run"`` count routes is ported so far; the other options of the JAX
+package raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,9 +33,11 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.grid import (GridIndex, build_grid, global_window_cap,
-                                   host_dims, occupancy_plan,
-                                   point_last_coords, range_window_descriptors,
+from repro_torch.core.grid import (GridIndex, RunPlan, build_grid,
+                                   cell_run_plan, cell_window_tables,
+                                   global_window_cap, host_dims,
+                                   occupancy_plan, point_last_coords,
+                                   range_window_descriptors,
                                    range_window_descriptors_at, resolve_device,
                                    round_up, row_major_strides,
                                    window_descriptors, window_descriptors_at)
@@ -50,7 +59,13 @@ class JoinStats:
     candidates_checked: int   # candidate slots with a real point
     offsets: int              # stencil offsets swept
     route: str = "dense"      # the count route that ran
-    dma_windows_issued: int = 0  # windows read: n_off * rows over launches
+    # Window reads of the sweep, named as in the JAX package, where each was
+    # a DMA: n_off * runs over all launches with the run loop, n_off * rows
+    # without; and the bytes the run loop did not read again (n_off * (rows -
+    # runs) windows of c rows of the padded points). On the card they count
+    # window reads from device memory, not DMAs.
+    dma_windows_issued: int = 0
+    dma_bytes_saved: int = 0
 
 
 def _offset_tables(index: GridIndex, unicomp: bool):
@@ -82,7 +97,9 @@ def _resolve_index(points, eps, index: Optional[GridIndex],
                    device: torch.device) -> GridIndex:
     if index is None:
         return build_grid(points, float(eps), device=device)
-    if index.device != device:
+    # "cuda" names the current card, and an index lies on "cuda:<n>"
+    if index.device.type != device.type or device.index not in (
+            None, index.device.index):
         raise ValueError(f"index lies on {index.device}, the join was asked "
                          f"to run on {device}")
     return index
@@ -108,12 +125,17 @@ def _fused_prep(index: GridIndex, points_pad, deltas, q_start: int, *,
         ok = torch.arange(qp, device=index.device) < q_limit
         wc = torch.where(ok, wc, 0)
         wcells = torch.where(ok, wcells, 0)
+    q_batch = _query_slice(points_pad, q_start, qp)
+    q_pos = q_start + torch.arange(qp, dtype=torch.int32, device=index.device)
+    return ws, wc, wcells, q_batch, q_pos
+
+
+def _query_slice(points_pad, q_start: int, qp: int):
     q_batch = points_pad[q_start:q_start + qp]
     if q_batch.shape[0] != qp:
         raise ValueError(f"points_pad has no room for rows [{q_start}, "
                          f"{q_start + qp}): its tail is too short")
-    q_pos = q_start + torch.arange(qp, dtype=torch.int32, device=index.device)
-    return ws, wc, wcells, q_batch, q_pos
+    return q_batch
 
 
 def _fused_bucket_prep(index: GridIndex, points_pad, deltas, sel, nsel: int,
@@ -131,6 +153,52 @@ def _fused_bucket_prep(index: GridIndex, points_pad, deltas, sel, nsel: int,
     return ws, wc, wcells, points_pad[q_pos.long()], q_pos
 
 
+def _table_gather(index: GridIndex, tables, q_pos, ok):
+    """(ws, wc, wcells) of each row, gathered from the per-cell tables at
+    the row's cell rank; rows that are not ``ok`` get count-0 windows."""
+    tab_ws, tab_wc, tab_wcells = tables
+    npts = index.num_points
+    rank = index.point_cell_rank[torch.clamp(q_pos, max=npts - 1).long()]
+    rank = rank.long()
+    ws = tab_ws[:, rank]
+    wc = torch.where(ok[None, :], tab_wc[:, rank], 0)
+    wcells = torch.where(ok[None, :], tab_wcells[:, rank], 0)
+    return ws, wc, wcells
+
+
+def _fused_table_prep(index: GridIndex, points_pad, tables, q_start: int, *,
+                      qp: int, q_limit: int):
+    """Run-mode prep of a contiguous batch: descriptors gathered from the
+    per-cell tables (``grid.cell_window_tables``) instead of one
+    searchsorted per row and offset. Live rows get ``_fused_prep``'s
+    descriptors; dead rows keep a window start no consumer reads."""
+    npts = index.num_points
+    q_pos = q_start + torch.arange(qp, dtype=torch.int32, device=index.device)
+    ok = (q_pos < npts) & (torch.arange(qp, device=index.device) < q_limit)
+    ws, wc, wcells = _table_gather(index, tables, q_pos, ok)
+    return ws, wc, wcells, _query_slice(points_pad, q_start, qp), q_pos
+
+
+def _fused_table_bucket_prep(index: GridIndex, points_pad, tables, sel,
+                             nsel: int, *, qp: int):
+    """Run-mode prep of an occupancy bucket (see ``_fused_table_prep``);
+    mirrors ``_fused_bucket_prep`` row for row."""
+    q_ok = torch.arange(qp, device=index.device) < nsel
+    q_pos = torch.clamp(sel, max=index.num_points - 1).to(torch.int32)
+    ws, wc, wcells = _table_gather(index, tables, q_pos, q_ok)
+    return ws, wc, wcells, points_pad[q_pos.long()], q_pos
+
+
+def _launch_run_plan(index: GridIndex, q_pos, *, tile: int) -> RunPlan:
+    """Cell-run plan of one launch, from the cell ranks of its rows'
+    (clamped) sorted positions ``q_pos``, on the index's device. Padding
+    rows group with whatever cell their clamped position lands in; their
+    windows are count 0, so any grouping of them is inert."""
+    npts = index.num_points
+    rank = index.point_cell_rank[torch.clamp(q_pos, max=npts - 1).long()]
+    return cell_run_plan(rank, tile)
+
+
 def _fused_pad(index: GridIndex, *, q_size: int, c: int,
                q_start_max: int = 0, tq: int = TQ_DEFAULT,
                merged: bool = False):
@@ -143,55 +211,104 @@ def _fused_pad(index: GridIndex, *, q_size: int, c: int,
     return pad_points(index.points_sorted, tail, last_coord=lc), qp
 
 
-def _launch_prep(index: GridIndex, points_pad, deltas, launch, *,
-                 merged: bool):
-    """Descriptors and query rows of one launch (either kind)."""
-    sel, q_start, q_size, qp, _, _ = launch
+def _launch_positions(index: GridIndex, launch) -> torch.Tensor:
+    """(qp,) int32 sorted positions of a launch's rows on the index's
+    device: ``q_start + arange`` for a contiguous batch, the bucket's
+    selection padded with zeros otherwise."""
+    sel, q_start, _, qp, _, _ = launch
     if sel is None:
-        return _fused_prep(index, points_pad, deltas, q_start, qp=qp,
-                           q_limit=max(q_size, 1), merged=merged)
+        return q_start + torch.arange(qp, dtype=torch.int32,
+                                      device=index.device)
     sel_pad = np.zeros(qp, np.int32)
     sel_pad[:sel.shape[0]] = sel
-    return _fused_bucket_prep(index, points_pad, deltas,
-                              torch.as_tensor(sel_pad).to(index.device),
+    return torch.as_tensor(sel_pad).to(index.device)
+
+
+def _launch_prep(index: GridIndex, points_pad, deltas, launch, *,
+                 merged: bool, tables=None):
+    """Descriptors and query rows of one launch (either kind); ``tables``
+    (``grid.cell_window_tables``) gathers the descriptors per cell."""
+    sel, q_start, q_size, qp, _, _ = launch
+    if sel is None:
+        if tables is not None:
+            return _fused_table_prep(index, points_pad, tables, q_start,
+                                     qp=qp, q_limit=max(q_size, 1))
+        return _fused_prep(index, points_pad, deltas, q_start, qp=qp,
+                           q_limit=max(q_size, 1), merged=merged)
+    sel_dev = _launch_positions(index, launch)
+    if tables is not None:
+        return _fused_table_bucket_prep(index, points_pad, tables, sel_dev,
+                                        sel.shape[0], qp=qp)
+    return _fused_bucket_prep(index, points_pad, deltas, sel_dev,
                               sel.shape[0], qp=qp, merged=merged)
 
 
 def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
-                  unicomp: bool, keep_hits: bool, merged: bool):
+                  unicomp: bool, keep_hits: bool, merged: bool,
+                  run_loop: bool = False):
     """One launch through the fused kernel at its capacity (the JAX
-    package's ``_fused_batch_run`` and ``_fused_bucket_launch``)."""
+    package's ``_fused_batch_run`` and ``_fused_bucket_launch``). With
+    ``run_loop`` the descriptors come from the per-cell tables and the
+    kernel reads one window per cell run; the run plan is returned too
+    (None without)."""
     _, _, _, _, c, tile = launch
+    plan = None
     with record_function("self_join.plan"):
+        tables = (cell_window_tables(index, deltas, merged=merged,
+                                     tag=unicomp) if run_loop else None)
         ws, wc, wcells, q_batch, q_pos = _launch_prep(
-            index, points_pad, deltas, launch, merged=merged)
+            index, points_pad, deltas, launch, merged=merged, tables=tables)
+        if run_loop:
+            plan = _launch_run_plan(index, q_pos, tile=tile)
     with record_function("self_join.kernel"):
         hits, counts, base = ops.fused_join_hits(
             points_pad, q_batch, ws, wc, is_zero, q_pos, index.eps, c=c,
             n_real=index.n_dims, unicomp=unicomp, merged=merged, tq=tile,
-            keep_hits=keep_hits)
-    return ws, wc, wcells, hits, counts, base, q_pos
+            keep_hits=keep_hits,
+            run_ord=None if plan is None else plan.run_ord,
+            run_loop=run_loop)
+    return ws, wc, wcells, hits, counts, base, q_pos, plan
 
 
-def _fused_launches(index: GridIndex, *, bucketed: Optional[bool],
-                    merged: bool = False):
+def _fused_launches(index: GridIndex, *, n_batches: int = 1,
+                    bucketed: Optional[bool] = None, merged: bool = False):
     """The launch schedule of one fused sweep: one launch per occupancy
-    bucket, or one contiguous launch when the plan has a single class.
-    Returns (launches, points_pad, c_global)."""
+    bucket, or contiguous batches when the plan has a single class; either
+    is cut to ``ceil(npts / n_batches)`` rows a launch (``n_batches``
+    clamped to [1, npts]). Returns (launches, points_pad, c_global), each
+    launch (sel | None, q_start, q_size, qp, c, tile)."""
     npts = index.num_points
     c_glob = global_window_cap(index, merged)
+    n_batches = max(min(int(n_batches), max(npts, 1)), 1)
+    batch_rows = -(-max(npts, 1) // n_batches)  # ceil
     if bucketed is None:
         bucketed = True
     plan = occupancy_plan(index, merged=merged) if bucketed else None
+    tile = TQ_DEFAULT
     if plan is None or plan.sel[0] is None:
         cap = c_glob if plan is None else plan.caps[0]
-        points_pad, qp = _fused_pad(index, q_size=npts, c=c_glob,
-                                    tq=TQ_DEFAULT, merged=merged)
-        return [(None, 0, npts, qp, cap, TQ_DEFAULT)], points_pad, c_glob
+        points_pad, qp = _fused_pad(
+            index, q_size=batch_rows, c=c_glob, tq=tile,
+            q_start_max=(n_batches - 1) * batch_rows, merged=merged)
+        launches = [(None, b * batch_rows,
+                     min(batch_rows, npts - b * batch_rows), qp, cap, tile)
+                    for b in range(n_batches)]
+        return launches, points_pad, c_glob
     points_pad, _ = _fused_pad(index, q_size=1, c=c_glob, merged=merged)
-    launches = [(sel, 0, sel.shape[0], round_up(sel.shape[0], TQ_DEFAULT),
-                 cap, TQ_DEFAULT) for cap, sel in zip(plan.caps, plan.sel)]
+    launches = []
+    for cap, sel in zip(plan.caps, plan.sel):
+        for i in range(0, sel.shape[0], batch_rows):
+            piece = sel[i:i + batch_rows]
+            launches.append((piece, 0, piece.shape[0],
+                             round_up(piece.shape[0], tile), cap, tile))
     return launches, points_pad, c_glob
+
+
+def _join_run_loop(index: GridIndex) -> bool:
+    """The run loop pays when cells hold two or more points on average;
+    below that runs are single rows and the run bookkeeping is overhead.
+    The pair set is the row loop's either way."""
+    return index.num_points >= 2 * max(int(index.num_cells), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -248,26 +365,67 @@ def sort_pairs(pairs: torch.Tensor, n_ids: int) -> torch.Tensor:
 # Drivers
 # ---------------------------------------------------------------------------
 
+class _HostCopies:
+    """Device-to-host copies of each batch's pairs on a side stream, so a
+    copy overlaps the launches queued after it (the paper's SV-A overlap).
+    On the CPU the chunks are kept as they are."""
+
+    def __init__(self, device: torch.device):
+        self.chunks = []
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def put(self, chunk: torch.Tensor) -> None:
+        if self.stream is None:
+            self.chunks.append(chunk)
+            return
+        host = torch.empty(chunk.shape, dtype=chunk.dtype, pin_memory=True)
+        self.stream.wait_stream(torch.cuda.current_stream(chunk.device))
+        with torch.cuda.stream(self.stream):
+            host.copy_(chunk, non_blocking=True)
+        # the allocator must not hand the chunk's memory to the main stream
+        # before the copy has read it
+        chunk.record_stream(self.stream)
+        self.chunks.append(host)
+
+    def result(self) -> torch.Tensor:
+        if self.stream is not None:
+            self.stream.synchronize()
+        if not self.chunks:
+            return torch.empty((0, 2), dtype=torch.int32)
+        return torch.cat(self.chunks, dim=0)
+
+
 def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
-                     bucketed: Optional[bool] = None,
-                     merged: bool = True) -> torch.Tensor:
+                     n_batches: int = 1, bucketed: Optional[bool] = None,
+                     merged: bool = True, run_loop: Optional[bool] = None,
+                     to_host: bool = False) -> torch.Tensor:
     """Single-pass count -> fill driver for ``distance_impl="fused"``.
 
     Each launch's kernel returns its hit plane and counts; the result size
     follows from the counts and the fill only compacts the same plane, on
-    the index's device. Every bucketing and sweep choice gives the same
-    pair set. The stages run inside ``torch.profiler.record_function``
-    spans (``self_join.plan``, ``.kernel``, ``.emit``) that a profiler
-    groups its time by.
+    the index's device. Every bucketing, batching, sweep and loop choice
+    gives the same pair set. ``run_loop=None`` takes the cell-run loop when
+    ``_join_run_loop`` says so. ``n_batches`` cuts every launch to that
+    share of the rows; ``to_host`` copies each launch's pairs to the host
+    while the next launch runs and returns a CPU tensor, so the device
+    holds one batch's result at a time.
+
+    The stages run inside ``torch.profiler.record_function`` spans
+    (``self_join.plan``, ``.kernel``, ``.emit``) that a profiler groups its
+    time by.
     """
+    if run_loop is None:
+        run_loop = _join_run_loop(index)
     with record_function("self_join.plan"):
         if merged:
             deltas, is_zero = _merged_offset_tables(index, unicomp)
         else:
             deltas, is_zero = _offset_tables(index, unicomp)
-        launches, points_pad, _ = _fused_launches(index, bucketed=bucketed,
-                                                  merged=merged)
+        launches, points_pad, _ = _fused_launches(
+            index, n_batches=n_batches, bucketed=bucketed, merged=merged)
     mult = 2 if unicomp else 1
+    host = _HostCopies(index.device) if to_host else None
 
     def finish(run):
         """Drain one launch; the next launch is already queued."""
@@ -277,20 +435,24 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
             keys, vals = _emit_from_hits(
                 index, index.order, hits, counts, base, ws, q_pos, c=cap,
                 tq=tile, unicomp=unicomp, capacity=max(ordered, 1))
-            return torch.stack([keys[:ordered], vals[:ordered]], dim=1)
+            chunk = torch.stack([keys[:ordered], vals[:ordered]], dim=1)
+            if host is None:
+                chunks.append(chunk)
+            else:
+                host.put(chunk)
 
     chunks = []
     prev = None
     for launch in launches:
-        ws, _, _, hits, counts, base, q_pos = _fused_launch(
+        ws, _, _, hits, counts, base, q_pos, _ = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
-            keep_hits=True, merged=merged)
+            keep_hits=True, merged=merged, run_loop=run_loop)
         if prev is not None:
-            chunks.append(finish(prev))
+            finish(prev)
         prev = (ws, hits, counts, base, q_pos, launch[4], launch[5])
-    chunks.append(finish(prev))
+    finish(prev)
     with record_function("self_join.emit"):
-        out = torch.cat(chunks, dim=0)
+        out = host.result() if host is not None else torch.cat(chunks, dim=0)
         if sort_result:
             out = sort_pairs(out, index.num_points)
     return out
@@ -299,11 +461,14 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
 def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
                            query_batch: Optional[int] = None,
                            bucketed: Optional[bool] = None,
-                           merged: bool = True) -> JoinStats:
+                           merged: bool = True,
+                           run_loop: bool = False) -> JoinStats:
     """Count-only fused sweep (no hit plane). Occupancy-bucketed by
     default; an explicit ``query_batch`` runs contiguous batches at the
     global capacity (the paper's SV-A memory bound). Merged and per-cell
-    sweeps report the same totals, cells and candidates."""
+    sweeps report the same totals, cells and candidates. ``run_loop`` (the
+    ``"dense-run"`` route) reads windows once per cell run: the same totals
+    and counters, with the window reads it issued and saved."""
     if merged:
         deltas, is_zero = _merged_offset_tables(index, unicomp)
     else:
@@ -322,18 +487,68 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
     else:
         launches, points_pad, _ = _fused_launches(index, bucketed=bucketed,
                                                   merged=merged)
-    total = cells = cands = dma_windows = 0
+    row_bytes = points_pad.shape[1] * points_pad.element_size()
+    total = cells = cands = dma_windows = dma_saved = 0
     for launch in launches:
-        _, wc, wcells, _, counts, _, _ = _fused_launch(
+        _, wc, wcells, _, counts, _, _, plan = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
-            keep_hits=False, merged=merged)
-        dma_windows += n_off * launch[3]
+            keep_hits=False, merged=merged, run_loop=run_loop)
+        qp, cap = launch[3], launch[4]
+        if plan is None:
+            dma_windows += n_off * qp
+        else:
+            runs = plan.n_runs
+            dma_windows += n_off * runs
+            dma_saved += n_off * (qp - runs) * cap * row_bytes
         total += mult * int(counts.sum(dtype=torch.int64))
         cells += int(wcells.sum(dtype=torch.int64))
         cands += int(wc.sum(dtype=torch.int64))
     return JoinStats(total_pairs=total, cells_visited=cells,
-                     candidates_checked=cands, offsets=n_off, route="dense",
-                     dma_windows_issued=dma_windows)
+                     candidates_checked=cands, offsets=n_off,
+                     route="dense-run" if run_loop else "dense",
+                     dma_windows_issued=dma_windows, dma_bytes_saved=dma_saved)
+
+
+def dma_window_stats(index: GridIndex, *, unicomp: bool = True,
+                     merged: bool = True,
+                     bucketed: Optional[bool] = None) -> dict:
+    """Window-read accounting of one fused sweep's schedule, without running
+    a kernel: the windows a row loop reads (``n_off * rows``), those the
+    run loop reads (``n_off * runs``), the bytes the run loop saves, the
+    run-length histogram and the mean cell occupancy the reduction should
+    track. The keys are the JAX package's (``dma_*``); on the card they
+    count window reads from device memory."""
+    if merged:
+        deltas, _ = _merged_offset_tables(index, unicomp)
+    else:
+        deltas, _ = _offset_tables(index, unicomp)
+    n_off = int(deltas.shape[-1])
+    launches, points_pad, _ = _fused_launches(index, bucketed=bucketed,
+                                              merged=merged)
+    row_bytes = points_pad.shape[1] * points_pad.element_size()
+    rows = runs = saved = 0
+    hist: dict = {}
+    for launch in launches:
+        _, _, _, qp, cap, tile = launch
+        plan = _launch_run_plan(index, _launch_positions(index, launch),
+                                tile=tile)
+        n_runs = plan.n_runs
+        rows += n_off * qp
+        runs += n_off * n_runs
+        saved += n_off * (qp - n_runs) * cap * row_bytes
+        lens, cnts = torch.unique(plan.run_lengths, return_counts=True)
+        for ln, cnt in zip(lens.tolist(), cnts.tolist()):
+            hist[ln] = hist.get(ln, 0) + cnt
+    return {
+        "offsets": n_off,
+        "dma_windows_row": int(rows),
+        "dma_windows_run": int(runs),
+        "dma_bytes_saved": int(saved),
+        "reduction_factor": rows / max(runs, 1),
+        "mean_cell_occupancy": (index.num_points
+                                / max(int(index.num_cells), 1)),
+        "run_length_hist": {str(k): v for k, v in sorted(hist.items())},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -388,29 +603,51 @@ def self_join_count(points, eps, *, unicomp: bool = True,
                     metric: str = "l2", device=None) -> JoinStats:
     """Total ordered-pair count and work counters, without the pairs.
 
-    Runs the ``"dense"`` route: the occupancy-bucketed fused sweep, with
-    no hit plane. ``route=None`` means ``"dense"``; the JAX package's other
-    routes are not ported yet (ROADMAP A11, and A6 for "dense-run").
-    ``distance_impl`` defaults to ``"fused"``, the only implementation the
-    port has. ``device`` as in ``self_join``.
+    Runs the ``"dense"`` route (``route=None`` means it): the
+    occupancy-bucketed fused sweep, with no hit plane; ``"dense-run"`` is
+    the same sweep through the cell-run loop, with the same totals and
+    counters and its window-read accounting. The JAX package's other
+    routes are not ported yet (ROADMAP A11). ``distance_impl`` defaults to
+    ``"fused"``, the only implementation the port has. ``device`` as in
+    ``self_join``.
     """
     if route is not None and route not in _ROUTES:
         raise ValueError(f"unknown route {route!r}; expected one of {_ROUTES}")
-    if route not in (None, "dense"):
-        item = "A6" if route == "dense-run" else "A11"
+    if route not in (None, "dense", "dense-run"):
         raise NotImplementedError(
-            f"route {route!r} is not ported yet (ROADMAP {item}); the "
-            f"PyTorch port has 'dense' only")
+            f"route {route!r} is not ported yet (ROADMAP A11); the PyTorch "
+            f"port has 'dense' and 'dense-run'")
     _check_impl(distance_impl, metric)
     dev = resolve_device(device)
     index = _resolve_index(points, eps, index, dev)
     return _self_join_count_fused(index, unicomp=unicomp,
                                   query_batch=query_batch, bucketed=bucketed,
-                                  merged=_resolve_merge(index, merge_last_dim))
+                                  merged=_resolve_merge(index, merge_last_dim),
+                                  run_loop=route == "dense-run")
 
 
-def self_join_batched(*args, **kwargs):
-    """The batched, overlapped self-join of the JAX package (paper SV-A) is
-    not ported yet."""
-    raise NotImplementedError("self_join_batched is not ported yet "
-                              "(ROADMAP A4, batched driver)")
+def self_join_batched(points, eps, *, unicomp: bool = True,
+                      n_batches: int = 3, index: Optional[GridIndex] = None,
+                      distance_impl: str = "fused", sort_result: bool = True,
+                      bucketed: Optional[bool] = None,
+                      merge_last_dim: Optional[bool] = None,
+                      device=None) -> torch.Tensor:
+    """The paper's batching scheme (SV-A): every launch is cut to
+    ``ceil(N / n_batches)`` query rows, and each batch's pairs are copied
+    to the host while the next batch runs. Device memory then holds one
+    batch's planes and result, not the whole result, so result sets larger
+    than the card complete.
+
+    Returns the (K, 2) int32 pairs as a CPU tensor (the JAX package returns
+    numpy), the pair set of ``self_join``; ``sort_result`` sorts them on
+    the host. ``distance_impl`` "jnp" and "pallas" are not ported yet
+    (ROADMAP A12). ``device`` as in ``self_join``.
+    """
+    _check_impl(distance_impl, "l2")
+    dev = resolve_device(device)
+    with record_function("self_join.grid"):
+        index = _resolve_index(points, eps, index, dev)
+    return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
+                            n_batches=n_batches, bucketed=bucketed,
+                            merged=_resolve_merge(index, merge_last_dim),
+                            to_host=True)

@@ -8,6 +8,10 @@ rebuilds and an unchanged one is reused. The build runs at first use.
 
 ``-fmad=false`` is part of the contract: the kernels reproduce the plain
 PyTorch versions bit for bit, and those never contract a multiply-add.
+``-cudart shared`` links the CUDA runtime that PyTorch loads, rather than a
+static copy, so the launches go through the runtime the profiler traces.
+
+``build_all`` starts one ``nvcc`` per source at once and waits for all.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-cudart", "shared", "-Xptxas", "-v",
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("fused_join", "distance_tile")
 
 _LIBS: dict = {}
 
@@ -51,29 +56,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns the
-    library path and the compiler's output (empty when nothing was built:
-    ``-Xptxas -v`` reports registers and shared memory per kernel)."""
-    out = library_path(name)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+def build_all(names=SOURCES) -> dict:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist, all
+    at once. Returns {name: (library path, compiler output)}; the output is
+    empty when nothing was built (``-Xptxas -v`` reports registers and
+    shared memory per kernel)."""
+    out, procs = {}, {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = (lib, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{name}.cu:\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        path, _ = build(name)
+        path, _ = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib

@@ -42,6 +42,20 @@
 //   * no double-buffered window copies yet: windows are read straight from
 //     global memory through L1/L2 (the TPU kernel's two-slot DMA pipeline is
 //     the later cp.async/TMA work).
+//
+// The run loop (RUN_LOOP, the TPU kernel's run_loop variant). On the TPU it
+// issues one window DMA per run of rows that share a cell (equal run_ord)
+// instead of one per row. Here the block stages each run's window
+// points_pad[win_start[j, head] : + c] (the coordinate lanes and the merged
+// lane only) in shared memory once per offset, and every row of the run
+// refines against that copy. Runs and slots are staged in chunks that fit
+// stage_bytes of shared memory (a run of c slots, or c-slot segments when a
+// whole window does not fit), so any capacity works within the 48 KiB a
+// launch gets by default. Every row still masks with its own win_start /
+// win_count, and a row whose window is not its head's (a plan that breaks
+// the shared-window contract) reads global memory, so the result is the row
+// loop's, bit for bit. Runs are found from changes of run_ord inside the
+// tile, whatever its values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +71,24 @@ __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 
-template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS>
+// One slot's refine and masks, in the plain version's order of operations.
+template <typename T, bool MERGED, bool UNICOMP>
+__device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
+                                            int n_real, bool zero, int cand,
+                                            int qpos) {
+  T d2 = T(0);
+  for (int k = 0; k < n_real; ++k) {
+    const T t = sub_rn(q[k], p[k]);
+    d2 = add_rn(d2, mul_rn(t, t));
+  }
+  bool hit = d2 <= eps2;
+  if (MERGED) hit = hit && fabs(sub_rn(p[n_real], q[n_real])) <= T(1);
+  if (UNICOMP) hit = hit && (!zero || cand > qpos);
+  else hit = hit && cand != qpos;
+  return hit;
+}
+
+template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS, bool RUN_LOOP>
 __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const T* __restrict__ points_pad,   // (rows, lanes)
     const T* __restrict__ q_batch,      // (qp, lanes)
@@ -65,17 +96,24 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const int* __restrict__ win_count,  // (n_off, qp)
     const int* __restrict__ is_zero,    // (n_off,)
     const int* __restrict__ q_pos,      // (qp,)
+    const int* __restrict__ run_ord,    // (qp,), RUN_LOOP only
     const T* __restrict__ scal,         // (1,) eps^2 in T
     int8_t* __restrict__ hits,          // (n_off, qp, c), KEEP_HITS only
     int* __restrict__ counts,           // (qp,)
     int* __restrict__ slot_base,        // (qp,)
-    int n_off, int qp, int c, int n_real, int lanes, int tq) {
+    int n_off, int qp, int c, int n_real, int lanes, int tq,
+    int stage_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);                        // tq * lanes
-  int* cnt_s = reinterpret_cast<int*>(q_s + (size_t)tq * lanes);  // tq
+  T* stage = q_s + (size_t)tq * lanes;                        // RUN_LOOP
+  int* cnt_s = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(stage) + (RUN_LOOP ? stage_bytes : 0));
   int* ws_s = cnt_s + tq;                                     // tq
   int* wc_s = ws_s + tq;                                      // tq
   int* qpos_s = wc_s + tq;                                    // tq
+  int* run_of_s = qpos_s + tq;                                // tq, RUN_LOOP
+  int* run_start_s = run_of_s + tq;                           // tq + 1
+  int* nruns_s = run_start_s + tq + 1;                        // 1
 
   const int row0 = blockIdx.x * tq;
   for (int i = threadIdx.x; i < tq * lanes; i += blockDim.x)
@@ -83,9 +121,29 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
   for (int r = threadIdx.x; r < tq; r += blockDim.x) {
     cnt_s[r] = 0;
     qpos_s[r] = q_pos[row0 + r];
+    if (RUN_LOOP) run_of_s[r] = run_ord[row0 + r];
+  }
+  if (RUN_LOOP) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // runs of the tile: a new run wherever the ordinal changes; the
+      // ordinals staged above become run indices in place
+      int u = -1, prev = 0;
+      for (int r = 0; r < tq; ++r) {
+        const int o = run_of_s[r];
+        if (r == 0 || o != prev) run_start_s[++u] = r;
+        run_of_s[r] = u;
+        prev = o;
+      }
+      run_start_s[u + 1] = tq;
+      *nruns_s = u + 1;
+    }
   }
   const T eps2 = scal[0];
-  const int work = tq * c;
+  const int n_use = n_real + (MERGED ? 1 : 0);   // lanes a refine reads
+  const int stage_rows = stage_bytes / (n_use * (int)sizeof(T));
+  const int seg_cap = c < stage_rows ? c : stage_rows;  // slots per segment
+  const int runs_per_chunk = stage_rows / seg_cap;
 
   for (int j = 0; j < n_off; ++j) {
     __syncthreads();  // the previous offset's readers of ws_s / wc_s are done
@@ -96,26 +154,65 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     __syncthreads();
     const bool zero = is_zero[j] != 0;
     int8_t* hits_j = hits + ((size_t)j * qp + row0) * c;
-    for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
-      const int r = idx / c;
-      const int s = idx - r * c;
-      bool hit = false;
-      if (s < wc_s[r]) {
-        const int cand = ws_s[r] + s;
-        const T* p = points_pad + (size_t)cand * lanes;
-        const T* q = q_s + r * lanes;
-        T d2 = T(0);
-        for (int k = 0; k < n_real; ++k) {
-          const T t = sub_rn(q[k], p[k]);
-          d2 = add_rn(d2, mul_rn(t, t));
+    if (!RUN_LOOP) {
+      const int work = tq * c;
+      for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
+        const int r = idx / c;
+        const int s = idx - r * c;
+        bool hit = false;
+        if (s < wc_s[r]) {
+          const int cand = ws_s[r] + s;
+          hit = refine_slot<T, MERGED, UNICOMP>(
+              points_pad + (size_t)cand * lanes, q_s + r * lanes, eps2,
+              n_real, zero, cand, qpos_s[r]);
         }
-        hit = d2 <= eps2;
-        if (MERGED) hit = hit && fabs(sub_rn(p[n_real], q[n_real])) <= T(1);
-        if (UNICOMP) hit = hit && (!zero || cand > qpos_s[r]);
-        else hit = hit && cand != qpos_s[r];
+        if (KEEP_HITS) hits_j[idx] = hit ? 1 : 0;
+        if (hit) atomicAdd(&cnt_s[r], 1);
       }
-      if (KEEP_HITS) hits_j[idx] = hit ? 1 : 0;
-      if (hit) atomicAdd(&cnt_s[r], 1);
+      continue;
+    }
+    const int nruns = *nruns_s;
+    for (int u0 = 0; u0 < nruns; u0 += runs_per_chunk) {
+      const int u1 = min(u0 + runs_per_chunk, nruns);
+      const int r_lo = run_start_s[u0];
+      const int r_hi = run_start_s[u1];
+      for (int s0 = 0; s0 < c; s0 += seg_cap) {
+        const int seg = min(seg_cap, c - s0);
+        // stage the chunk's windows: slot s of run u at (u - u0) * seg_cap + s,
+        // one thread a slot, its n_use lanes in turn
+        const int stage_slots = (u1 - u0) * seg;
+        for (int t = threadIdx.x; t < stage_slots; t += blockDim.x) {
+          const int u = u0 + t / seg;
+          const int s = t - (u - u0) * seg;
+          const int h = run_start_s[u];
+          if (s0 + s < wc_s[h]) {
+            const T* src = points_pad + (size_t)(ws_s[h] + s0 + s) * lanes;
+            T* dst = stage + ((size_t)(u - u0) * seg_cap + s) * n_use;
+            for (int k = 0; k < n_use; ++k) dst[k] = src[k];
+          }
+        }
+        __syncthreads();
+        const int work = (r_hi - r_lo) * seg;
+        for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
+          const int r = r_lo + idx / seg;
+          const int s = idx - (idx / seg) * seg;
+          const int slot = s0 + s;
+          bool hit = false;
+          if (slot < wc_s[r]) {
+            const int cand = ws_s[r] + slot;
+            const int u = run_of_s[r];
+            const int h = run_start_s[u];
+            const T* p = (ws_s[r] == ws_s[h] && slot < wc_s[h])
+                ? stage + ((size_t)(u - u0) * seg_cap + s) * n_use
+                : points_pad + (size_t)cand * lanes;
+            hit = refine_slot<T, MERGED, UNICOMP>(
+                p, q_s + r * lanes, eps2, n_real, zero, cand, qpos_s[r]);
+          }
+          if (KEEP_HITS) hits_j[(size_t)r * c + slot] = hit ? 1 : 0;
+          if (hit) atomicAdd(&cnt_s[r], 1);
+        }
+        __syncthreads();  // the stage is read before the next chunk fills it
+      }
     }
   }
   __syncthreads();
@@ -130,59 +227,71 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
 struct Args {
   const void* points_pad; const void* q_batch;
   const void* win_start; const void* win_count; const void* is_zero;
-  const void* q_pos; const void* scal;
+  const void* q_pos; const void* run_ord; const void* scal;
   void* hits; void* counts; void* slot_base;
-  int n_off, qp, c, n_real, lanes, tq;
+  int n_off, qp, c, n_real, lanes, tq, stage_bytes;
 };
 
-template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS>
+template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS, bool RUN_LOOP>
 void launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)a.tq * a.lanes * sizeof(T) + 4 * a.tq * sizeof(int);
-  fused_join_kernel<T, MERGED, UNICOMP, KEEP_HITS>
+  const size_t smem = (size_t)a.tq * a.lanes * sizeof(T) + 4 * a.tq * sizeof(int)
+      + (RUN_LOOP ? (size_t)a.stage_bytes + (2 * a.tq + 2) * sizeof(int) : 0);
+  fused_join_kernel<T, MERGED, UNICOMP, KEEP_HITS, RUN_LOOP>
       <<<a.qp / a.tq, kThreads, smem, stream>>>(
           static_cast<const T*>(a.points_pad), static_cast<const T*>(a.q_batch),
           static_cast<const int*>(a.win_start), static_cast<const int*>(a.win_count),
           static_cast<const int*>(a.is_zero), static_cast<const int*>(a.q_pos),
-          static_cast<const T*>(a.scal), static_cast<int8_t*>(a.hits),
-          static_cast<int*>(a.counts), static_cast<int*>(a.slot_base),
-          a.n_off, a.qp, a.c, a.n_real, a.lanes, a.tq);
+          static_cast<const int*>(a.run_ord), static_cast<const T*>(a.scal),
+          static_cast<int8_t*>(a.hits), static_cast<int*>(a.counts),
+          static_cast<int*>(a.slot_base),
+          a.n_off, a.qp, a.c, a.n_real, a.lanes, a.tq, a.stage_bytes);
+}
+
+template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS>
+void launch_run(const Args& a, bool run_loop, cudaStream_t s) {
+  if (run_loop) launch<T, MERGED, UNICOMP, KEEP_HITS, true>(a, s);
+  else launch<T, MERGED, UNICOMP, KEEP_HITS, false>(a, s);
 }
 
 template <typename T, bool MERGED, bool UNICOMP>
-void launch_keep(const Args& a, bool keep_hits, cudaStream_t s) {
-  if (keep_hits) launch<T, MERGED, UNICOMP, true>(a, s);
-  else launch<T, MERGED, UNICOMP, false>(a, s);
+void launch_keep(const Args& a, bool keep_hits, bool run_loop, cudaStream_t s) {
+  if (keep_hits) launch_run<T, MERGED, UNICOMP, true>(a, run_loop, s);
+  else launch_run<T, MERGED, UNICOMP, false>(a, run_loop, s);
 }
 
 template <typename T, bool MERGED>
-void launch_unicomp(const Args& a, bool unicomp, bool keep_hits, cudaStream_t s) {
-  if (unicomp) launch_keep<T, MERGED, true>(a, keep_hits, s);
-  else launch_keep<T, MERGED, false>(a, keep_hits, s);
+void launch_unicomp(const Args& a, bool unicomp, bool keep_hits, bool run_loop,
+                    cudaStream_t s) {
+  if (unicomp) launch_keep<T, MERGED, true>(a, keep_hits, run_loop, s);
+  else launch_keep<T, MERGED, false>(a, keep_hits, run_loop, s);
 }
 
 template <typename T>
 void launch_merged(const Args& a, bool merged, bool unicomp, bool keep_hits,
-                   cudaStream_t s) {
-  if (merged) launch_unicomp<T, true>(a, unicomp, keep_hits, s);
-  else launch_unicomp<T, false>(a, unicomp, keep_hits, s);
+                   bool run_loop, cudaStream_t s) {
+  if (merged) launch_unicomp<T, true>(a, unicomp, keep_hits, run_loop, s);
+  else launch_unicomp<T, false>(a, unicomp, keep_hits, run_loop, s);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
 // launch was accepted). The Python wrapper validates shapes and dtypes
-// (qp % tq == 0, lanes > n_real when merged); the self-join driver pads
-// points_pad with a tail of at least c rows, so every window read is in bounds.
+// (qp % tq == 0, lanes > n_real when merged, run_ord with run_loop) and the
+// shared-memory total; the self-join driver pads points_pad with a tail of
+// at least c rows, so every window read is in bounds.
 extern "C" int fused_join_launch(
-    int is_double, int merged, int unicomp, int keep_hits,
+    int is_double, int merged, int unicomp, int keep_hits, int run_loop,
     const void* points_pad, const void* q_batch, const void* win_start,
     const void* win_count, const void* is_zero, const void* q_pos,
-    const void* scal, void* hits, void* counts, void* slot_base,
-    int n_off, int qp, int c, int n_real, int lanes, int tq, void* stream) {
-  Args a{points_pad, q_batch, win_start, win_count, is_zero, q_pos, scal,
-         hits, counts, slot_base, n_off, qp, c, n_real, lanes, tq};
+    const void* run_ord, const void* scal, void* hits, void* counts,
+    void* slot_base, int n_off, int qp, int c, int n_real, int lanes, int tq,
+    int stage_bytes, void* stream) {
+  Args a{points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
+         scal, hits, counts, slot_base, n_off, qp, c, n_real, lanes, tq,
+         stage_bytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) launch_merged<double>(a, merged, unicomp, keep_hits, s);
-  else launch_merged<float>(a, merged, unicomp, keep_hits, s);
+  if (is_double) launch_merged<double>(a, merged, unicomp, keep_hits, run_loop, s);
+  else launch_merged<float>(a, merged, unicomp, keep_hits, run_loop, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,12 @@ Two implementations of the same function live here:
 ``fused_join_hits`` picks by where the tensors lie: the kernel for CUDA
 tensors, the plain version for CPU tensors. There is no fallback: a kernel
 that fails to build or launch raises.
+
+With ``run_loop`` the kernel takes a cell-run plan (``grid.cell_run_plan``):
+rows of one run share their windows, so the kernel stages each run's window
+once per offset and refines all the run's rows against that copy. Every row
+still masks with its own descriptors, so the result is the row loop's; the
+plain version ignores the plan, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -35,9 +41,11 @@ from repro_torch.core import metric as metric_lib
 NP_PAD = 8        # minimum lane padding of the coordinate axis
 TQ_DEFAULT = 128  # query tile rows
 
-# Launches of the CUDA kernel since import (or since a caller reset it):
-# one per call that reaches the kernel, and nowhere else.
+# Launches of the CUDA kernel since import (or since a caller reset them):
+# one per call that reaches the kernel, and nowhere else; the second counts
+# the run-loop launches among them.
 KERNEL_LAUNCHES = 0
+RUN_LOOP_LAUNCHES = 0
 
 
 def pad_width(n_lanes: int) -> int:
@@ -115,8 +123,12 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
     return hits, counts, base
 
 
-_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# Shared memory the run loop stages windows in. With the query tile and the
+# per-row tables a 128-row f64 block then needs ~25 KiB, so eight 256-thread
+# blocks fit on an SM, as for the row loop; a 32 KiB stage let five fit.
+RUN_STAGE_BYTES = 14 * 1024
 
 
 def _kernel_library():
@@ -128,11 +140,46 @@ def _kernel_library():
     return lib
 
 
+def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
+            run_ord, scal, hits, counts, slot_base, merged, unicomp,
+            keep_hits, c, n_real, tq):
+    """The kernel launch on the current stream, as the CUDA implementation
+    of the torch op ``repro_torch::fused_join`` (below)."""
+    dev = points_pad.device
+    n_off, qp = win_start.shape
+    lib = _kernel_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_join_launch(
+            int(points_pad.dtype == torch.float64), int(merged), int(unicomp),
+            int(keep_hits), int(run_ord is not None), points_pad.data_ptr(),
+            q_batch.data_ptr(), win_start.data_ptr(), win_count.data_ptr(),
+            is_zero.data_ptr(), q_pos.data_ptr(),
+            0 if run_ord is None else run_ord.data_ptr(), scal.data_ptr(),
+            hits.data_ptr(), counts.data_ptr(), slot_base.data_ptr(), n_off,
+            qp, c, n_real, points_pad.shape[1], tq, RUN_STAGE_BYTES, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_join kernel launch failed: CUDA error {err}")
+
+
+# The launch runs inside a torch op because torch.profiler ties a kernel's
+# device time to the op that launched it, and through the op to every
+# profiler span around it; a launch made outside any op is tied to nothing.
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("fused_join(Tensor points_pad, Tensor q_batch, Tensor win_start, "
+            "Tensor win_count, Tensor is_zero, Tensor q_pos, Tensor? run_ord, "
+            "Tensor scal, Tensor(a!) hits, Tensor(b!) counts, "
+            "Tensor(c!) slot_base, bool merged, bool unicomp, bool keep_hits, "
+            "int c, int n_real, int tq) -> ()")
+_OPS.impl("fused_join", _launch, "CUDA")
+
+
 def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
-                          q_pos, scal, *, c, tq, n_real, unicomp, merged,
-                          keep_hits):
-    """Launch ``csrc/fused_join.cu`` on the current stream (no sync)."""
-    global KERNEL_LAUNCHES
+                          q_pos, run_ord, scal, *, c, tq, n_real, unicomp,
+                          merged, keep_hits):
+    """Launch ``csrc/fused_join.cu`` on the current stream (no sync);
+    ``run_ord`` None runs the row loop, a (Qp,) plan the run loop."""
+    global KERNEL_LAUNCHES, RUN_LOOP_LAUNCHES
     dev = points_pad.device
     dtype = points_pad.dtype
     n_off, qp = win_start.shape
@@ -159,6 +206,8 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
         raise ValueError(f"{lanes} lanes cannot hold {n_real} coordinates"
                          f"{' and the merged lane' if merged else ''}")
     smem = tq * lanes * points_pad.element_size() + 4 * tq * 4
+    if run_ord is not None:
+        smem += RUN_STAGE_BYTES + (2 * tq + 2) * 4
     if smem > 48 * 1024:
         raise ValueError(f"tile of {tq} rows x {lanes} lanes needs {smem} B "
                          f"of shared memory, above the 48 KiB default")
@@ -167,19 +216,11 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
     hits = (torch.empty((n_off, qp, c), dtype=torch.int8, device=dev)
             if keep_hits else
             torch.zeros((1, qp, c), dtype=torch.int8, device=dev))
-    lib = _kernel_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_join_launch(
-            int(dtype == torch.float64), int(merged), int(unicomp),
-            int(keep_hits), points_pad.data_ptr(), q_batch.data_ptr(),
-            win_start.data_ptr(), win_count.data_ptr(), is_zero.data_ptr(),
-            q_pos.data_ptr(), scal.data_ptr(), hits.data_ptr(),
-            counts.data_ptr(), base.data_ptr(), n_off, qp, c, n_real, lanes,
-            tq, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_join kernel launch failed: CUDA error {err}")
+    torch.ops.repro_torch.fused_join(
+        points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
+        scal, hits, counts, base, merged, unicomp, keep_hits, c, n_real, tq)
     KERNEL_LAUNCHES += 1
+    RUN_LOOP_LAUNCHES += run_ord is not None
     return hits, counts, base
 
 
@@ -206,21 +247,37 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
       merged:     windows are merged last-dimension ranges, and lane
                   ``n_real`` carries last-dimension cell coordinates.
       keep_hits:  False returns a zero (1, Q_pad, c) plane, counts only.
+      run_ord:    (Q_pad,) int32 per-tile run ordinals
+                  (``grid.cell_run_plan(...).run_ord``) on the points'
+                  device; needed by ``run_loop``, else unused.
+      run_loop:   the kernel reads one window per run of equal ordinals.
+                  The caller owns the contract that a run's rows share
+                  their descriptors; each row still masks with its own.
       method:     None picks by device: the CUDA kernel for CUDA tensors,
                   the plain version for CPU tensors. "kernel" and
                   "reference" force one; "kernel" on CPU tensors raises.
 
-    ``external``, ``gid_pairs``, ``run_ord``/``run_loop`` and metrics other
-    than l2 are not ported yet and raise ``NotImplementedError``.
+    ``external``, ``gid_pairs`` and metrics other than l2 are not ported
+    yet and raise ``NotImplementedError``.
 
     Returns (hits, counts, slot_base).
     """
-    for flag, item in ((external, "A9 / B1(b)"), (run_loop, "A6 / B1(c)"),
-                       (gid_pairs, "A14 / B1(d)"),
-                       (run_ord is not None, "A6 / B1(c)")):
+    for flag, item in ((external, "A9 / B1(b)"), (gid_pairs, "A14 / B1(d)")):
         if flag:
             raise NotImplementedError(
                 f"this fused_join option is not ported yet (ROADMAP {item})")
+    if run_loop:
+        if run_ord is None:
+            raise ValueError("run_loop=True requires a run_ord plan "
+                             "(grid.cell_run_plan)")
+        qp = win_start.shape[1]
+        if (run_ord.dtype != torch.int32 or tuple(run_ord.shape) != (qp,)
+                or run_ord.device != points_pad.device
+                or not run_ord.is_contiguous()):
+            raise ValueError(
+                f"run_ord: expected a contiguous int32 ({qp},) tensor on "
+                f"{points_pad.device}, got {run_ord.dtype} "
+                f"{tuple(run_ord.shape)} on {run_ord.device}")
     metric_lib.check_metric(metric)
     if n_feat:
         raise NotImplementedError("feature lanes are not ported yet "
@@ -237,8 +294,11 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                                "tensors; these lie on the CPU")
         return _fused_join_hits_cuda(
             points_pad, q_batch, win_start, win_count,
-            is_zero.to(torch.int32), q_pos.to(torch.int32), scal, **kw)
+            is_zero.to(torch.int32), q_pos.to(torch.int32),
+            run_ord if run_loop else None, scal, **kw)
     if method == "reference":
+        # the plan is ignored: each row against its own descriptors is the
+        # run loop's result whenever the plan keeps its contract
         return _fused_join_hits_reference(
             points_pad, q_batch, win_start, win_count, is_zero, q_pos, scal,
             **kw)

@@ -1,4 +1,4 @@
-"""Dispatch layer between the self-join drivers and the kernels.
+"""Dispatch layer between the drivers and the kernels.
 
 The counterpart of ``repro.kernels.ops``. The JAX package computes f64 input
 in f32 on a TPU, which has no f64; the H100 has native FP64, so the port
@@ -7,15 +7,29 @@ The sanitized mode of the JAX package waits for ROADMAP item A13.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import distance_tile as _distance_tile
 from repro_torch.kernels import fused_join as _fused_join
+
+
+def distance_tile_hits(q, pts, eps):
+    """Brute-force tile: (nq, n) x (N, n) -> (nq, N) bool epsilon hits; see
+    ``kernels.distance_tile.distance_tile_hits``."""
+    return _distance_tile.distance_tile_hits(q, pts, eps)
+
+
+def distance_tile_counts(pts, eps, *, tq: int = 256, tc: int = 256):
+    """Brute-force per-point neighbour counts (excluding self); see
+    ``kernels.distance_tile.distance_tile_counts``."""
+    return _distance_tile.distance_tile_counts(pts, eps, tq=tq, tc=tc)
 
 
 def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                     q_pos, eps, *, c, n_real, unicomp, merged=False,
-                    tq=_fused_join.TQ_DEFAULT, keep_hits=True):
+                    tq=_fused_join.TQ_DEFAULT, keep_hits=True, run_ord=None,
+                    run_loop=False):
     """Fused gather-refine sweep (all offsets, one launch) -> hits, counts,
     slot_base; see ``kernels.fused_join.fused_join_hits``."""
     return _fused_join.fused_join_hits(
         points_pad, q_batch, win_start, win_count, is_zero, q_pos, eps,
         c=c, n_real=n_real, unicomp=unicomp, merged=merged, tq=tq,
-        keep_hits=keep_hits)
+        keep_hits=keep_hits, run_ord=run_ord, run_loop=run_loop)

@@ -64,9 +64,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, entry):
                                            device="cpu"), "A8"),
     (lambda p: repro_torch.self_join_count(p, 0.4, route="sparse",
                                            device="cpu"), "A11"),
-    (lambda p: repro_torch.self_join_count(p, 0.4, route="dense-run",
-                                           device="cpu"), "A6"),
-    (lambda p: tsj.self_join_batched(p, 0.4), "A4"),
+    (lambda p: repro_torch.self_join_count(p, 0.4, route="compact",
+                                           device="cpu"), "A11"),
+    (lambda p: tsj.self_join_batched(p, 0.4, distance_impl="jnp",
+                                     device="cpu"), "A12"),
 ])
 def test_unported_options_raise(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

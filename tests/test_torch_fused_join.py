@@ -153,10 +153,24 @@ def test_kernel_method_refuses_cpu_tensors(launch_inputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(external=True), dict(gid_pairs=True), dict(run_loop=True),
+    dict(external=True), dict(gid_pairs=True), dict(metric="cosine"),
     dict(metric="jaccard"), dict(n_feat=2)])
 def test_unported_kernel_options_raise(launch_inputs, option):
     jidx, arrays, c, eps = launch_inputs("uniform-2d", np.float64, True, True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfj.fused_join_hits(*_torch(arrays), eps, c=c, n_real=2,
                             unicomp=True, merged=True, **option)
+
+
+def test_run_loop_needs_a_run_plan(launch_inputs):
+    jidx, arrays, c, eps = launch_inputs("uniform-2d", np.float64, True, True)
+    args = _torch(arrays)
+    kw = dict(c=c, n_real=2, unicomp=True, merged=True)
+    with pytest.raises(ValueError, match="run_ord"):
+        tfj.fused_join_hits(*args, eps, run_loop=True, **kw)
+    qp = args[1].shape[0]
+    for bad in (torch.zeros(qp, dtype=torch.int64),
+                torch.zeros(qp + 1, dtype=torch.int32),
+                torch.zeros(2 * qp, dtype=torch.int32)[::2]):
+        with pytest.raises(ValueError, match="run_ord"):
+            tfj.fused_join_hits(*args, eps, run_loop=True, run_ord=bad, **kw)

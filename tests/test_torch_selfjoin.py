@@ -54,6 +54,26 @@ def test_full_stencil_join_equals_unicomp(workload):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("index_dev,join_dev,ok", [
+    ("cuda:0", "cuda", True), ("cuda:0", "cuda:0", True),
+    ("cuda:1", "cuda:0", False), ("cuda:0", "cpu", False),
+    ("cpu", "cuda", False)])
+def test_given_index_device_check(index_dev, join_dev, ok):
+    """A join on "cuda" takes an index built there, which lies on
+    "cuda:<n>"; an index on another device is refused. The device check
+    alone runs here, on an index stand-in that only names its device."""
+    class Index:
+        device = torch.device(index_dev)
+
+    index = Index()
+    if ok:
+        assert tsj._resolve_index(None, 1.0, index,
+                                  torch.device(join_dev)) is index
+    else:
+        with pytest.raises(ValueError, match="index lies on"):
+            tsj._resolve_index(None, 1.0, index, torch.device(join_dev))
+
+
 def test_self_join_stage_spans():
     """The driver's stages are profiler spans, each entered at least once."""
     pts, eps = WORKLOADS["uniform-2d"]

@@ -4,6 +4,8 @@ The generators are the bench's (``benchmarks/bench_selfjoin.py``) at the
 bench smoke sizes. Test modules import ``one_torch_thread`` to get its
 module-scoped autouse fixture.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -46,35 +48,48 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@contextlib.contextmanager
+def jax_default_tables(table_dir):
+    """JAX reads its tile and sweep choices from a measured table; inside
+    this context it reads an empty one, in ``table_dir``, and so takes the
+    default 128-row tile the port uses."""
+    from repro.kernels import autotune
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_AUTOTUNE_CACHE", str(table_dir / "none.json"))
+        autotune._CACHE.reset()
+        try:
+            yield
+        finally:
+            autotune._CACHE.reset()
+
+
+@pytest.fixture(scope="module")
+def jax_tables(tmp_path_factory):
+    """``with jax_tables():`` runs JAX with an empty tile table."""
+    table_dir = tmp_path_factory.mktemp("autotune")
+    return lambda: jax_default_tables(table_dir)
+
+
 def jax_runner(table_dir):
     """``get(kind, workload, **kw)``: the JAX package's ``self_join`` (kind
     "join") or ``self_join_count(route="dense")`` (kind "count") on a
-    workload, computed once. JAX reads its tile and sweep choices from a
-    measured table; an empty one, in ``table_dir``, gives it the default
-    128-row tile the port uses."""
+    workload, computed once, with the default tile (``jax_default_tables``)."""
     import repro.core.selfjoin as jsj
-    from repro.kernels import autotune
 
     cache = {}
-    empty_table = str(table_dir / "none.json")
 
     def get(kind, workload, **kw):
         key = (kind, workload, tuple(sorted(kw.items())))
         if key not in cache:
             pts, eps = WORKLOADS[workload]
-            with pytest.MonkeyPatch.context() as mp:
-                mp.setenv("REPRO_AUTOTUNE_CACHE", empty_table)
-                autotune._CACHE.reset()
-                try:
-                    if kind == "join":
-                        cache[key] = jsj.self_join(pts, eps,
-                                                   distance_impl="fused")
-                    else:
-                        cache[key] = jsj.self_join_count(
-                            pts, eps, distance_impl="fused", route="dense",
-                            **kw)
-                finally:
-                    autotune._CACHE.reset()
+            with jax_default_tables(table_dir):
+                if kind == "join":
+                    cache[key] = jsj.self_join(pts, eps,
+                                               distance_impl="fused")
+                else:
+                    cache[key] = jsj.self_join_count(
+                        pts, eps, distance_impl="fused", route="dense", **kw)
         return cache[key]
 
     return get
