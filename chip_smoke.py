@@ -14,7 +14,10 @@ each printing one JSON line:
   kernel_vs_plain the fused-join kernel (B1) against its plain PyTorch
                   version, exactly, on every launch the drivers schedule for
                   three bench workloads, across merged x unicomp x keep_hits x
-                  dtype x run loop on/off
+                  dtype x run loop on/off; and B1 (b), the external-query
+                  mask, on every launch of a 2,048-query request against
+                  each of the seven bench workloads' indexes, across merged
+                  x keep_hits x dtype x run loop on/off
   bench_totals    self_join_count and len(self_join) of the port equal the
                   recorded pair totals of the seven bench workloads
   main_path       self_join on 2,000,000 uniform 2-D f64 points at eps 0.2,
@@ -35,11 +38,21 @@ each printing one JSON line:
   profile         one main-path join under torch.profiler: host and device
                   time per stage span, B1's device time by name, device time
                   by kernel name and the device's busy share
+  serve           the join services on the card: index A (the main path's
+                  2 M points) serves 64 requests of 1,024 external queries
+                  with pairs (counts against B2 row sums, sampled neighbour
+                  lists against a direct evaluation, a counts-only service
+                  alike), B1 (b) timed beside its bound, a profiled window of
+                  requests by stage span; index B (1 M skewed 3-D points)
+                  through the capacity classes; the batching service over
+                  256 requests against the solo answers and one closed loop
+                  of the load generator; a reindex halfway through 16
+                  requests; boundary queries on a lattice
   kernels         one line: every kernel with launches, agreement and times
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
-brute for B2) and read just after; comparisons with the plain versions run
-outside those windows. The last lines are the card's ``nvidia-smi`` name and
+brute for B2, serve for B1 (b)) and read just after; comparisons with the
+plain versions run outside those windows. The last lines are the card's ``nvidia-smi`` name and
 power limit, then ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
 printing a result.
@@ -51,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -77,6 +91,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 # the f64 band of the expanded form (tests/test_torch_brute.py::_band)
 BAND_SCALE = 2.0 ** -50
+# the serve phase: index A is the main path's dataset; index B the expo
+# generator's skew at 1 M 3-D points and the bench's expo-3d eps
+SERVE_REQUESTS, SERVE_BATCH, REINDEX_REQUESTS = 64, 1024, 16
+SKEW_POINTS, SKEW_EPS, SKEW_REQUESTS = 1_000_000, 1.2, 16
+EXTERNAL_QUERIES = 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -179,25 +198,58 @@ def _loop_kw(p, run_loop: bool) -> dict:
     return {}
 
 
+def max_abs_diff(kernel_out, plain_out) -> int:
+    """Max |kernel - plain| over one launch's hits, counts and slot_base."""
+    sync()
+    worst = 0
+    for x, y in zip(kernel_out, plain_out):
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"kernel output {tuple(x.shape)} {x.dtype} vs plain "
+              f"{tuple(y.shape)} {y.dtype}")
+        worst = max(worst, int((x.to(torch.int64) - y.to(torch.int64))
+                               .abs().max()))
+    return worst
+
+
 def compare_kernel_and_plain(prepared, keep_hits: bool,
                              run_loop: bool = False) -> int:
     """Max |kernel - plain| over hits, counts and slot_base of each launch."""
     from repro_torch.kernels import fused_join as fj
-    worst = 0
-    for p in prepared:
-        a = fj.fused_join_hits(*p["args"], method="kernel",
-                               keep_hits=keep_hits, **_loop_kw(p, run_loop),
-                               **p["kw"])
-        b = fj.fused_join_hits(*p["args"], method="reference",
-                               keep_hits=keep_hits, **p["kw"])
-        sync()
-        for x, y in zip(a, b):
-            check(x.shape == y.shape and x.dtype == y.dtype,
-                  f"kernel output {tuple(x.shape)} {x.dtype} vs plain "
-                  f"{tuple(y.shape)} {y.dtype}")
-            worst = max(worst, int((x.to(torch.int64) - y.to(torch.int64))
-                                   .abs().max()))
-    return worst
+    return max((max_abs_diff(
+        fj.fused_join_hits(*p["args"], method="kernel", keep_hits=keep_hits,
+                           **_loop_kw(p, run_loop), **p["kw"]),
+        fj.fused_join_hits(*p["args"], method="reference",
+                           keep_hits=keep_hits, **p["kw"]))
+        for p in prepared), default=0)
+
+
+def external_queries(pts, eps: float, n: int = EXTERNAL_QUERIES,
+                     seed: int = 11):
+    """Seeded external queries over the volume widened by 2 eps on every
+    side, a tenth of them repeating earlier rows."""
+    rng = np.random.default_rng(seed)
+    lo, hi = pts.min(axis=0) - 2 * eps, pts.max(axis=0) + 2 * eps
+    q = rng.uniform(lo, hi, (n, pts.shape[1]))
+    dup = rng.choice(n, n // 10, replace=False)
+    q[dup] = q[rng.integers(0, n // 2, dup.size)]
+    return q.astype(pts.dtype)
+
+
+def external_launches(prepared_join, q, keep_hits: bool = True):
+    """B1 (b)'s launches of one request through ``prepared_join``, in the
+    form of ``prepared_launches`` (each ``kw`` carries the whole launch)."""
+    _, launches = prepared_join.launch_inputs(q, keep_hits=keep_hits)
+    return [dict(args=args, kw=kw, plan=None) for _, _, args, kw in launches]
+
+
+def compare_external(launches) -> int:
+    """Max |kernel - plain| over hits, counts and slot_base of B1 (b)'s
+    launches (the plain version ignores the run plan)."""
+    from repro_torch.kernels import fused_join as fj
+    return max((max_abs_diff(
+        fj.fused_join_hits(*p["args"], method="kernel", **p["kw"]),
+        fj.fused_join_hits(*p["args"], method="reference", **p["kw"]))
+        for p in launches), default=0)
 
 
 def timed_launches(prepared, method: str, run_loop: bool = False,
@@ -215,6 +267,26 @@ def timed_launches(prepared, method: str, run_loop: bool = False,
 
     one_pass()
     return event_ms(one_pass, reps)
+
+
+def profiled_device_ms(fn, reps: int = 5) -> float:
+    """Device ms of ``fn()`` by torch.profiler: the device time of every
+    kernel, copy and fill it queued, over ``reps`` calls, per call. For
+    launches too small to keep the card busy while the host queues the
+    next, where CUDA events around a pass also count the idle gaps."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    total = sum(getattr(e, "self_device_time_total", 0) or 0
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("Activity Buffer"))
+    return total / 1e3 / reps
 
 
 def kernel_bound(prepared):
@@ -391,6 +463,47 @@ def phase_kernel_vs_plain(workloads):
         emit("kernel_vs_plain", workload=name, points=len(pts), eps=eps,
              variants=32, launches_compared=compared, max_abs_err=worst,
              exact=True)
+    return max(worst, external_vs_plain(workloads))
+
+
+def external_vs_plain(workloads) -> int:
+    """B1 (b) against its plain version on every launch of a request of
+    EXTERNAL_QUERIES queries against each bench workload's index, across
+    dtype x merged x run loop x keep_hits. A quarter as many queries again
+    lie within about eps of indexed points, so that the sparse high-
+    dimensional volumes, where uniform queries find no window, launch."""
+    import repro_torch
+    from repro_torch.core import query_join as qj
+    worst = 0
+    for name, (pts, eps) in workloads.items():
+        compared = 0
+        rng = np.random.default_rng(12)
+        n_near = EXTERNAL_QUERIES // 4
+        near = (pts[rng.integers(0, len(pts), n_near)]
+                + rng.normal(0, eps / 2, (n_near, pts.shape[1])))
+        for dtype in (np.float64, np.float32):
+            index = repro_torch.build_grid(pts.astype(dtype), eps,
+                                           device=DEVICE)
+            q = np.concatenate([external_queries(pts.astype(dtype), eps),
+                                near.astype(dtype)])
+            for merged in (True, False):
+                for run_loop in (False, True):
+                    pj = qj.prepare(index, merge_last_dim=merged,
+                                    run_loop=run_loop)
+                    for keep_hits in (True, False):
+                        launches = external_launches(pj, q, keep_hits)
+                        err = compare_external(launches)
+                        check(err == 0, f"{name} {np.dtype(dtype).name} "
+                              f"external merged={merged} run_loop="
+                              f"{run_loop} keep_hits={keep_hits}: kernel "
+                              f"differs from the plain version by {err}")
+                        worst = max(worst, err)
+                        compared += len(launches)
+        check(compared > 0, f"{name}: no external launch to compare")
+        emit("kernel_vs_plain", workload=name, points=len(pts), eps=eps,
+             variant="external", variants=16,
+             queries=EXTERNAL_QUERIES + n_near, launches_compared=compared,
+             max_abs_err=worst, exact=True)
     return worst
 
 
@@ -746,6 +859,325 @@ def phase_profile():
          note="wall and host times include the profiler's own cost")
 
 
+def b2_counts(q_gpu, pts_gpu, eps: float):
+    """Per-query neighbour counts by B2 over all points, 256 query rows a
+    launch (a 256 x N int8 plane)."""
+    from repro_torch.kernels import distance_tile as dt
+    out = [dt.distance_tile_hits(q_gpu[r0:r0 + 256], pts_gpu, eps)
+           .sum(dim=1, dtype=torch.int32)
+           for r0 in range(0, q_gpu.shape[0], 256)]
+    return torch.cat(out)
+
+
+def query_band(q_gpu, pts_gpu, rows, eps: float) -> int:
+    """How many of the query rows ``rows`` have a point whose direct d2
+    lies within the expanded form's band of eps^2 (``band_points`` for
+    external queries)."""
+    eps2 = float(eps) ** 2
+    sq = (pts_gpu * pts_gpu).sum(dim=1)
+    found = 0
+    for chunk in range(0, rows.shape[0], 64):
+        q = q_gpu[rows[chunk:chunk + 64]]
+        d2 = torch.zeros((q.shape[0], pts_gpu.shape[0]), dtype=torch.float64,
+                         device=pts_gpu.device)
+        for k in range(pts_gpu.shape[1]):
+            t = q[:, k][:, None] - pts_gpu[:, k][None, :]
+            d2 = d2 + t * t
+        band = ((q * q).sum(dim=1)[:, None] + sq[None, :]) * BAND_SCALE
+        found += int(((d2 - eps2).abs() <= band).any(dim=1).sum())
+    return found
+
+
+def counts_vs_b2(q, counts, pts_gpu, eps: float, where: str) -> int:
+    """A request's counts against B2's row sums: the queries where they
+    differ, all of which must have a point in the band."""
+    q_gpu = torch.as_tensor(q).to(DEVICE)
+    want = b2_counts(q_gpu, pts_gpu, eps)
+    differ = torch.nonzero(want != torch.as_tensor(counts).to(DEVICE))
+    differ = differ.flatten()
+    if differ.numel():
+        explained = query_band(q_gpu, pts_gpu, differ, eps)
+        check(explained == differ.numel(),
+              f"{where}: {differ.numel() - explained} queries' counts differ "
+              f"from B2's with no point in the band")
+    return int(differ.numel())
+
+
+def direct_neighbours(q, pts_gpu, eps: float, rows):
+    """Sorted neighbour ids of the query rows ``rows`` by a direct
+    evaluation in the kernel's lane order."""
+    from repro_torch.core import metric
+    eps2 = metric.device_refine_scalar("l2", eps, pts_gpu.dtype, DEVICE)
+    qg = torch.as_tensor(q[rows]).to(DEVICE)
+    d2 = torch.zeros((len(rows), pts_gpu.shape[0]), dtype=pts_gpu.dtype,
+                     device=DEVICE)
+    for k in range(pts_gpu.shape[1]):
+        t = qg[:, k][:, None] - pts_gpu[:, k][None, :]
+        d2 = d2 + t * t
+    hit = d2 <= eps2
+    return [torch.nonzero(hit[i]).flatten().cpu().numpy().astype(np.int32)
+            for i in range(len(rows))]
+
+
+def check_sampled_pairs(q, res, pts_gpu, eps: float, n: int, where: str):
+    """The sorted pair ids of ``n`` sampled queries equal a direct
+    evaluation on the card."""
+    rows = np.random.default_rng(0).choice(q.shape[0], n, replace=False)
+    for r, want in zip(rows, direct_neighbours(q, pts_gpu, eps, rows)):
+        lo = np.searchsorted(res.pairs[:, 0], r)
+        hi = np.searchsorted(res.pairs[:, 0], r, side="right")
+        check(np.array_equal(res.pairs[lo:hi, 1], want),
+              f"{where}: neighbours of query {r} differ from the direct "
+              f"evaluation ({hi - lo} vs {want.size})")
+
+
+def same_answer(a, b, where: str, perm=None) -> None:
+    """Equal counts and sorted pairs; ``perm`` maps b's point ids to a's
+    (an index rebuilt over permuted points numbers them anew)."""
+    check(np.array_equal(a.counts, b.counts), f"{where}: counts differ")
+    if a.pairs is None:
+        return
+    pb = b.pairs
+    if perm is not None:
+        pb = pb.copy()
+        pb[:, 1] = perm[pb[:, 1]]
+        pb = pb[np.lexsort((pb[:, 1], pb[:, 0]))]
+    check(np.array_equal(a.pairs, pb), f"{where}: pairs differ")
+
+
+def serve_requests(n_requests: int, rng):
+    """``n_requests`` of SERVE_BATCH queries uniform in [-0.5, 100.5]^2,
+    64 rows of each repeating earlier rows."""
+    out = []
+    for _ in range(n_requests):
+        q = rng.uniform(-0.5, 100.5, (SERVE_BATCH, MAIN_DIMS))
+        rows = rng.choice(np.arange(64, SERVE_BATCH), 64, replace=False)
+        q[rows] = q[rng.integers(0, 64, 64)]
+        out.append(q)
+    return out
+
+
+def profile_requests(svc, requests):
+    """Requests under torch.profiler: host and device ms per query-join
+    stage span, B1's device time by name, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in requests:
+            svc.prepared.join(q)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    stages = {e.key: dict(calls=e.count, host_ms=e.cpu_time_total / 1e3,
+                          device_ms=(getattr(e, "device_time_total", 0)
+                                     or 0) / 1e3)
+              for e in averages
+              if e.key.startswith("query_join.")
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    check(set(stages) == {"query_join.plan", "query_join.kernel",
+                          "query_join.wait", "query_join.emit"},
+          f"profiled requests entered the spans {sorted(stages)}")
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and device_us(e) > 0
+              and not e.key.startswith(("Activity Buffer", "query_join."))]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    b1 = [e for e in events if "fused_join_kernel" in e.key]
+    top = sorted(events, key=device_us, reverse=True)[:10]
+    return dict(requests=len(requests), wall_ms=wall_ms, stages=stages,
+                b1_device_ms=sum(device_us(e) for e in b1) / 1e3,
+                device_busy_ms=busy_ms if events else None,
+                device_busy_share=busy_ms / wall_ms if events else None,
+                top_device_ms={e.key[:80]: device_us(e) / 1e3 for e in top})
+
+
+def lattice_check():
+    """Queries on and between the points of a 0.1-spaced lattice at eps 0.3,
+    many on cell boundaries: the join on the card equals a direct
+    evaluation of every query. A merged lane or sort key one cell off the
+    descriptors (a reciprocal multiply in place of the true division by eps)
+    would drop neighbours here."""
+    import repro_torch
+    g = np.arange(60) * 0.1
+    pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    q = np.concatenate([pts[::3], pts[::7] + 0.05, pts[:50] - 0.3])
+    pts_gpu = torch.as_tensor(pts).to(DEVICE)
+    want = direct_neighbours(q, pts_gpu, 0.3, np.arange(q.shape[0]))
+    for merged in (True, False):
+        res = repro_torch.epsilon_join(q, pts, 0.3, device=DEVICE,
+                                       merge_last_dim=merged)
+        check(np.array_equal(res.counts, [w.size for w in want]),
+              f"lattice merged={merged}: counts differ from the direct "
+              f"evaluation")
+        got = np.concatenate([np.full(w.size, i) for i, w in
+                              enumerate(want)]).astype(np.int32)
+        check(np.array_equal(res.pairs[:, 0], got) and np.array_equal(
+            res.pairs[:, 1], np.concatenate(want)),
+            f"lattice merged={merged}: pairs differ")
+    return dict(points=len(pts), queries=len(q), eps=0.3,
+                pairs=int(res.pairs.shape[0]))
+
+
+def phase_serve():
+    from repro_torch.kernels import fused_join as fj
+    from repro_torch.launch import loadgen, serve
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    requests = serve_requests(SERVE_REQUESTS, rng)
+    skew_pts = expo(SKEW_POINTS, 3)
+    skew_requests = np.split(expo(SKEW_REQUESTS * SERVE_BATCH, 3, seed=7),
+                             SKEW_REQUESTS)
+    # every service is prepared before any marks steady: the watchdog's
+    # counters are process-wide
+    t0 = time.perf_counter()
+    svc = serve.JoinService(pts, eps, return_pairs=True, device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    counts_svc = serve.JoinService(pts, eps, index=svc.index)
+    bat = serve.BatchingJoinService(pts, eps, index=svc.index,
+                                    return_pairs=True, max_batch=4096)
+    skew = serve.JoinService(skew_pts, SKEW_EPS, return_pairs=True,
+                             device=DEVICE)
+    check(svc.prepared.merged and svc.prepared.n_offsets == 3
+          and svc.prepared.run_loop, "index A does not serve the merged "
+          "3-offset sweep through the run loop")
+    check(skew.prepared.bucketed, "index B is not bucketed")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # warmup() marks steady
+        for s_ in (svc, counts_svc, skew):
+            s_.warmup(SERVE_BATCH)
+        bat.warmup()
+    warm_s = time.perf_counter() - t0
+
+    # the main serve path, counted alone
+    expected = sum(len(svc.prepared.launch_inputs(q)[1]) for q in requests)
+    sync()
+    fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = fj.EXTERNAL_LAUNCHES = 0
+    results = [svc.query(q) for q in requests]
+    launches = (fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES,
+                fj.EXTERNAL_LAUNCHES)
+    check(launches == (expected,) * 3, f"the serve path launched B1 "
+          f"(total, run loop, external) {launches} times, planned "
+          f"{expected}")
+    p50, p99 = svc.percentiles()
+    rps = svc.requests_per_sec()
+    svc.assert_no_retrace()
+
+    pts_gpu = torch.as_tensor(pts).to(DEVICE)
+    band_a = 0
+    for q, res in zip(requests, results):
+        check(res.pairs.shape[0] == int(res.counts.sum()),
+              "index A: pairs and counts disagree")
+        band_a += counts_vs_b2(q, res.counts, pts_gpu, eps, "index A")
+    check_sampled_pairs(requests[0], results[0], pts_gpu, eps, 32,
+                        "index A")
+    for q, res in zip(requests, results):
+        check(np.array_equal(counts_svc.query(q).counts, res.counts),
+              "index A: the counts-only service differs")
+    c50, c99 = counts_svc.percentiles()
+
+    # B1 (b) on one request's launches, the variants in turns
+    ext = external_launches(svc.prepared, requests[0])
+    err = compare_external(ext)
+    check(err == 0, f"serve: B1 (b) differs from plain by {err}")
+    rounds = [{key: timed_launches(ext, method) for key, method in
+               (("kernel", "kernel"), ("plain", "reference"))}
+              for _ in range(3)]
+    b1b = {key: statistics.median(r[key] for r in rounds)
+           for key in ("kernel", "plain")}
+    b1b_device = {key: profiled_device_ms(lambda m=method: [
+        fj.fused_join_hits(*p["args"], method=m, **p["kw"]) for p in ext])
+        for key, method in (("kernel", "kernel"), ("plain", "reference"))}
+    check(min(b1b_device.values()) > 0, "the profiler recorded no device "
+          "time for B1 (b) or its plain version")
+    b1b_bound = kernel_bound(ext)
+    prof = profile_requests(svc, requests[:8])
+
+    # index B: the capacity classes
+    n_classes = len(skew.prepared.launch_inputs(skew_requests[0])[1])
+    check(n_classes > 1, f"index B launched {n_classes} class(es)")
+    skew_results = [skew.query(q) for q in skew_requests]
+    s50, s99 = skew.percentiles()
+    skew_gpu = torch.as_tensor(skew_pts).to(DEVICE)
+    band_b = 0
+    for q, res in zip(skew_requests, skew_results):
+        check(res.pairs.shape[0] == int(res.counts.sum()),
+              "index B: pairs and counts disagree")
+        band_b += counts_vs_b2(q, res.counts, skew_gpu, SKEW_EPS, "index B")
+    skew.assert_no_retrace()
+    del skew_gpu
+
+    # batching on index A: every ticket equals the request served alone
+    sizes = rng.integers(1, 513, 256)
+    reqs = [rng.uniform(-0.5, 100.5, (int(n), MAIN_DIMS)) for n in sizes]
+    tickets = [bat.submit(q) for q in reqs]
+    t0 = time.perf_counter()
+    bat.pump()
+    bat.drain()
+    bat_wall = time.perf_counter() - t0
+    for q, t in zip(reqs, tickets):
+        same_answer(svc.prepared.join(q), t.result(), "batching")
+    coalesce, bat_launches = bat.coalesce_factor, bat.n_launches
+    stream = loadgen.make_request_stream(
+        100, loadgen.RequestMix(sizes=(32, 64, 256), lo=-0.5, hi=100.5),
+        MAIN_DIMS, seed=3)
+    closed = loadgen.run_closed_loop(bat, stream, concurrency=8)
+    for s_ in (bat, counts_svc):
+        s_.assert_no_retrace()
+
+    # reindex halfway through 16 requests (last: it moves the counters of
+    # every other service)
+    perm = rng.permutation(MAIN_POINTS)
+    for k in range(REINDEX_REQUESTS):
+        if k == REINDEX_REQUESTS // 2:
+            svc.reindex(pts[perm], wait=True)
+        got = svc.query(requests[k])
+        same_answer(results[k], got, f"reindex request {k}",
+                    perm if k >= REINDEX_REQUESTS // 2 else None)
+    same_answer(results[0], svc.query(requests[0]), "reindex again", perm)
+    svc.assert_no_retrace()
+    lattice = lattice_check()
+    del pts_gpu
+    emit("serve", points=MAIN_POINTS, eps=eps, dtype="float64",
+         requests=SERVE_REQUESTS, request_queries=SERVE_BATCH,
+         build_s=build_s, warm_s=warm_s, c=svc.prepared.c,
+         classes=list(svc.prepared.classes), offsets=svc.prepared.n_offsets,
+         launches=launches[0], p50_ms=p50, p99_ms=p99, requests_per_s=rps,
+         neighbors_found=int(sum(r.total for r in results)),
+         b2_band_queries=band_a, sampled_queries_checked=32,
+         counts_only_p50_ms=c50, counts_only_p99_ms=c99,
+         b1b_ms=b1b["kernel"], b1b_plain_ms=b1b["plain"],
+         b1b_device_ms=b1b_device["kernel"],
+         b1b_plain_device_ms=b1b_device["plain"],
+         b1b_bound_ms=b1b_bound[0], b1b_bound_by=b1b_bound[1],
+         b1b_bound_bytes=b1b_bound[2], b1b_launches_timed=len(ext),
+         b1b_timed_rounds_ms=rounds, profile=prof,
+         skew=dict(points=SKEW_POINTS, eps=SKEW_EPS,
+                   requests=SKEW_REQUESTS, c=skew.prepared.c,
+                   classes_launched_first=n_classes,
+                   p50_ms=s50, p99_ms=s99,
+                   neighbors_found=int(sum(r.total for r in skew_results)),
+                   b2_band_queries=band_b),
+         batching=dict(requests=len(reqs), max_batch=bat.max_batch,
+                       launches=bat_launches, coalesce_factor=coalesce,
+                       wall_s=bat_wall, equal_to_solo=True,
+                       closed_loop=closed.to_dict()),
+         reindex=dict(svc.reindex_timings, swaps=svc.swaps,
+                      answers_equal=True),
+         lattice=lattice, phase_s=time.perf_counter() - t_phase)
+    return dict(launches=launches[2], ms=b1b_device["kernel"],
+                enqueue_ms=b1b["kernel"], plain_ms=b1b["plain"],
+                plain_device_ms=b1b_device["plain"], bound_ms=b1b_bound[0],
+                bound_by=b1b_bound[1], worst=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -762,6 +1194,7 @@ def main() -> int:
     phase_batched(main)
     brute = phase_brute(workloads)
     phase_profile()
+    served = phase_serve()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -773,10 +1206,17 @@ def main() -> int:
         "launches": b1["launches"],
         "launches_by_variant": {"run_loop": b1["run_loop_launches"],
                                 "row_loop": (b1["launches"]
-                                             - b1["run_loop_launches"])},
-        "max_abs_err": worst, "ms": b1["ms"], "row_loop_ms": b1["row_loop_ms"],
+                                             - b1["run_loop_launches"]),
+                                "external": served["launches"]},
+        "max_abs_err": max(worst, served["worst"]), "ms": b1["ms"],
+        "row_loop_ms": b1["row_loop_ms"],
         "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"], "library_ms": None,
+        "external_ms": served["ms"], "external_events_ms": served["enqueue_ms"],
+        "external_plain_ms": served["plain_ms"],
+        "external_plain_device_ms": served["plain_device_ms"],
+        "external_bound_ms": served["bound_ms"],
+        "external_bound_by": served["bound_by"],
         "matched_plain": True,
     }, {
         "name": "distance_tile_hits", "route": "cuda",

@@ -7,8 +7,20 @@ anything of ``repro``. Entry points run on CUDA unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 """
 from repro_torch.core import (GridIndex, JoinStats, brute_force_count,
-                              brute_force_join, build_grid, self_join,
+                              brute_force_join, build_grid, epsilon_join,
+                              prepare, range_query, self_join,
                               self_join_batched, self_join_count)
 
-__all__ = ["GridIndex", "JoinStats", "brute_force_count", "brute_force_join",
-           "build_grid", "self_join", "self_join_batched", "self_join_count"]
+__all__ = ["BatchingJoinService", "GridIndex", "JoinService", "JoinStats",
+           "brute_force_count", "brute_force_join", "build_grid",
+           "epsilon_join", "prepare", "range_query", "self_join",
+           "self_join_batched", "self_join_count"]
+
+
+def __getattr__(name):
+    # the services load on first use, so ``python -m
+    # repro_torch.launch.serve`` does not find its module already imported
+    if name in ("BatchingJoinService", "JoinService"):
+        from repro_torch.launch import serve
+        return getattr(serve, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -1,16 +1,19 @@
-"""Grid index, stencils, refine predicate and self-join drivers.
+"""Grid index, stencils, refine predicate, self-join and query-join drivers.
 
 Public API, as the JAX package's ``repro.core`` names it:
     build_grid                            -- the epsilon-grid index (paper SIV)
     self_join, self_join_count            -- grid join with UNICOMP (SV-B)
     self_join_batched                     -- result-set batching (SV-A)
     brute_force_join, brute_force_count   -- GPU brute-force baseline (SVI-B)
+    epsilon_join, prepare, range_query    -- external-query joins against an
+                                             index built once
 """
 from repro_torch.core.brute import brute_force_count, brute_force_join
 from repro_torch.core.grid import GridIndex, build_grid
-from repro_torch.core.selfjoin import (JoinStats, self_join,
+from repro_torch.core.query_join import epsilon_join, prepare
+from repro_torch.core.selfjoin import (JoinStats, range_query, self_join,
                                        self_join_batched, self_join_count)
 
 __all__ = ["GridIndex", "JoinStats", "build_grid", "self_join",
            "self_join_count", "self_join_batched", "brute_force_count",
-           "brute_force_join"]
+           "brute_force_join", "epsilon_join", "prepare", "range_query"]

@@ -381,6 +381,93 @@ def range_window_descriptors(index: GridIndex, deltas, lo_off, hi_off,
                                        q_pos < npts)
 
 
+def external_window_descriptors(index: GridIndex, offsets: torch.Tensor,
+                                queries: torch.Tensor,
+                                q_limit: Optional[int] = None):
+    """Per-cell candidate windows for external query points.
+
+    Each query's cell comes from its own coordinates under the index's
+    geometry (``cell_coords``), so queries may lie anywhere: inside the
+    volume, outside it, or duplicated. Adjacency is resolved in coordinate
+    space: ``target = cell_coords(q) + o`` for every (n_off, n) int64 offset
+    vector, masked where any dimension leaves [0, dims); masked probes take
+    the key dtype's miss sentinel (``_pad_probe``). Returns (win_start,
+    win_count), each (n_off, Q) int32, count 0 for masked probes, absent
+    cells and rows at or past ``q_limit``.
+    """
+    qcoords = cell_coords(queries, index.grid_min, index.eps)   # (Q, n)
+    dims = index.dims.long()
+    target = qcoords[None, :, :] + offsets.long()[:, None, :]   # (n_off, Q, n)
+    in_grid = torch.all((target >= 0) & (target < dims), dim=-1)
+    keys = _pad_probe(linearize(target, index.dims), in_grid,
+                      _NUMPY_DTYPES[index.cell_keys.dtype])
+    nbr = neighbor_rank(index, keys)
+    live = nbr >= 0
+    if q_limit is not None:
+        live = live & _rows_below(queries.shape[0], q_limit, index.device)
+    nbr_c = torch.clamp(nbr, min=0).long()
+    win_start = torch.where(live, index.cell_start[nbr_c], 0)
+    win_count = torch.where(live, index.cell_count[nbr_c], 0)
+    return win_start.to(torch.int32), win_count.to(torch.int32)
+
+
+def external_range_descriptors(index: GridIndex, offsets: torch.Tensor,
+                               lo_off: torch.Tensor, hi_off: torch.Tensor,
+                               queries: torch.Tensor,
+                               q_limit: Optional[int] = None):
+    """Merged last-dimension range windows for external query points.
+
+    The first n-1 coordinates are resolved in coordinate space with exact
+    bounds masking; the last dimension becomes the key span
+    [q_last + lo_off, q_last + hi_off] clamped to [0, dims - 1], which also
+    serves queries one cell outside the volume there (farther out the span
+    inverts and the probe is dead). Dead probes get an inverted sentinel
+    span in the index's key dtype. Returns (win_start, win_count,
+    win_cells), each (n_off, Q) int32.
+    """
+    qcoords = cell_coords(queries, index.grid_min, index.eps)   # (Q, n)
+    dims = index.dims.long()
+    n = qcoords.shape[1]
+    row = qcoords[None, :, :-1] + offsets.long()[:, None, :-1]
+    if n > 1:
+        row_ok = torch.all((row >= 0) & (row < dims[:-1]), dim=-1)
+    else:
+        row_ok = torch.ones(row.shape[:2], dtype=torch.bool,
+                            device=row.device)
+    q_last = qcoords[:, -1]
+    lo_last = torch.clamp(q_last[None, :] + lo_off.long()[:, None], min=0)
+    hi_last = torch.minimum(q_last[None, :] + hi_off.long()[:, None],
+                            dims[-1] - 1)
+    live = row_ok & (lo_last <= hi_last)
+    row_c = torch.minimum(torch.clamp(row, min=0), dims[:-1] - 1)
+    # an explicit zero last coordinate: row_c is empty for 1-D data
+    zero_last = row_c.new_zeros(row_c.shape[:-1] + (1,))
+    base = linearize(torch.cat([row_c, zero_last], dim=-1), index.dims)
+    kd = _NUMPY_DTYPES[index.cell_keys.dtype]
+    lo_key = _pad_probe(base + lo_last, live, kd)
+    hi_key = torch.where(live, (base + hi_last).to(index.cell_keys.dtype),
+                         pad_key_for(kd) - 1)
+    keys = _keys64(index)
+    lo_rank = torch.searchsorted(keys, lo_key.long()).to(torch.int32)
+    hi_rank = torch.searchsorted(keys, hi_key.long(),
+                                 right=True).to(torch.int32)
+    if q_limit is not None:
+        live = live & _rows_below(queries.shape[0], q_limit, index.device)
+    live = live & (hi_rank > lo_rank)
+    start = _rank_to_point(index, lo_rank)
+    end = _rank_to_point(index, hi_rank)
+    win_start = torch.where(live, start, 0).to(torch.int32)
+    win_count = torch.where(live, end - start, 0).to(torch.int32)
+    win_cells = torch.where(live, hi_rank - lo_rank, 0).to(torch.int32)
+    return win_start, win_count, win_cells
+
+
+def _rows_below(n_rows: int, q_limit: int, device) -> torch.Tensor:
+    """(1, n_rows) mask of the rows before ``q_limit`` (the rest pad a
+    tile)."""
+    return (torch.arange(n_rows, device=device) < q_limit)[None, :]
+
+
 def point_last_coords(index: GridIndex) -> torch.Tensor:
     """Last-dimension cell coordinate of every sorted point, int32, derived
     exactly from the keys (never from float positions)."""
@@ -643,6 +730,53 @@ def global_window_cap(index: GridIndex, merged: bool = False,
         return round_up(max(top, 1), align)
 
     return index_cached(index, f"capglobal/{align}/{merged}", build)
+
+
+# Sweeps of ``external_range_cap`` (cache misses), which a serving request
+# must never redo: the serving path's no-rebuild watchdog reads this.
+BUILD_EVENTS: collections.Counter = collections.Counter()
+
+
+def _external_span_device(index: GridIndex) -> torch.Tensor:
+    """Point span of the keys [k, k + 2] for every present key k, one
+    right-side searchsorted; padding lanes probe the sentinel minus one and
+    span zero."""
+    keys = _keys64(index)
+    n = keys.shape[0]
+    lanes = torch.arange(n, dtype=torch.int32, device=keys.device)
+    is_cell = lanes < index.num_cells
+    pad = pad_key_for(_NUMPY_DTYPES[index.cell_keys.dtype])
+    hi_key = torch.where(is_cell, keys + 2, pad - 1)
+    hi_rank = torch.searchsorted(keys, hi_key, right=True).to(torch.int32)
+    span = (_rank_to_point(index, hi_rank)
+            - _rank_to_point(index, lanes)).long()
+    return torch.where(is_cell, span, 0)
+
+
+def external_range_cap(index: GridIndex, align: int = CAP_ALIGN) -> int:
+    """Upper bound on any merged range window an external query can see.
+
+    A query's window spans keys [base - 1, base + 1]; its least present key
+    k bounds the span by [k, k + 2], so the largest point span of [k, k + 2]
+    over present keys bounds every window, including windows whose centre
+    cell is absent (which per-cell caps cannot see). Cached per index. The
+    probes reach two keys above the largest real key, so the key dtype's
+    padding sentinel must lie more than two keys above it
+    (``sentinel_margin``)."""
+    margin = sentinel_margin(host_dims(index),
+                             _NUMPY_DTYPES[index.cell_keys.dtype])
+    if margin <= 2:
+        raise ValueError(
+            f"sentinel margin {margin} <= 2: a probe two keys above the "
+            f"largest real key would rank into the padding of B")
+
+    def build():
+        BUILD_EVENTS["external_range_cap"] += 1
+        span = _external_span_device(index)
+        top = int(span.max()) if span.numel() else 0
+        return round_up(max(top, 1), align)
+
+    return index_cached(index, f"extcap/{align}", build)
 
 
 def occupancy_plan(index: GridIndex, align: int = CAP_ALIGN,

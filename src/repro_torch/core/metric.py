@@ -47,6 +47,21 @@ def device_refine_scalar(metric: str, eps, dtype,
     return torch.reshape(eps_squared(s), (1, 1))
 
 
+def request_scalar(metric: str, eps: float, *, index_eps: float,
+                   index_eps_geom: float) -> float:
+    """Map a per-request threshold onto the kernel scalar, validating that
+    the index's stencil still covers it: for l2, radii up to the build
+    radius. ``index_eps_geom`` is the build radius in geometry units, which
+    the cosine branch (ROADMAP A8) will need; for l2 it equals
+    ``index_eps``."""
+    check_metric(metric)
+    if eps > index_eps * (1 + 1e-12):
+        raise ValueError(
+            f"query eps {eps} exceeds index build eps {index_eps}; the "
+            f"adjacent-cell stencil only covers the build radius")
+    return float(eps)
+
+
 def plane_refine_hits(metric: str, points_pad: torch.Tensor,
                       q_batch: torch.Tensor, cand_pos: torch.Tensor,
                       scalar: torch.Tensor, *, n_real: int) -> torch.Tensor:

@@ -651,3 +651,21 @@ def self_join_batched(points, eps, *, unicomp: bool = True,
                             n_batches=n_batches, bucketed=bucketed,
                             merged=_resolve_merge(index, merge_last_dim),
                             to_host=True)
+
+
+def range_query(queries, points, eps, *, index: Optional[GridIndex] = None,
+                return_pairs: bool = False,
+                merge_last_dim: Optional[bool] = None, device=None):
+    """Epsilon-range counts for external query points against an indexed
+    set: a thin wrapper over ``core.query_join.epsilon_join``, as in the
+    JAX package. Returns (Q,) int32 numpy counts, or ``(counts, pairs)``
+    with ``return_pairs``. ``device`` as in ``self_join``; services holding
+    an index should use ``query_join.prepare`` or ``launch.serve``."""
+    from repro_torch.core.query_join import epsilon_join
+
+    index = _resolve_index(points, eps, index, resolve_device(device))
+    res = epsilon_join(queries, None, index=index, return_pairs=return_pairs,
+                       merge_last_dim=merge_last_dim)
+    if return_pairs:
+        return res.counts, res.pairs
+    return res.counts

@@ -30,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("fused_join", "distance_tile")
 
 _LIBS: dict = {}
+# nvcc builds started and libraries loaded since import: work a serving
+# request must never cause (``core.query_join.executable_cache_stats``).
+EVENTS = {"builds": 0, "loads": 0}
 
 
 def find_nvcc() -> str:
@@ -71,6 +74,7 @@ def build_all(names=SOURCES) -> dict:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
+        EVENTS["builds"] += 1
         procs[name] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -93,5 +97,6 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path, _ = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
+        EVENTS["loads"] += 1
         _LIBS[name] = lib
     return lib

@@ -1,8 +1,9 @@
 // Fused gather-refine kernel of the L2 epsilon self-join, for Hopper (sm_90a).
 //
 // Replaces repro/kernels/fused_join.py::_fused_kernel, the Pallas TPU kernel,
-// for the l2 metric: per-cell and merged sweeps, UNICOMP on and off, with and
-// without the hits plane, in float64 and float32. It computes what
+// for the l2 metric: per-cell and merged sweeps, the three masks (UNICOMP,
+// self, external queries), with and without the hits plane, in float64 and
+// float32. It computes what
 // repro_torch/kernels/fused_join.py::_fused_join_hits_reference computes, bit
 // for bit:
 //
@@ -11,8 +12,10 @@
 //     d2 = 0; for k < n_real: t = q[k] - p[k]; d2 = d2 + t * t   (this order)
 //     hit = d2 <= eps2 && slot < win_count[j, row]
 //   then masked: merged sweeps need |p[n_real] - q[n_real]| <= 1 (last-dim
-//   cell coordinates ride lane n_real as exact floats); UNICOMP keeps
-//   cand > q_pos on the zero offset; without UNICOMP, cand != q_pos.
+//   cell coordinates ride lane n_real as exact floats); then by the mask
+//   mode: UNICOMP keeps cand > q_pos on the zero offset, SELF keeps
+//   cand != q_pos, EXTERNAL keeps every hit (the TPU kernel's external=True:
+//   the queries are not points of the index, q_pos is all zeros and unread).
 //   Outputs: int8 hits (n_off, qp, c), per-row counts summed over offsets,
 //   and slot_base, the exclusive scan of the counts within each tq-row tile.
 //
@@ -56,6 +59,11 @@
 // the shared-window contract) reads global memory, so the result is the row
 // loop's, bit for bit. Runs are found from changes of run_ord inside the
 // tile, whatever its values.
+//
+// External queries (the external-query join of core/query_join.py) take
+// both loops unchanged apart from the mask: a query row is read only from
+// q_batch, staged in shared memory, and points_pad only at window rows, so
+// queries that are not rows of points_pad (and q_pos of zeros) are safe.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +71,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// Mask modes, as kernels/fused_join.py numbers them.
+constexpr int kMaskSelf = 0;
+constexpr int kMaskUnicomp = 1;
+constexpr int kMaskExternal = 2;
 
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -72,7 +85,7 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 
 // One slot's refine and masks, in the plain version's order of operations.
-template <typename T, bool MERGED, bool UNICOMP>
+template <typename T, bool MERGED, int MASK>
 __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
                                             int n_real, bool zero, int cand,
                                             int qpos) {
@@ -83,12 +96,12 @@ __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
   }
   bool hit = d2 <= eps2;
   if (MERGED) hit = hit && fabs(sub_rn(p[n_real], q[n_real])) <= T(1);
-  if (UNICOMP) hit = hit && (!zero || cand > qpos);
-  else hit = hit && cand != qpos;
+  if (MASK == kMaskUnicomp) hit = hit && (!zero || cand > qpos);
+  if (MASK == kMaskSelf) hit = hit && cand != qpos;
   return hit;
 }
 
-template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS, bool RUN_LOOP>
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP>
 __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const T* __restrict__ points_pad,   // (rows, lanes)
     const T* __restrict__ q_batch,      // (qp, lanes)
@@ -162,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
         bool hit = false;
         if (s < wc_s[r]) {
           const int cand = ws_s[r] + s;
-          hit = refine_slot<T, MERGED, UNICOMP>(
+          hit = refine_slot<T, MERGED, MASK>(
               points_pad + (size_t)cand * lanes, q_s + r * lanes, eps2,
               n_real, zero, cand, qpos_s[r]);
         }
@@ -205,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
             const T* p = (ws_s[r] == ws_s[h] && slot < wc_s[h])
                 ? stage + ((size_t)(u - u0) * seg_cap + s) * n_use
                 : points_pad + (size_t)cand * lanes;
-            hit = refine_slot<T, MERGED, UNICOMP>(
+            hit = refine_slot<T, MERGED, MASK>(
                 p, q_s + r * lanes, eps2, n_real, zero, cand, qpos_s[r]);
           }
           if (KEEP_HITS) hits_j[(size_t)r * c + slot] = hit ? 1 : 0;
@@ -232,11 +245,11 @@ struct Args {
   int n_off, qp, c, n_real, lanes, tq, stage_bytes;
 };
 
-template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS, bool RUN_LOOP>
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP>
 void launch(const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.tq * a.lanes * sizeof(T) + 4 * a.tq * sizeof(int)
       + (RUN_LOOP ? (size_t)a.stage_bytes + (2 * a.tq + 2) * sizeof(int) : 0);
-  fused_join_kernel<T, MERGED, UNICOMP, KEEP_HITS, RUN_LOOP>
+  fused_join_kernel<T, MERGED, MASK, KEEP_HITS, RUN_LOOP>
       <<<a.qp / a.tq, kThreads, smem, stream>>>(
           static_cast<const T*>(a.points_pad), static_cast<const T*>(a.q_batch),
           static_cast<const int*>(a.win_start), static_cast<const int*>(a.win_count),
@@ -247,41 +260,48 @@ void launch(const Args& a, cudaStream_t stream) {
           a.n_off, a.qp, a.c, a.n_real, a.lanes, a.tq, a.stage_bytes);
 }
 
-template <typename T, bool MERGED, bool UNICOMP, bool KEEP_HITS>
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS>
 void launch_run(const Args& a, bool run_loop, cudaStream_t s) {
-  if (run_loop) launch<T, MERGED, UNICOMP, KEEP_HITS, true>(a, s);
-  else launch<T, MERGED, UNICOMP, KEEP_HITS, false>(a, s);
+  if (run_loop) launch<T, MERGED, MASK, KEEP_HITS, true>(a, s);
+  else launch<T, MERGED, MASK, KEEP_HITS, false>(a, s);
 }
 
-template <typename T, bool MERGED, bool UNICOMP>
+template <typename T, bool MERGED, int MASK>
 void launch_keep(const Args& a, bool keep_hits, bool run_loop, cudaStream_t s) {
-  if (keep_hits) launch_run<T, MERGED, UNICOMP, true>(a, run_loop, s);
-  else launch_run<T, MERGED, UNICOMP, false>(a, run_loop, s);
+  if (keep_hits) launch_run<T, MERGED, MASK, true>(a, run_loop, s);
+  else launch_run<T, MERGED, MASK, false>(a, run_loop, s);
 }
 
 template <typename T, bool MERGED>
-void launch_unicomp(const Args& a, bool unicomp, bool keep_hits, bool run_loop,
-                    cudaStream_t s) {
-  if (unicomp) launch_keep<T, MERGED, true>(a, keep_hits, run_loop, s);
-  else launch_keep<T, MERGED, false>(a, keep_hits, run_loop, s);
+int launch_mask(const Args& a, int mask, bool keep_hits, bool run_loop,
+                cudaStream_t s) {
+  switch (mask) {
+    case kMaskSelf: launch_keep<T, MERGED, kMaskSelf>(a, keep_hits, run_loop, s); break;
+    case kMaskUnicomp: launch_keep<T, MERGED, kMaskUnicomp>(a, keep_hits, run_loop, s); break;
+    case kMaskExternal: launch_keep<T, MERGED, kMaskExternal>(a, keep_hits, run_loop, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 template <typename T>
-void launch_merged(const Args& a, bool merged, bool unicomp, bool keep_hits,
-                   bool run_loop, cudaStream_t s) {
-  if (merged) launch_unicomp<T, true>(a, unicomp, keep_hits, run_loop, s);
-  else launch_unicomp<T, false>(a, unicomp, keep_hits, run_loop, s);
+int launch_merged(const Args& a, bool merged, int mask, bool keep_hits,
+                  bool run_loop, cudaStream_t s) {
+  if (merged) return launch_mask<T, true>(a, mask, keep_hits, run_loop, s);
+  return launch_mask<T, false>(a, mask, keep_hits, run_loop, s);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). The Python wrapper validates shapes and dtypes
+// launch was accepted), or cudaErrorInvalidValue for an unknown mask mode
+// (0 self, 1 UNICOMP, 2 external). The Python wrapper validates shapes and
+// dtypes
 // (qp % tq == 0, lanes > n_real when merged, run_ord with run_loop) and the
 // shared-memory total; the self-join driver pads points_pad with a tail of
 // at least c rows, so every window read is in bounds.
 extern "C" int fused_join_launch(
-    int is_double, int merged, int unicomp, int keep_hits, int run_loop,
+    int is_double, int merged, int mask, int keep_hits, int run_loop,
     const void* points_pad, const void* q_batch, const void* win_start,
     const void* win_count, const void* is_zero, const void* q_pos,
     const void* run_ord, const void* scal, void* hits, void* counts,
@@ -291,7 +311,9 @@ extern "C" int fused_join_launch(
          scal, hits, counts, slot_base, n_off, qp, c, n_real, lanes, tq,
          stage_bytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) launch_merged<double>(a, merged, unicomp, keep_hits, run_loop, s);
-  else launch_merged<float>(a, merged, unicomp, keep_hits, run_loop, s);
+  const int bad = is_double
+      ? launch_merged<double>(a, merged, mask, keep_hits, run_loop, s)
+      : launch_merged<float>(a, merged, mask, keep_hits, run_loop, s);
+  if (bad != 0) return bad;
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ One launch sweeps every stencil offset for a batch of query rows. Per
 (offset, row) the candidate window is a contiguous span of the padded,
 grid-sorted points, described by ``win_start`` / ``win_count``; each slot is
 refined against epsilon and masked (window length, merged last-dimension
-boundary, UNICOMP triangle or self pair). The launch returns
+boundary, then the UNICOMP triangle, the self pair, or nothing for external
+queries, which are not points of the index). The launch returns
 
     hits      (n_off, Q_pad, C) int8  -- masked epsilon hits
     counts    (Q_pad,)          int32 -- per-row hits over all offsets
@@ -42,10 +43,14 @@ NP_PAD = 8        # minimum lane padding of the coordinate axis
 TQ_DEFAULT = 128  # query tile rows
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
-# one per call that reaches the kernel, and nowhere else; the second counts
-# the run-loop launches among them.
+# one per call that reaches the kernel, and nowhere else; the others count
+# the run-loop and the external-query launches among them.
 KERNEL_LAUNCHES = 0
 RUN_LOOP_LAUNCHES = 0
+EXTERNAL_LAUNCHES = 0
+# the kernel's mask modes (csrc/fused_join.cu): the self mask, the UNICOMP
+# triangle, and none for external queries
+MASK_SELF, MASK_UNICOMP, MASK_EXTERNAL = 0, 1, 2
 
 
 def pad_width(n_lanes: int) -> int:
@@ -79,15 +84,19 @@ def pad_points(points_sorted: torch.Tensor, tail: int,
     return out
 
 
-def _mask_hits(hit, cand_pos, q_pos, zero, unicomp: bool):
-    """UNICOMP triangle on the zero offset, else the self-pair mask."""
+def _mask_hits(hit, cand_pos, q_pos, zero, unicomp: bool,
+               external: bool = False):
+    """UNICOMP triangle on the zero offset, else the self-pair mask.
+    External queries have no self pair and no triangle: the identity."""
+    if external:
+        return hit
     if unicomp:
         return hit & ((cand_pos > q_pos) | (zero == 0))
     return hit & (cand_pos != q_pos)
 
 
 def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
-                 n_real, unicomp, merged):
+                 n_real, unicomp, external, merged):
     """Masked (Q, C) hits of every query row against one offset's windows."""
     slots = torch.arange(c, dtype=torch.int32, device=points_pad.device)
     cand_pos = ws[:, None] + slots[None, :]
@@ -99,12 +108,13 @@ def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
         ldiff = (points_pad[:, n_real][cand_pos.long()]
                  - q_batch[:, n_real][:, None])
         hit = hit & (torch.abs(ldiff) <= 1)
-    return _mask_hits(hit, cand_pos, q_pos[:, None], zero, unicomp)
+    return _mask_hits(hit, cand_pos, q_pos[:, None], zero, unicomp,
+                      external)
 
 
 def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
                                is_zero, q_pos, scal, *, c, tq, n_real,
-                               unicomp, merged, keep_hits):
+                               unicomp, external, merged, keep_hits):
     """The plain PyTorch version of the kernel."""
     n_off, qp = win_start.shape
     dev = points_pad.device
@@ -114,7 +124,8 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
     for j in range(n_off):
         hit = _offset_hits(points_pad, q_batch, win_start[j], win_count[j],
                            is_zero[j], q_pos, scal, c=c, n_real=n_real,
-                           unicomp=unicomp, merged=merged)
+                           unicomp=unicomp, external=external,
+                           merged=merged)
         counts = counts + hit.sum(dim=1, dtype=torch.int32)
         if keep_hits:
             hits[j] = hit.to(torch.int8)
@@ -142,7 +153,7 @@ def _kernel_library():
 
 def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
             run_ord, scal, hits, counts, slot_base, merged, unicomp,
-            keep_hits, c, n_real, tq):
+            external, keep_hits, c, n_real, tq):
     """The kernel launch on the current stream, as the CUDA implementation
     of the torch op ``repro_torch::fused_join`` (below)."""
     dev = points_pad.device
@@ -151,7 +162,9 @@ def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_join_launch(
-            int(points_pad.dtype == torch.float64), int(merged), int(unicomp),
+            int(points_pad.dtype == torch.float64), int(merged),
+            (MASK_EXTERNAL if external
+             else MASK_UNICOMP if unicomp else MASK_SELF),
             int(keep_hits), int(run_ord is not None), points_pad.data_ptr(),
             q_batch.data_ptr(), win_start.data_ptr(), win_count.data_ptr(),
             is_zero.data_ptr(), q_pos.data_ptr(),
@@ -169,17 +182,17 @@ _OPS = torch.library.Library("repro_torch", "FRAGMENT")
 _OPS.define("fused_join(Tensor points_pad, Tensor q_batch, Tensor win_start, "
             "Tensor win_count, Tensor is_zero, Tensor q_pos, Tensor? run_ord, "
             "Tensor scal, Tensor(a!) hits, Tensor(b!) counts, "
-            "Tensor(c!) slot_base, bool merged, bool unicomp, bool keep_hits, "
-            "int c, int n_real, int tq) -> ()")
+            "Tensor(c!) slot_base, bool merged, bool unicomp, bool external, "
+            "bool keep_hits, int c, int n_real, int tq) -> ()")
 _OPS.impl("fused_join", _launch, "CUDA")
 
 
 def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                           q_pos, run_ord, scal, *, c, tq, n_real, unicomp,
-                          merged, keep_hits):
+                          external, merged, keep_hits):
     """Launch ``csrc/fused_join.cu`` on the current stream (no sync);
     ``run_ord`` None runs the row loop, a (Qp,) plan the run loop."""
-    global KERNEL_LAUNCHES, RUN_LOOP_LAUNCHES
+    global KERNEL_LAUNCHES, RUN_LOOP_LAUNCHES, EXTERNAL_LAUNCHES
     dev = points_pad.device
     dtype = points_pad.dtype
     n_off, qp = win_start.shape
@@ -218,9 +231,11 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
             torch.zeros((1, qp, c), dtype=torch.int8, device=dev))
     torch.ops.repro_torch.fused_join(
         points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
-        scal, hits, counts, base, merged, unicomp, keep_hits, c, n_real, tq)
+        scal, hits, counts, base, merged, unicomp, external, keep_hits, c,
+        n_real, tq)
     KERNEL_LAUNCHES += 1
     RUN_LOOP_LAUNCHES += run_ord is not None
+    EXTERNAL_LAUNCHES += external
     return hits, counts, base
 
 
@@ -233,17 +248,21 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
 
     Args:
       points_pad: (N + tail, L) ``pad_points`` output, tail >= c.
-      q_batch:    (Q_pad, L) query rows (rows of ``points_pad`` at sorted
-                  positions ``q_pos``), Q_pad % tq == 0.
+      q_batch:    (Q_pad, L) query rows, Q_pad % tq == 0: rows of
+                  ``points_pad`` at sorted positions ``q_pos`` for a self
+                  join, any points laid out like them when ``external``.
       win_start / win_count: (n_off, Q_pad) int32 window descriptors; count
                   0 for padding rows and absent cells.
       is_zero:    (n_off,) int32, 1 for the zero offset.
-      q_pos:      (Q_pad,) int32 sorted position of every query row.
+      q_pos:      (Q_pad,) int32 sorted position of every query row
+                  (zeros for external queries; no mask reads them).
       eps:        the L2 radius, unsquared (squared once in the points'
                   dtype by ``metric.device_refine_scalar``).
       c:          window capacity of this launch.
       n_real:     true dimensionality (lanes >= n_real are not distance).
       unicomp:    triangle rule on the zero offset, else the self mask.
+      external:   the queries are not points of the index: no self pair
+                  and no triangle (overrides ``unicomp``).
       merged:     windows are merged last-dimension ranges, and lane
                   ``n_real`` carries last-dimension cell coordinates.
       keep_hits:  False returns a zero (1, Q_pad, c) plane, counts only.
@@ -257,15 +276,14 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                   the plain version for CPU tensors. "kernel" and
                   "reference" force one; "kernel" on CPU tensors raises.
 
-    ``external``, ``gid_pairs`` and metrics other than l2 are not ported
-    yet and raise ``NotImplementedError``.
+    ``gid_pairs`` and metrics other than l2 are not ported yet and raise
+    ``NotImplementedError``.
 
     Returns (hits, counts, slot_base).
     """
-    for flag, item in ((external, "A9 / B1(b)"), (gid_pairs, "A14 / B1(d)")):
-        if flag:
-            raise NotImplementedError(
-                f"this fused_join option is not ported yet (ROADMAP {item})")
+    if gid_pairs:
+        raise NotImplementedError("fused_join's gid_pairs is not ported yet "
+                                  "(ROADMAP A14 / B1(d))")
     if run_loop:
         if run_ord is None:
             raise ValueError("run_loop=True requires a run_ord plan "
@@ -286,8 +304,8 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
         method = "kernel" if points_pad.is_cuda else "reference"
     scal = metric_lib.device_refine_scalar(metric, eps, points_pad.dtype,
                                            points_pad.device)
-    kw = dict(c=c, tq=tq, n_real=n_real, unicomp=unicomp, merged=merged,
-              keep_hits=keep_hits)
+    kw = dict(c=c, tq=tq, n_real=n_real, unicomp=unicomp,
+              external=bool(external), merged=merged, keep_hits=keep_hits)
     if method == "kernel":
         if not points_pad.is_cuda:
             raise RuntimeError("the fused_join CUDA kernel needs CUDA "

@@ -1,0 +1,647 @@
+"""Serving driver: a persistent external-query epsilon-join service over a
+grid-indexed set, on the card.
+
+    python -m repro_torch.launch.serve --arch selfjoin --points 20000 \\
+        --dims 4 --eps 2.0 --requests 8 --request-batch 256
+
+The counterpart of ``repro.launch.serve``'s join services. ``JoinService``
+builds the grid index once (paper SIV) and prepares the external-query join
+(``core.query_join``): the offset tables and the padded points copy are
+made at start-up and every request only pads its queries, computes window
+descriptors and launches the fused kernel. The driver warms the service,
+reports p50/p99 latency and requests/s over the steady-state window, and
+exits non-zero if a steady-state request built or loaded a kernel library
+or redid a prepare-time build (``assert_no_retrace``).
+
+``BatchingJoinService`` coalesces queued requests of one epsilon into
+single launches of up to ``max_batch`` queries, with up to two batches in
+flight. Everything runs on the current stream of the index's device, so no
+tensor crosses streams.
+
+Not ported yet, each raising and naming its ROADMAP item: the slab-sharded
+service and ``n_slabs > 1`` (A14), the cosine and Jaccard metrics (A8), and
+``--arch`` other than ``selfjoin`` (the LM decode service, A17).
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import threading
+import time
+import warnings
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import metric as metric_lib
+from repro_torch.core.grid import build_grid, resolve_device
+from repro_torch.core.query_join import (QueryJoinResult, bucket_rows,
+                                         coalesce_requests,
+                                         executable_cache_stats, metric_free,
+                                         note_metric, note_metric_peak,
+                                         prepare, slice_result)
+
+
+def _counters(stats: dict) -> dict:
+    """The counters ``assert_no_retrace`` holds still: every entry of
+    ``executable_cache_stats`` but the serving metrics."""
+    out = {k: v for k, v in stats.items() if k != "trace_events"}
+    out.update(metric_free(stats["trace_events"]))
+    return out
+
+
+class _JoinServiceBase:
+    """Serving-side bookkeeping shared by the services: steady-state latency
+    percentiles, and a watchdog (``assert_no_retrace``) over the work a
+    steady-state request must never redo.
+
+    Latency samples taken before ``mark_steady`` land in
+    ``warmup_latencies_ms`` and are excluded from ``percentiles`` /
+    ``requests_per_sec``; every ``warmup()`` marks steady (with a warning)
+    if the caller has not.
+    """
+
+    def __init__(self, return_pairs: bool = False):
+        self.return_pairs = return_pairs
+        self.latencies_ms: list[float] = []        # steady-state window
+        self.warmup_latencies_ms: list[float] = []  # pre-steady samples
+        self.total_neighbors = 0
+        self.requests = 0
+        self._steady = False
+        self._warm_buckets: set[int] = set()
+        self._cache_mark: Optional[dict] = None
+        # counters moved off the request path since the mark (reindex)
+        self._offpath: collections.Counter = collections.Counter()
+
+    def _answer(self, queries: np.ndarray, eps: Optional[float]):
+        raise NotImplementedError
+
+    def mark_steady(self) -> None:
+        """Snapshot the counters; later requests must not move them, and
+        later latency samples enter the steady-state window."""
+        self._steady = True
+        self._cache_mark = _counters(executable_cache_stats())
+        self._offpath.clear()
+
+    def _auto_steady(self) -> None:
+        """Called by ``warmup()``: enter steady state if the caller has not
+        done so (with a warning, so warm-up latencies never mix in)."""
+        if not self._steady:
+            warnings.warn(
+                "mark_steady() was never called; auto-marking steady "
+                "after warmup() so reported stats exclude the warmup "
+                "window", stacklevel=3)
+            self.mark_steady()
+
+    def query(self, queries: np.ndarray, *, eps: Optional[float] = None):
+        """Answer one request; records its latency in the steady or warm-up
+        window depending on ``mark_steady``."""
+        t0 = time.perf_counter()
+        res = self._answer(queries, eps)
+        dt_ms = 1000 * (time.perf_counter() - t0)
+        (self.latencies_ms if self._steady
+         else self.warmup_latencies_ms).append(dt_ms)
+        self.requests += 1
+        self.total_neighbors += res.total
+        return res
+
+    def _steady_window(self) -> list[float]:
+        if self.latencies_ms:
+            return self.latencies_ms
+        if self.warmup_latencies_ms:
+            warnings.warn(
+                "no steady-state samples recorded (mark_steady/warmup "
+                "never ran before queries); falling back to the warmup "
+                "window -- stats include start-up work", stacklevel=3)
+            return self.warmup_latencies_ms
+        return []
+
+    def percentiles(self) -> tuple[float, float]:
+        lat = np.asarray(self._steady_window())
+        return (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)))
+
+    def requests_per_sec(self) -> float:
+        win = self._steady_window()
+        total_s = sum(win) / 1000
+        return len(win) / total_s if total_s > 0 else float("inf")
+
+    def assert_no_retrace(self) -> None:
+        """Raise if any request since ``mark_steady`` built or loaded a
+        kernel library or redid a prepare-time build. The serving metrics
+        are exempt (they move per request), and so is what this service's
+        ``reindex`` built off the request path. The counters are
+        process-wide, as the JAX package's executable caches are: a service
+        prepared after another marked steady moves them too."""
+        if self._cache_mark is None:
+            return
+        now = _counters(executable_cache_stats())
+        want = {k: v + self._offpath[k] for k, v in self._cache_mark.items()}
+        if now != want:
+            raise RuntimeError(
+                "serve path redid start-up work during steady state: "
+                f"{want} -> {now}")
+
+
+class JoinService(_JoinServiceBase):
+    """Persistent epsilon-join service: index once, answer many requests.
+
+    The serving state is one snapshot tuple ``(index, prepared)``:
+    ``reindex`` rebuilds both in a background thread and swaps them with a
+    single reference assignment, so every request sees the old snapshot or
+    the new one, never a mix.
+    """
+
+    def __init__(self, points: np.ndarray, eps: float, *, index=None,
+                 return_pairs: bool = False,
+                 merge_last_dim: Optional[bool] = None,
+                 metric: str = "l2", device=None):
+        super().__init__(return_pairs)
+        metric_lib.check_metric(metric)
+        self.eps = float(eps)
+        self.merge_last_dim = merge_last_dim
+        t0 = time.perf_counter()
+        if index is None:
+            index = build_grid(np.asarray(points), self.eps,
+                               device=resolve_device(device))
+        self.device = index.device
+        prepared = prepare(index, merge_last_dim=merge_last_dim)
+        self._snapshot = (index, prepared)
+        self.build_s = time.perf_counter() - t0
+        self.swaps = 0
+        self.reindex_timings: Optional[dict] = None
+        self._reindex_thread: Optional[threading.Thread] = None
+        self._reindex_error: Optional[BaseException] = None
+
+    @property
+    def index(self):
+        return self._snapshot[0]
+
+    @property
+    def prepared(self):
+        return self._snapshot[1]
+
+    def warmup(self, batch_size: int) -> int:
+        """Do the start-up work of ``batch_size``-query requests off the
+        request path (``PreparedJoin.warm``). Returns the request bucket's
+        padded row count."""
+        qp = bucket_rows(batch_size)
+        if qp not in self._warm_buckets:
+            self.prepared.warm(batch_size, return_pairs=self.return_pairs)
+            self._warm_buckets.add(qp)
+        self._auto_steady()
+        return qp
+
+    def reindex(self, points: np.ndarray, *, wait: bool = True) -> None:
+        """Rebuild the index over ``points`` and swap the serving snapshot.
+
+        Build, prepare and warm-up run in a background thread on the
+        device's current stream; requests keep being answered from the old
+        snapshot until the device has finished the build and the single
+        ``_snapshot`` assignment swaps it. ``wait=False`` returns at once;
+        ``join_reindex`` (or the next ``reindex``) surfaces errors.
+        """
+        if self._reindex_thread is not None and self._reindex_thread.is_alive():
+            raise RuntimeError("reindex already in progress")
+        self.join_reindex()          # surface a previous failure, if any
+        pts = np.asarray(points)
+
+        def work():
+            try:
+                before = _counters(executable_cache_stats())
+                t0 = time.perf_counter()
+                index = build_grid(pts, self.eps, device=self.device)
+                self._sync()
+                t1 = time.perf_counter()
+                prepared = prepare(index, merge_last_dim=self.merge_last_dim)
+                t2 = time.perf_counter()
+                for qp in sorted(self._warm_buckets):
+                    prepared.warm(qp, return_pairs=self.return_pairs)
+                self._sync()         # the new snapshot is complete
+                t3 = time.perf_counter()
+                after = _counters(executable_cache_stats())
+                self._snapshot = (index, prepared)   # the swap
+                self._offpath.update({k: after[k] - before.get(k, 0)
+                                      for k in after})
+                self.swaps += 1
+                self.reindex_timings = {
+                    "build_s": t1 - t0, "plan_s": t2 - t1,
+                    "warm_s": t3 - t2,
+                    "swap_s": time.perf_counter() - t3}
+            except BaseException as e:   # noqa: BLE001 -- surfaced in caller
+                self._reindex_error = e
+
+        th = threading.Thread(target=work, name="join-reindex", daemon=True)
+        self._reindex_thread = th
+        th.start()
+        if wait:
+            self.join_reindex()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def join_reindex(self) -> None:
+        """Block until any in-flight reindex has swapped; re-raise its
+        error in the caller's thread if it failed."""
+        th = self._reindex_thread
+        if th is not None:
+            th.join()
+        if self._reindex_error is not None:
+            err, self._reindex_error = self._reindex_error, None
+            raise RuntimeError("background reindex failed") from err
+
+    def _answer(self, queries: np.ndarray, eps: Optional[float] = None):
+        return self.prepared.join(queries, eps=eps,
+                                  return_pairs=self.return_pairs)
+
+
+class ShardedJoinService:
+    """The slab-sharded service of the JAX package; not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("the slab-sharded join service is not "
+                                  "ported yet (ROADMAP A14)")
+
+
+class BatchTicket:
+    """Handle for one submitted request: completes when every part of the
+    request (a request wider than ``max_batch`` is split) has been sliced
+    out of its coalesced launch."""
+
+    def __init__(self, n_parts: int, n_queries: int):
+        self.n_parts = n_parts
+        self.n_queries = n_queries
+        self.t_submit = time.perf_counter()
+        self.t_done: Optional[float] = None
+        self._parts: dict = {}
+
+    def done(self) -> bool:
+        return len(self._parts) == self.n_parts
+
+    def _add_part(self, part: int, res) -> None:
+        self._parts[part] = res
+        if self.done() and self.t_done is None:
+            self.t_done = time.perf_counter()
+
+    def result(self):
+        """The request's QueryJoinResult, identical to serving it alone
+        (parts concatenate back in submission order; pair query rows of
+        part k rebase by the rows of parts before it)."""
+        if not self.done():
+            raise RuntimeError(
+                f"ticket incomplete: {len(self._parts)}/{self.n_parts} "
+                f"parts resolved (call service.drain() first)")
+        parts = [self._parts[i] for i in range(self.n_parts)]
+        if len(parts) == 1:
+            return parts[0]
+        counts = np.concatenate([p.counts for p in parts])
+        pairs = None
+        if parts[0].pairs is not None:
+            chunks = []
+            row0 = 0
+            for p in parts:
+                q = p.pairs.copy()
+                q[:, 0] += row0
+                chunks.append(q)
+                row0 += p.counts.shape[0]
+            pairs = np.concatenate(chunks, axis=0)
+        return QueryJoinResult(
+            counts=counts, pairs=pairs, n_offsets=parts[0].n_offsets,
+            bucket_rows=parts[0].bucket_rows, emit=parts[0].emit,
+            candidates_checked=None)
+
+    def latency_ms(self) -> float:
+        if self.t_done is None:
+            raise RuntimeError("ticket not complete")
+        return 1000 * (self.t_done - self.t_submit)
+
+
+class _Sub:
+    """One admission-queue entry: a request part awaiting coalescing."""
+
+    __slots__ = ("queries", "eps_key", "ticket", "part", "t_arrival")
+
+    def __init__(self, queries, eps_key, ticket, part):
+        self.queries = queries
+        self.eps_key = eps_key
+        self.ticket = ticket
+        self.part = part
+        self.t_arrival = time.perf_counter()
+
+
+class _Inflight:
+    """A launched coalesced batch whose device results are outstanding."""
+
+    __slots__ = ("pending", "subs", "bounds")
+
+    def __init__(self, pending, subs, bounds):
+        self.pending = pending
+        self.subs = subs
+        self.bounds = bounds
+
+
+class BatchingJoinService(_JoinServiceBase):
+    """Continuous-batching epsilon-join service.
+
+    Requests from independent callers enter an admission queue (``submit``)
+    and are coalesced, first in first out and of one epsilon, into single
+    launches of up to ``max_batch`` queries, so the per-launch overhead that
+    dominates small requests is shared across callers. A flushed batch is
+    queued through ``join_async`` and resolved later: up to two batches stay
+    in flight, so the host assembles batch k+1 while the card runs batch k.
+    Each request's answer is sliced back out of the coalesced result by its
+    query rows (``slice_result``) and equals serving it alone. A request
+    wider than ``max_batch`` splits into parts; an empty request completes
+    at once. ``n_slabs > 1`` waits for ROADMAP A14 and raises.
+    """
+
+    def __init__(self, points: np.ndarray, eps: float, *, index=None,
+                 n_slabs: int = 1, return_pairs: bool = False,
+                 merge_last_dim: Optional[bool] = None,
+                 max_batch: int = 1024, max_wait_ms: float = 2.0,
+                 metric: str = "l2", device=None):
+        super().__init__(return_pairs)
+        metric_lib.check_metric(metric)
+        if n_slabs > 1:
+            raise NotImplementedError("n_slabs > 1 (slab-sharded batching) "
+                                      "is not ported yet (ROADMAP A14)")
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.max_batch = int(max_batch)
+        self.max_wait_ms = float(max_wait_ms)
+        self.eps = float(eps)
+        t0 = time.perf_counter()
+        if index is None:
+            index = build_grid(np.asarray(points), self.eps,
+                               device=resolve_device(device))
+        self.prepared = prepare(index, merge_last_dim=merge_last_dim)
+        self.build_s = time.perf_counter() - t0
+        self._queue: deque[_Sub] = deque()
+        self._queued_rows = 0
+        self._inflight: deque[_Inflight] = deque()
+        self.n_launches = 0
+        self.n_coalesced = 0
+        self.rows_launched = 0
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, queries: np.ndarray, *,
+               eps: Optional[float] = None) -> BatchTicket:
+        """Enqueue one request; returns a ticket that completes once every
+        part has been served from a coalesced launch (``pump``/``drain``
+        advance the pipeline). Does not block."""
+        pj = self.prepared
+        q = np.asarray(queries, pj.dtype)
+        if q.ndim != 2 or q.shape[1] != pj.n_dims:
+            raise ValueError(f"queries must be (Q, {pj.n_dims}), "
+                             f"got {q.shape}")
+        eps_key = float(self.eps if eps is None else eps)
+        n = q.shape[0]
+        if n == 0:
+            t = BatchTicket(1, 0)
+            t._add_part(0, QueryJoinResult(
+                counts=np.zeros(0, np.int32),
+                pairs=(np.empty((0, 2), np.int32) if self.return_pairs
+                       else None),
+                n_offsets=pj.n_offsets, bucket_rows=0, emit=None,
+                candidates_checked=None))
+            return t
+        parts = [q[i:i + self.max_batch]
+                 for i in range(0, n, self.max_batch)]
+        ticket = BatchTicket(len(parts), n)
+        for i, p in enumerate(parts):
+            self._queue.append(_Sub(p, eps_key, ticket, i))
+            self._queued_rows += p.shape[0]
+        note_metric_peak("batch.queue_depth_peak", len(self._queue))
+        return ticket
+
+    # -- pipeline ----------------------------------------------------------
+
+    def _flush_due(self, now: float) -> bool:
+        if not self._queue:
+            return False
+        if self._queued_rows >= self.max_batch:
+            return True
+        return 1000 * (now - self._queue[0].t_arrival) >= self.max_wait_ms
+
+    def _form_group(self) -> list[_Sub]:
+        """Pop the next coalesced batch off the queue: from the head, of
+        the head's epsilon (one threshold per launch), up to ``max_batch``
+        rows. Skipped entries keep their queue position."""
+        head_eps = self._queue[0].eps_key
+        group: list[_Sub] = []
+        rows = 0
+        keep: list[_Sub] = []
+        while self._queue:
+            sub = self._queue.popleft()
+            if (sub.eps_key == head_eps
+                    and rows + sub.queries.shape[0] <= self.max_batch):
+                group.append(sub)
+                rows += sub.queries.shape[0]
+            else:
+                keep.append(sub)
+        self._queue.extendleft(reversed(keep))
+        self._queued_rows -= rows
+        return group
+
+    def _launch(self, group: list[_Sub]) -> None:
+        qcat, bounds = coalesce_requests([s.queries for s in group])
+        pending = self.prepared.join_async(
+            qcat, eps=group[0].eps_key, return_pairs=self.return_pairs,
+            sort_pairs=True)
+        self._inflight.append(_Inflight(pending, group, bounds))
+        self.n_launches += 1
+        self.n_coalesced += len(group)
+        self.rows_launched += qcat.shape[0]
+        note_metric("batch.launches")
+        note_metric("batch.coalesced_requests", len(group))
+        note_metric("batch.rows", qcat.shape[0])
+
+    def _resolve_oldest(self) -> None:
+        infl = self._inflight.popleft()
+        res = infl.pending.result()
+        for k, sub in enumerate(infl.subs):
+            part = slice_result(res, int(infl.bounds[k]),
+                                int(infl.bounds[k + 1]))
+            sub.ticket._add_part(sub.part, part)
+            self.total_neighbors += part.total
+
+    def pump(self) -> None:
+        """Advance the pipeline without blocking on admission: launch every
+        due batch (oldest waiter past ``max_wait_ms``, or ``max_batch`` rows
+        queued), then resolve in-flight batches while their device work is
+        already done, and forcibly beyond a depth of two."""
+        now = time.perf_counter()
+        while self._flush_due(now):
+            self._launch(self._form_group())
+        while self._inflight and (len(self._inflight) > 2
+                                  or self._inflight[0].pending.ready()):
+            self._resolve_oldest()
+
+    def drain(self) -> None:
+        """Flush and resolve everything: every ticket issued before the
+        call is complete afterwards."""
+        while self._queue:
+            self._launch(self._form_group())
+        while self._inflight:
+            self._resolve_oldest()
+
+    # -- service interface -------------------------------------------------
+
+    @property
+    def coalesce_factor(self) -> float:
+        """Mean requests per launch (1.0 = batching is a no-op)."""
+        return self.n_coalesced / self.n_launches if self.n_launches else 0.0
+
+    def warmup(self, batch_size: Optional[int] = None) -> int:
+        """Do the start-up work of every batch size the coalescer can form,
+        up to ``max_batch`` rows, off the request path. ``batch_size`` is
+        accepted for interface parity and ignored: the coalescer may fill a
+        group to ``max_batch`` rows whatever the request sizes. Returns the
+        top bucket's padded row count."""
+        top = bucket_rows(self.max_batch)
+        s = bucket_rows(1)
+        while s <= top:
+            if s not in self._warm_buckets:
+                self.prepared.warm(s, return_pairs=self.return_pairs)
+                self._warm_buckets.add(s)
+            s *= 2
+        self._auto_steady()
+        return top
+
+    def _answer(self, queries: np.ndarray, eps: Optional[float] = None):
+        # synchronous convenience path: admit, drain, slice
+        ticket = self.submit(queries, eps=eps)
+        self.drain()
+        return ticket.result()
+
+
+def _metric_workload(args, rng):
+    """(points, eps, make_queries) for the service smoke: the uniform box
+    for l2; cosine and Jaccard wait for ROADMAP A8."""
+    metric_lib.check_metric(args.metric)
+    pts = rng.uniform(0, 100, size=(args.points, args.dims))
+    return pts, args.eps, lambda n: rng.uniform(0, 100, size=(n, args.dims))
+
+
+def serve_selfjoin(args):
+    rng = np.random.default_rng(args.seed)
+    pts, eps, make_queries = _metric_workload(args, rng)
+    device = resolve_device(args.device)
+    if args.slabs > 1:
+        raise NotImplementedError("--slabs > 1 (slab-sharded serving) is "
+                                  "not ported yet (ROADMAP A14)")
+    if args.batching:
+        svc = BatchingJoinService(
+            pts, eps, return_pairs=args.return_pairs,
+            merge_last_dim=not args.no_merge, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, metric=args.metric, device=device)
+        print(f"[serve] batching service on {device}: {args.points} pts, "
+              f"max_batch={svc.max_batch}, max_wait={svc.max_wait_ms}ms "
+              f"(indexed in {svc.build_s:.3f}s)")
+    else:
+        svc = JoinService(pts, eps, return_pairs=args.return_pairs,
+                          merge_last_dim=not args.no_merge,
+                          metric=args.metric, device=device)
+        sweep = "merged-range" if svc.prepared.merged else "per-cell"
+        print(f"[serve] indexed {args.points} pts on {device} in "
+              f"{svc.build_s:.3f}s (|G|={int(svc.index.num_cells)} "
+              f"non-empty cells, C={svc.prepared.c}, "
+              f"{svc.prepared.n_offsets} {sweep} stencil offsets)")
+    t0 = time.perf_counter()
+    qp = svc.warmup(args.request_batch)   # auto-marks steady (warns)
+    print(f"[serve] warmed bucket {qp} rows in "
+          f"{time.perf_counter() - t0:.3f}s (off the request path)")
+    if args.batching:
+        tickets = [svc.submit(make_queries(args.request_batch))
+                   for _ in range(args.requests)]
+        t0 = time.perf_counter()
+        svc.pump()
+        svc.drain()
+        wall = time.perf_counter() - t0
+        svc.latencies_ms = [t.latency_ms() for t in tickets]
+        svc.requests = len(tickets)
+        p50, p99 = svc.percentiles()
+        print(f"[serve] {args.requests} requests x {args.request_batch} "
+              f"queries coalesced into {svc.n_launches} launches "
+              f"(coalesce factor {svc.coalesce_factor:.1f}): "
+              f"p50 {p50:.1f}ms p99 {p99:.1f}ms "
+              f"{len(tickets) / wall:.1f} req/s")
+    else:
+        for r in range(args.requests):
+            if args.reindex and r == args.requests // 2:
+                # mid-load re-index of the same points, permuted: a
+                # background build and one snapshot swap, off the request
+                # path, so the watchdog below must stay green
+                svc.reindex(rng.permutation(pts), wait=True)
+                t = svc.reindex_timings
+                print(f"[serve] reindexed {args.points} pts mid-load: "
+                      f"build {t['build_s'] * 1000:.1f}ms "
+                      f"plan {t['plan_s'] * 1000:.1f}ms "
+                      f"warm {t['warm_s'] * 1000:.1f}ms "
+                      f"swap {t['swap_s'] * 1e6:.0f}us "
+                      f"(snapshot swaps: {svc.swaps})")
+            svc.query(make_queries(args.request_batch))
+        p50, p99 = svc.percentiles()
+        print(f"[serve] {args.requests} requests x {args.request_batch} "
+              f"queries{' (+pairs)' if args.return_pairs else ''}: "
+              f"p50 {p50:.1f}ms p99 {p99:.1f}ms "
+              f"{svc.requests_per_sec():.1f} req/s "
+              f"({svc.total_neighbors} neighbors found)")
+    svc.assert_no_retrace()   # regression gate: steady state redoes nothing
+    print("[serve] no-rebuild check passed: steady-state requests built, "
+          "loaded and prepared nothing")
+    return p50
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="selfjoin")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="where the service runs: CUDA by default; 'cpu' "
+                         "runs the kernels' plain versions")
+    ap.add_argument("--points", type=int, default=20000)
+    ap.add_argument("--dims", type=int, default=4)
+    ap.add_argument("--eps", type=float, default=2.0)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--request-batch", type=int, default=256)
+    ap.add_argument("--return-pairs", action="store_true",
+                    help="materialize neighbor pairs per request, not "
+                         "just counts")
+    ap.add_argument("--metric", default="l2",
+                    choices=("l2", "cosine", "jaccard"),
+                    help="similarity metric; cosine and jaccard are not "
+                         "ported yet (ROADMAP A8)")
+    ap.add_argument("--no-merge", action="store_true",
+                    help="serve through the per-cell 3^n stencil instead "
+                         "of the merged-range 3^(n-1) sweep")
+    ap.add_argument("--slabs", type=int, default=1,
+                    help="slab-sharded serving; not ported yet (ROADMAP "
+                         "A14)")
+    ap.add_argument("--reindex", action="store_true",
+                    help="re-index a permutation of the point set halfway "
+                         "through the request loop (background build and "
+                         "snapshot swap; the watchdog must stay green)")
+    ap.add_argument("--batching", action="store_true",
+                    help="serve through the continuous-batching admission "
+                         "queue (BatchingJoinService)")
+    ap.add_argument("--max-batch", type=int, default=1024,
+                    help="coalesced launch budget in query rows")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="admission-queue flush deadline for the oldest "
+                         "waiting request")
+    args = ap.parse_args(argv)
+    if args.arch != "selfjoin":
+        raise NotImplementedError(f"--arch {args.arch}: the LM services are "
+                                  f"not ported yet (ROADMAP A17)")
+    if args.reindex and args.batching:
+        raise SystemExit("--reindex needs the single-index service (no "
+                         "--batching)")
+    return serve_selfjoin(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -153,8 +153,8 @@ def test_kernel_method_refuses_cpu_tensors(launch_inputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(external=True), dict(gid_pairs=True), dict(metric="cosine"),
-    dict(metric="jaccard"), dict(n_feat=2)])
+    dict(external=True, metric="cosine"), dict(gid_pairs=True),
+    dict(metric="cosine"), dict(metric="jaccard"), dict(n_feat=2)])
 def test_unported_kernel_options_raise(launch_inputs, option):
     jidx, arrays, c, eps = launch_inputs("uniform-2d", np.float64, True, True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -42,6 +42,13 @@ def test_port_runs_with_jax_and_repro_unimportable():
         pairs = repro_torch.self_join(pts, 0.5, device="cpu")
         stats = repro_torch.self_join_count(pts, 0.5, device="cpu")
         assert pairs.shape[0] == stats.total_pairs > 0
+        q = np.random.default_rng(1).uniform(-1, 11, (40, 2))
+        res = repro_torch.epsilon_join(q, pts, 0.5, device="cpu")
+        svc = repro_torch.JoinService(pts, 0.5, return_pairs=True,
+                                      device="cpu")
+        served = svc.query(q)
+        assert (served.counts == res.counts).all() and res.total > 0
+        assert (served.pairs == res.pairs).all()
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                        for m, v in sys.modules.items() if v is not None)
         print("ok", pairs.shape[0])

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on a card.
 
-The fused join (B1, row loop and cell-run loop) and the brute-force tiles (B2
-hits, B3 counts) must equal their plain versions bit for bit, and the entry
-points on the card the same entry points on the CPU.
+The fused join (B1: the row loop, the cell-run loop, and the external-query
+mask in both) and the brute-force tiles (B2 hits, B3 counts) must equal their
+plain versions bit for bit, and the entry points on the card (the joins, the
+external-query join and the services) the same entry points on the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -18,6 +19,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import grid as tgrid
+from repro_torch.core import query_join as tqj
 from repro_torch.core import selfjoin as tsj
 from repro_torch.kernels import distance_tile as tdt
 from repro_torch.kernels import fused_join as tfj
@@ -198,3 +200,115 @@ def test_self_join_batched_on_card_matches_self_join(cuda_device):
                                     n_batches=n_batches, device=cuda_device)
         assert got.device.type == "cpu"
         assert torch.equal(got, want.cpu())
+
+
+def external_queries(pts, eps, n=2048, seed=11):
+    """Seeded queries over the volume widened by 2 eps on every side, a
+    tenth of them repeating earlier rows."""
+    rng = np.random.default_rng(seed)
+    lo, hi = pts.min(axis=0) - 2 * eps, pts.max(axis=0) + 2 * eps
+    q = rng.uniform(lo, hi, (n, pts.shape[1]))
+    dup = rng.choice(n, n // 10, replace=False)
+    q[dup] = q[rng.integers(0, n // 2, dup.size)]
+    return q
+
+
+EXTERNAL_DATA = {
+    "uniform": (np.random.default_rng(1).uniform(0, 100, (20000, 2)), 1.0),
+    "expo": (np.random.default_rng(5).exponential(10.0, (3000, 3)), 1.2),
+}
+
+
+@pytest.mark.parametrize("data", list(EXTERNAL_DATA))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("run_loop", [True, False])
+def test_external_kernel_matches_plain_version(cuda_device, data, dtype,
+                                               merged, run_loop):
+    """B1 (b): every launch of a request against the plain version, hits
+    plane on and off, row loop and run loop, merged and per-cell."""
+    pts, eps = EXTERNAL_DATA[data]
+    index = tgrid.build_grid(torch.as_tensor(pts).to(dtype), eps,
+                             device=cuda_device)
+    pj = tqj.prepare(index, merge_last_dim=merged, run_loop=run_loop)
+    q = external_queries(pts, eps)
+    before = tfj.EXTERNAL_LAUNCHES
+    for keep_hits in (True, False):
+        _, launches = pj.launch_inputs(q, keep_hits=keep_hits)
+        for _, _, args, kw in launches:
+            a = tfj.fused_join_hits(*args, method="kernel", **kw)
+            plain = {k: v for k, v in kw.items()
+                     if k not in ("run_ord", "run_loop")}
+            b = tfj.fused_join_hits(*args, method="reference", **plain)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    assert tfj.EXTERNAL_LAUNCHES > before
+
+
+def _lattice_data():
+    """Points and queries on a 0.1-spaced lattice, eps 0.3: many queries sit
+    on cell boundaries, where a reciprocal multiply in place of the true
+    division by eps would put the merged lane one cell off the windows."""
+    g = np.arange(60) * 0.1
+    pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    q = np.concatenate([pts[::3], pts[::7] + 0.05, pts[:50] - 0.3])
+    return pts, q, 0.3
+
+
+@pytest.mark.parametrize("data", ["uniform", "expo", "lattice"])
+@pytest.mark.parametrize("merged", [True, False])
+def test_epsilon_join_on_card_matches_cpu(cuda_device, data, merged):
+    if data == "lattice":
+        pts, q, eps = _lattice_data()
+    else:
+        pts, eps = EXTERNAL_DATA[data]
+        q = external_queries(pts, eps, n=700)
+    before = tfj.EXTERNAL_LAUNCHES
+    gpu = tqj.epsilon_join(q, pts, eps, device=cuda_device,
+                           merge_last_dim=merged)
+    assert tfj.EXTERNAL_LAUNCHES > before
+    cpu = tqj.epsilon_join(q, pts, eps, device="cpu", merge_last_dim=merged)
+    assert np.array_equal(gpu.counts, cpu.counts)
+    assert np.array_equal(gpu.pairs, cpu.pairs)
+    assert gpu.total > 0
+
+
+def test_services_on_card(cuda_device):
+    """A pair-serving service, a counts-only one and the batching service
+    on the card: the CPU's answers, a ready() that does not block, and no
+    counter moved in steady state."""
+    pts, eps = EXTERNAL_DATA["uniform"]
+    rng = np.random.default_rng(3)
+    stream = [external_queries(pts, eps, n=n, seed=k)
+              for k, n in enumerate((1024, 77, 300, 1))]
+    cpu = repro_torch.JoinService(pts, eps, return_pairs=True, device="cpu")
+    want = [cpu.query(q) for q in stream]
+    svc = repro_torch.JoinService(pts, eps, return_pairs=True,
+                                  device=cuda_device)
+    counts_only = repro_torch.JoinService(pts, eps, index=svc.index)
+    bat = repro_torch.BatchingJoinService(pts, eps, index=svc.index,
+                                          return_pairs=True, max_batch=512)
+    svc.prepared.warm(1024)
+    counts_only.prepared.warm(1024)
+    bat.warmup()
+    svc.mark_steady()
+    counts_only.mark_steady()
+    pending = svc.prepared.join_async(stream[0])
+    assert pending.ready() in (True, False)
+    assert np.array_equal(pending.result().pairs, want[0].pairs)
+    assert pending.ready()
+    tickets = [bat.submit(q) for q in stream]
+    bat.pump()
+    bat.drain()
+    for q, w, t in zip(stream, want, tickets):
+        got = svc.query(q)
+        assert np.array_equal(got.counts, w.counts)
+        assert np.array_equal(got.pairs, w.pairs)
+        assert np.array_equal(counts_only.query(q).counts, w.counts)
+        assert np.array_equal(t.result().pairs, w.pairs)
+    for s in (svc, counts_only, bat):
+        s.assert_no_retrace()
+    # the counters are process-wide: a reindex moves them for the others
+    svc.reindex(pts[rng.permutation(pts.shape[0])])
+    assert np.array_equal(svc.query(stream[0]).counts, want[0].counts)
+    svc.assert_no_retrace()
