@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: the L2 self-join and its kernels on one card.
+"""Chip smoke of the PyTorch port: the self-joins and their kernels on one card.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -48,10 +48,25 @@ each printing one JSON line:
                   256 requests against the solo answers and one closed loop
                   of the load generator; a reindex halfway through 16
                   requests; boundary queries on a lattice
+  metrics         the cosine and Jaccard joins (``metric=``): the bench's
+                  two metric workloads' totals against the JAX package's
+                  recorded ones; B1 (e), the Jaccard popcount refine,
+                  against its plain version on every launch of the
+                  jaccard-v64 join (row and run loop, hits on and off, the
+                  self, UNICOMP and external masks); cosine at 1,000,000
+                  raw 4-D embeddings (B3's counts on the unit rows, every
+                  planted scaled duplicate found, the plain L2 join on the
+                  same rows beside it); Jaccard at 100,000 token sets over
+                  1,024 tokens (sampled neighbour lists against a direct
+                  evaluation, B1 (e) timed beside its plain version and its
+                  bound); both services per metric against direct
+                  evaluations, and one batching stream per metric against
+                  the solo answers; one profiled join per metric
   kernels         one line: every kernel with launches, agreement and times
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
-brute for B2, serve for B1 (b)) and read just after; comparisons with the
+brute for B2, serve for B1 (b), metrics for the cosine join's B1 and the
+Jaccard join's B1 (e)) and read just after; comparisons with the
 plain versions run outside those windows. The last lines are the card's ``nvidia-smi`` name and
 power limit, then ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
@@ -64,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -86,9 +102,12 @@ MAIN_POINTS, MAIN_DIMS, MAIN_EPS = 2_000_000, 2, 0.2
 PAPER_POINTS, PAPER_EPS = 10_000_000, 0.1
 SAMPLED_QUERIES = 1024
 BRUTE_WORKLOADS = ("uniform-2d", "expo-3d", "clustered-4d")
-# H100 SXM data sheet peaks: HBM3 bytes/s, and non-tensor-core FP64 / FP32.
+# H100 SXM data sheet peaks: HBM3 bytes/s, and non-tensor-core FP64 / FP32;
+# INT32 (the Jaccard refine's AND and popcount): 64 INT32 lanes an SM, the
+# FP64 lanes' count, at one operation a clock (the FP64 figure counts an
+# FMA as two), so half of 34e12.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "int32": 17e12}
 # the f64 band of the expanded form (tests/test_torch_brute.py::_band)
 BAND_SCALE = 2.0 ** -50
 # the serve phase: index A is the main path's dataset; index B the expo
@@ -96,6 +115,18 @@ BAND_SCALE = 2.0 ** -50
 SERVE_REQUESTS, SERVE_BATCH, REINDEX_REQUESTS = 64, 1024, 16
 SKEW_POINTS, SKEW_EPS, SKEW_REQUESTS = 1_000_000, 1.2, 16
 EXTERNAL_QUERIES = 2048
+# The bench's metric workloads (benchmarks/bench_selfjoin.py::
+# metric_workloads at its defaults: 20,000 points, 4 dimensions, seed 0) and
+# their ordered-pair totals, computed with the JAX package on the CPU, where
+# self_join_count(metric=...) and brute_force_count_metric agree.
+METRIC_TOTALS = {"cosine-4d": 7477644, "jaccard-v64": 66642}
+# cosine at the scale of an embedding-dedup pass; Jaccard near-duplicate
+# detection over token sets (sizes 16-256 of 1,024 tokens)
+COSINE_POINTS, COSINE_DIMS, COSINE_T = 1_000_000, 4, 0.999
+JACCARD_POINTS, JACCARD_VOCAB, JACCARD_T = 100_000, 1024, 0.8
+METRIC_REQUESTS = 4
+# rows of one plain-version call when a launch is held to it in slices
+PLAIN_ROWS = 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -291,12 +322,13 @@ def profiled_device_ms(fn, reps: int = 5) -> float:
 
 def kernel_bound(prepared):
     """Least time the card could take for B1's launches: the larger of
-    bytes over HBM bandwidth and floating-point operations over the peak.
-    Bytes: each input read once (descriptors, query rows, q_pos, the
-    distinct window rows' coordinate lanes) and each output written once
-    (the int8 hit plane, counts, slot_base). Operations: 3 * n_real per live
-    slot (subtract, multiply, add), the slots this data needs (sum of
-    win_count). The run loop does the same work, so it has the same bound."""
+    bytes over HBM bandwidth and operations over the peak. Bytes: each
+    input read once (descriptors, query rows, q_pos, the distinct window
+    rows' used lanes) and each output written once (the int8 hit plane when
+    kept, counts, slot_base). Operations, on the slots this data needs (sum
+    of win_count): 3 * n_real floating-point ones (subtract, multiply, add)
+    for l2 and cosine; 2 * n_feat INT32 ones (AND, popcount) for jaccard.
+    The run loop does the same work, so it has the same bound."""
     total_bytes = 0
     flops = 0
     dtype = None
@@ -304,9 +336,12 @@ def kernel_bound(prepared):
         points_pad, qb, ws, wc, is_zero, qpos, _ = p["args"]
         n_off, qp = ws.shape
         c, n_real, merged = p["kw"]["c"], p["kw"]["n_real"], p["kw"]["merged"]
+        n_feat = p["kw"].get("n_feat", 0)
+        jaccard = p["kw"].get("metric", "l2") == "jaccard"
         item = points_pad.element_size()
-        dtype = str(points_pad.dtype).replace("torch.", "")
-        used_lanes = n_real + (1 if merged else 0)
+        dtype = ("int32" if jaccard
+                 else str(points_pad.dtype).replace("torch.", ""))
+        used_lanes = n_real + n_feat + (1 if merged else 0)
         # distinct candidate rows over all windows of the launch
         rows = points_pad.shape[0]
         edge = torch.zeros(rows + 1, dtype=torch.int32, device=ws.device)
@@ -317,9 +352,10 @@ def kernel_bound(prepared):
         total_bytes += (distinct * used_lanes * item          # window rows
                         + qp * used_lanes * item              # query rows
                         + n_off * qp * 4 * 2 + qp * 4 + n_off * 4  # descr.
-                        + n_off * qp * c                      # hits, int8
+                        + n_off * qp * c * p["kw"].get("keep_hits", True)
                         + qp * 4 * 2)                         # counts, base
-        flops += 3 * n_real * int(wc.sum(dtype=torch.int64))
+        slots = int(wc.sum(dtype=torch.int64))
+        flops += (2 * n_feat if jaccard else 3 * n_real) * slots
     return bound(total_bytes, flops, dtype) + (total_bytes, flops)
 
 
@@ -811,14 +847,22 @@ def phase_profile():
     time. Reports null device figures when the profiler records no device
     activity."""
     import repro_torch
-    from torch.profiler import ProfilerActivity, profile
     pts = syn(MAIN_POINTS, MAIN_DIMS)
-    repro_torch.self_join(pts, MAIN_EPS, device=DEVICE)     # warm-up
+    emit("profile", points=MAIN_POINTS, **profiled_join(
+        lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE)))
+
+
+def profiled_join(join):
+    """``join()`` once to warm up, then once under ``torch.profiler``: the
+    stage spans' host and device ms, B1's device time, device time by
+    kernel name and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    join()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        repro_torch.self_join(pts, MAIN_EPS, device=DEVICE)
+        join()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -849,14 +893,15 @@ def phase_profile():
     b1 = [e for e in events if "fused_join_kernel" in e.key]
     b1_ms = sum(device_us(e) for e in b1) / 1e3 if b1 else None
     top = sorted(events, key=device_us, reverse=True)[:12]
-    emit("profile", points=MAIN_POINTS, wall_ms=wall_ms, stages=stages,
-         b1_device_ms=b1_ms, b1_calls=sum(e.count for e in b1),
-         b1_in_kernel_span=(b1_ms is not None and
-                            stages["self_join.kernel"]["device_ms"] >= b1_ms),
-         device_busy_ms=busy_ms if events else None,
-         device_busy_share=busy_ms / wall_ms if events else None,
-         top_device_ms={e.key[:80]: device_us(e) / 1e3 for e in top},
-         note="wall and host times include the profiler's own cost")
+    return dict(
+        wall_ms=wall_ms, stages=stages,
+        b1_device_ms=b1_ms, b1_calls=sum(e.count for e in b1),
+        b1_in_kernel_span=(b1_ms is not None and
+                           stages["self_join.kernel"]["device_ms"] >= b1_ms),
+        device_busy_ms=busy_ms if events else None,
+        device_busy_share=busy_ms / wall_ms if events else None,
+        top_device_ms={e.key[:80]: device_us(e) / 1e3 for e in top},
+        note="wall and host times include the profiler's own cost")
 
 
 def b2_counts(q_gpu, pts_gpu, eps: float):
@@ -1178,6 +1223,578 @@ def phase_serve():
                 bound_by=b1b_bound[1], worst=err)
 
 
+# --- metrics: the cosine and Jaccard joins ---------------------------------
+
+def metric_workloads():
+    """The bench's metric workloads (benchmarks/bench_selfjoin.py::
+    metric_workloads at its defaults): raw Gaussian 4-D embeddings with
+    planted scaled duplicates at minimum cosine 0.9, then ~10 %-dense token
+    sets over 64 tokens at minimum Jaccard 0.5, from one seeded generator."""
+    rng = np.random.default_rng(0)
+    n, d = 20_000, 4
+    emb = rng.normal(size=(n, d))
+    emb[: n // 50] = emb[n // 2: n // 2 + n // 50] * 2.5   # scaled dups
+    vocab = 64
+    sets = [tuple(np.flatnonzero(rng.random(vocab) < 0.1))
+            for _ in range(n)]
+    return {"cosine-4d": ("cosine", emb, 0.9),
+            "jaccard-v64": ("jaccard", sets, 0.5)}
+
+
+def cosine_data(n: int, seed: int = 0):
+    """Raw Gaussian embeddings, the first 2 % scaled copies (x2.5) of rows
+    from the middle: cosine duplicates that an L2 join misses."""
+    emb = np.random.default_rng(seed).normal(size=(n, COSINE_DIMS))
+    emb[: n // 50] = emb[n // 2: n // 2 + n // 50] * 2.5
+    return emb
+
+
+def jaccard_data(n: int, vocab: int, seed: int = 1):
+    """(N, vocab) uint8 token sets of 16-256 tokens; 5 % of them are near
+    duplicates of a set that is not one, with 5 % of its tokens swapped
+    (Jaccard at least (s - k) / (s + k) >= 0.88 with k = round(0.05 s)).
+    Returns (matrix, duplicate rows, their sources)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(16, 257, n)
+    mat = np.zeros((n, vocab), np.uint8)
+    for i, size in enumerate(sizes):
+        mat[i, rng.choice(vocab, size, replace=False)] = 1
+    dup = rng.choice(n, n // 20, replace=False)
+    others = np.setdiff1d(np.arange(n), dup)
+    src = others[rng.integers(0, others.size, dup.size)]
+    for i, j in zip(dup, src):
+        row = mat[j].copy()
+        ones, zeros = np.flatnonzero(row), np.flatnonzero(row == 0)
+        k = max(1, round(0.05 * ones.size))
+        row[rng.choice(ones, k, replace=False)] = 0
+        row[rng.choice(zeros, k, replace=False)] = 1
+        mat[i] = row
+    return mat, dup, src
+
+
+def jaccard_launches(canon, index, *, unicomp=True, run_loop=False):
+    """The drivers' launch schedule of a Jaccard self-join over its size
+    grid, in the form of ``prepared_launches`` (``kw`` carries the metric
+    and the feature lanes)."""
+    from repro_torch.core import grid, selfjoin as sj
+    feats = sj._metric_feats_sorted(canon, index)
+    deltas, is_zero = sj._offset_tables(index, unicomp)
+    tabs = (grid.cell_window_tables(index, deltas, merged=False,
+                                    tag=unicomp) if run_loop else None)
+    launches, points_pad, _ = sj._fused_launches(index, merged=False,
+                                                 feats=feats)
+    out = []
+    for launch in launches:
+        ws, wc, _, qb, qpos = sj._launch_prep(index, points_pad, deltas,
+                                              launch, merged=False,
+                                              tables=tabs)
+        plan = (sj._launch_run_plan(index, qpos, tile=launch[5])
+                if run_loop else None)
+        out.append(dict(launch=launch, plan=plan,
+                        args=(points_pad, qb, ws, wc, is_zero, qpos,
+                              canon.eps),
+                        kw=dict(c=launch[4], tq=launch[5], n_real=1,
+                                unicomp=unicomp, merged=False,
+                                metric="jaccard", n_feat=canon.n_feat)))
+    return out
+
+
+def sliced_vs_plain(args, kw, run_ord=None, starts=None,
+                    rows: int = PLAIN_ROWS) -> tuple[int, int]:
+    """One launch of the kernel against its plain version, the plain one
+    run on tile-aligned slices of ``rows`` query rows (its temporaries grow
+    with rows x window slots): every slice, or those starting at
+    ``starts``. The rows of a tile depend on nothing outside it, so a
+    slice's plain result is the launch's. Returns (max |kernel - plain|
+    over hits, counts and slot_base, rows compared)."""
+    from repro_torch.kernels import fused_join as fj
+    points_pad, qb, ws, wc, is_zero, qpos, eps = args
+    loop = {} if run_ord is None else dict(run_ord=run_ord, run_loop=True)
+    got = fj.fused_join_hits(*args, method="kernel", **loop, **kw)
+    qp = qb.shape[0]
+    worst = compared = 0
+    for a in (range(0, qp, rows) if starts is None else starts):
+        b = min(a + rows, qp)
+        want = fj.fused_join_hits(points_pad, qb[a:b], ws[:, a:b],
+                                  wc[:, a:b], is_zero, qpos[a:b], eps,
+                                  method="reference", **kw)
+        worst = max(worst, max_abs_diff(
+            (got[0][:, a:b], got[1][a:b], got[2][a:b]), want))
+        compared += b - a
+    return worst, compared
+
+
+def jaccard_vs_plain(canon, index) -> tuple[int, int]:
+    """B1 (e) against its plain version on every launch of a Jaccard
+    self-join over ``index``, every row in slices: the UNICOMP and self
+    masks, row and run loop, hits plane on and off."""
+    worst = compared = 0
+    for unicomp in (True, False):
+        for run_loop in (False, True):
+            for p in jaccard_launches(canon, index, unicomp=unicomp,
+                                     run_loop=run_loop):
+                for keep_hits in (True, False):
+                    err, _ = sliced_vs_plain(
+                        p["args"], dict(p["kw"], keep_hits=keep_hits),
+                        p["plan"].run_ord if run_loop else None)
+                    check(err == 0, f"B1 (e) unicomp={unicomp} run_loop="
+                          f"{run_loop} keep_hits={keep_hits}: kernel "
+                          f"differs from the plain version by {err}")
+                    worst = max(worst, err)
+                    compared += 1
+    return worst, compared
+
+
+def jaccard_external_vs_plain(pj, queries) -> tuple[int, int]:
+    """B1 (e) with the external mask: every launch of a request through the
+    prepared Jaccard index ``pj``, hits plane on and off, every row."""
+    worst = compared = 0
+    for keep_hits in (True, False):
+        _, launches = pj.launch_inputs(queries, keep_hits=keep_hits)
+        for _, _, args, kw in launches:
+            plain = {k: v for k, v in kw.items()
+                     if k not in ("run_ord", "run_loop")}
+            err, _ = sliced_vs_plain(args, plain, kw.get("run_ord")
+                                     if kw.get("run_loop") else None)
+            check(err == 0, f"B1 (e) external run_loop={pj.run_loop} "
+                  f"keep_hits={keep_hits}: kernel differs from the plain "
+                  f"version by {err}")
+            worst = max(worst, err)
+            compared += 1
+    return worst, compared
+
+
+def jaccard_direct(words, sizes, q_words, q_sizes, t: float, self_rows=None):
+    """A direct on-card evaluation of the Jaccard predicate of queries
+    against all sets, with the kernel's arithmetic and no grid: (Q, N)
+    bool; ``self_rows`` masks each query's own row."""
+    from repro_torch.core import metric
+    inter = torch.zeros((q_words.shape[0], words.shape[0]),
+                        dtype=torch.int32, device=DEVICE)
+    for k in range(words.shape[1]):
+        inter += metric.popcount16(q_words[:, k][:, None] & words[:, k])
+    inter = inter.to(torch.float32)
+    union = (q_sizes[:, None] + sizes[None, :]) - inter
+    tt = metric.device_refine_scalar("jaccard", t, torch.float32, DEVICE)
+    hit = (union > 0) & (inter >= tt * union)
+    if self_rows is not None:
+        hit[torch.arange(len(self_rows), device=DEVICE), self_rows] = False
+    return hit
+
+
+def canon_on_card(canon):
+    """A Jaccard canonical form's words (int32) and sizes on the card."""
+    return (torch.as_tensor(canon.feats).to(DEVICE).to(torch.int32),
+            torch.as_tensor(canon.geom[:, 0]).to(DEVICE))
+
+
+def check_jaccard_pairs(pairs, canon, n: int, where: str):
+    """Symmetric, no self pair, and the sorted neighbour lists of ``n``
+    sampled sets equal a direct evaluation."""
+    from repro_torch.core.selfjoin import sort_pairs
+    npts = canon.geom.shape[0]
+    check(bool((pairs[:, 0] != pairs[:, 1]).all()), f"{where}: self pair")
+    check(torch.equal(sort_pairs(pairs.flip(1), npts), pairs),
+          f"{where}: pair set is not symmetric")
+    words, sizes = canon_on_card(canon)
+    rows = torch.as_tensor(np.random.default_rng(0).choice(
+        npts, n, replace=False)).to(DEVICE)
+    first = pairs[:, 0].contiguous()
+    lo = torch.searchsorted(first, rows.to(torch.int32))
+    hi = torch.searchsorted(first, rows.to(torch.int32), right=True)
+    for a in range(0, n, 16):
+        q = rows[a:a + 16]
+        hit = jaccard_direct(words, sizes, words[q], sizes[q], canon.eps, q)
+        for r in range(q.shape[0]):
+            want = torch.nonzero(hit[r]).flatten().to(torch.int32)
+            got = pairs[lo[a + r]:hi[a + r], 1]
+            check(torch.equal(got, want), f"{where}: neighbours of set "
+                  f"{int(q[r])} differ from the direct evaluation "
+                  f"({got.numel()} vs {want.numel()})")
+
+
+def planted_found(pairs, first, second, npts: int) -> bool:
+    """Every planted pair (first[i], second[i]) is in the sorted pairs."""
+    keys = pairs[:, 0].long() * npts + pairs[:, 1].long()
+    want = (torch.as_tensor(first).long() * npts
+            + torch.as_tensor(second).long()).to(DEVICE)
+    return bool(torch.isin(want, keys).all())
+
+
+def counted_join(join, expected: int, run_loop: bool, jaccard: bool):
+    """One run of ``join()`` with B1's counts set to 0 just before and read
+    just after: every scheduled launch went through the kernel (the run
+    loop and the Jaccard variant where they apply)."""
+    from repro_torch.kernels import fused_join as fj
+    fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = fj.JACCARD_LAUNCHES = 0
+    join()
+    sync()
+    launches = (fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES,
+                fj.JACCARD_LAUNCHES)
+    check(expected > 0 and launches == (expected, expected * run_loop,
+                                         expected * jaccard),
+          f"the join launched B1 (total, run loop, jaccard) {launches} "
+          f"times, scheduled {expected}")
+    return launches[0]
+
+
+def timed_join(join, reps: int = 3):
+    """(median s, runs, peak bytes, last result) of ``join()``, warmed up
+    already, each run ending in a synchronize."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = join()
+        sync()
+        runs.append(time.perf_counter() - t0)
+    return (statistics.median(runs), runs, torch.cuda.max_memory_allocated(),
+            out)
+
+
+def metric_bench_totals():
+    """The bench's two metric workloads: totals against the recorded JAX
+    ones, B1 (e) against its plain version on every launch of the
+    jaccard-v64 join and of a request against it."""
+    import repro_torch
+    from repro_torch.core import metric, query_join as qj, selfjoin as sj
+    out = {}
+    worst = compared = 0
+    for name, (m, data, eps) in metric_workloads().items():
+        want = METRIC_TOTALS[name]
+        t0 = time.perf_counter()
+        stats = repro_torch.self_join_count(data, eps, metric=m,
+                                            device=DEVICE)
+        run = repro_torch.self_join_count(data, eps, metric=m,
+                                          route="dense-run", device=DEVICE)
+        pairs = repro_torch.self_join(data, eps, metric=m, device=DEVICE)
+        sync()
+        check(stats.total_pairs == run.total_pairs == pairs.shape[0] == want,
+              f"{name}: count {stats.total_pairs}, dense-run "
+              f"{run.total_pairs}, join {pairs.shape[0]}, recorded {want}")
+        out[name] = dict(total_pairs=want, seconds=time.perf_counter() - t0,
+                         offsets=stats.offsets,
+                         candidates_checked=stats.candidates_checked)
+        if m == "jaccard":
+            canon = metric.canonicalize(data, eps, metric=m)
+            index = sj._metric_grid(canon, DEVICE)
+            worst, compared = jaccard_vs_plain(canon, index)
+            oov = [tuple(np.flatnonzero(r) + 48) for r in
+                   np.random.default_rng(5).random((512, 24)) < 0.3]
+            queries = list(data[:EXTERNAL_QUERIES]) + oov
+            for run_loop in (False, True):
+                pj = qj.prepare(index, run_loop=run_loop, canon=canon)
+                w, n = jaccard_external_vs_plain(pj, queries)
+                worst, compared = max(worst, w), compared + n
+            out[name].update(b1e_launches_compared=compared,
+                             b1e_max_abs_err=worst, cells=int(
+                                 index.num_cells), c=int(index.max_per_cell))
+    return out, worst
+
+
+def metric_cosine_scale():
+    """Cosine at 1,000,000 raw embeddings: the join through B1 on the unit
+    rows, B3's per-point counts, the planted duplicates, and the plain L2
+    join of the same unit rows beside it."""
+    import repro_torch
+    from repro_torch.core import metric, selfjoin as sj
+    from repro_torch.kernels import distance_tile as dt
+    from repro_torch.kernels import fused_join as fj
+    emb = cosine_data(COSINE_POINTS)
+    t0 = time.perf_counter()
+    canon = metric.canonicalize(emb, COSINE_T, metric="cosine")
+    canon_s = time.perf_counter() - t0
+    index = sj._metric_grid(canon, DEVICE)
+    run_loop = sj._join_run_loop(index)
+    expected = len(sj._fused_launches(
+        index, merged=sj._resolve_merge(index, None))[0])
+    cells = int(index.num_cells)
+    del index
+
+    def join():
+        return repro_torch.self_join(emb, COSINE_T, metric="cosine",
+                                     device=DEVICE)
+
+    join()                                                  # warm-up
+    launches = counted_join(join, expected, run_loop, False)
+    e2e, runs, peak, pairs = timed_join(join)
+    npairs = int(pairs.shape[0])
+    stats = repro_torch.self_join_count(emb, COSINE_T, metric="cosine",
+                                        device=DEVICE)
+    check(stats.total_pairs == npairs, f"cosine: count {stats.total_pairs}"
+          f" != emitted {npairs}")
+    n = COSINE_POINTS // 50
+    check(planted_found(pairs, np.arange(n), COSINE_POINTS // 2
+                        + np.arange(n), COSINE_POINTS),
+          "cosine: a planted scaled duplicate was not found")
+    unit = torch.as_tensor(canon.geom).to(DEVICE)
+    dt.COUNTS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    n_differ, _ = oracle_counts(unit, pairs[:, 0], canon.eps_geom, "cosine")
+    sync()
+    oracle_s = time.perf_counter() - t0
+    check(dt.COUNTS_LAUNCHES == 1, "the cosine oracle did not launch B3 "
+          "once")
+    check_pairs(pairs, unit, canon.eps_geom, COSINE_POINTS)
+    # the plain L2 join of the same unit rows: the same pair set
+    l2_s, l2_runs, l2_peak, l2 = timed_join(
+        lambda: repro_torch.self_join(canon.geom, canon.eps_geom,
+                                      device=DEVICE))
+    check(torch.equal(l2, pairs), "cosine: pairs differ from the L2 join "
+          "of the unit rows")
+    del l2, unit
+    # the same join from the ready canonical form: the join without its
+    # host canonicalization, measured as the Jaccard join is
+    ready_s, ready_runs, _, ready = timed_join(
+        lambda: repro_torch.self_join(canon, None, device=DEVICE))
+    check(torch.equal(ready, pairs), "cosine: pairs from the canonical "
+          "form differ from those of the raw embeddings")
+    del ready
+    return dict(points=COSINE_POINTS, dims=COSINE_DIMS, t=COSINE_T,
+                chord=canon.eps_geom, cells=cells, run_loop=run_loop,
+                launches=launches, total_pairs=npairs,
+                neighbours_per_point=npairs / COSINE_POINTS,
+                planted_pairs=n, planted_found=True, canonicalize_s=canon_s,
+                join_s=e2e, join_runs_s=runs, join_peak_bytes=peak,
+                join_canonical_s=ready_s, join_canonical_runs_s=ready_runs,
+                l2_join_s=l2_s, l2_join_runs_s=l2_runs,
+                l2_join_peak_bytes=l2_peak, l2_pairs_equal=True,
+                oracle_differing_points=n_differ, oracle_s=oracle_s,
+                b3_launches=dt.COUNTS_LAUNCHES,
+                sampled_points_checked=SAMPLED_QUERIES), emb, canon
+
+
+def metric_jaccard_scale():
+    """Jaccard at 100,000 token sets over 1,024 tokens: the join through
+    B1 (e)'s run loop, the planted near duplicates, sampled neighbour lists
+    against a direct evaluation, B1 (e)'s time beside its plain version
+    (on a sample of every launch) and its bound."""
+    import repro_torch
+    from repro_torch.core import metric, selfjoin as sj
+    from repro_torch.kernels import fused_join as fj
+    t0 = time.perf_counter()
+    mat, dup, src = jaccard_data(JACCARD_POINTS, JACCARD_VOCAB)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    canon = metric.canonicalize(mat, JACCARD_T, metric="jaccard",
+                                vocab=JACCARD_VOCAB)
+    canon_s = time.perf_counter() - t0
+    index = sj._metric_grid(canon, DEVICE)
+    check(sj._join_run_loop(index), "the Jaccard join does not take the "
+          "run loop")
+    prepared = jaccard_launches(canon, index, run_loop=True)
+
+    def join():
+        return repro_torch.self_join(canon, None, device=DEVICE)
+
+    join()                                                  # warm-up
+    launches = counted_join(join, len(prepared), True, True)
+    e2e, runs, peak, pairs = timed_join(join)
+    npairs = int(pairs.shape[0])
+    for route in ("dense", "dense-run"):
+        stats = repro_torch.self_join_count(canon, None, route=route,
+                                            device=DEVICE)
+        check(stats.total_pairs == npairs, f"jaccard {route}: count "
+              f"{stats.total_pairs} != emitted {npairs}")
+    check(planted_found(pairs, dup, src, JACCARD_POINTS),
+          "jaccard: a planted near duplicate was not found")
+    check_jaccard_pairs(pairs, canon, SAMPLED_QUERIES, "jaccard")
+    # the same join from the raw sets, as a user calls it: canonicalization
+    # (host numpy) included, measured as the cosine join is
+    raw_s, raw_runs, raw_peak, raw = timed_join(
+        lambda: repro_torch.self_join(mat, JACCARD_T, metric="jaccard",
+                                      vocab=JACCARD_VOCAB, device=DEVICE))
+    check(torch.equal(raw, pairs), "jaccard: pairs from the raw sets differ "
+          "from those of the canonical form")
+    del raw
+    # B1 (e): the join's launches back to back, and on a sample of each
+    # launch (its first PLAIN_ROWS rows) the run loop, the row loop and the
+    # plain version, in turns
+    ms = timed_launches(prepared, "kernel", run_loop=True, reps=2)
+    bound_ms, bound_by, nbytes, ops = kernel_bound(prepared)
+    head = slice(0, PLAIN_ROWS)
+    sample = [dict(p, args=(p["args"][0], p["args"][1][head],
+                            p["args"][2][:, head].contiguous(),
+                            p["args"][3][:, head].contiguous(), p["args"][4],
+                            p["args"][5][head], p["args"][6]),
+                   plan=types.SimpleNamespace(
+                       run_ord=p["plan"].run_ord[head]))
+              for p in prepared]
+    worst = 0
+    for p in prepared:
+        err, _ = sliced_vs_plain(p["args"], p["kw"], p["plan"].run_ord,
+                                 starts=[0])
+        check(err == 0, f"B1 (e) at scale differs from its plain version "
+              f"by {err}")
+        worst = max(worst, err)
+    rounds = [{key: timed_launches(sample, method, run_loop, reps=1)
+               for key, method, run_loop in (
+                   ("run", "kernel", True), ("row", "kernel", False),
+                   ("plain", "reference", False))} for _ in range(2)]
+    timed = {k: statistics.median(r[k] for r in rounds)
+             for k in ("run", "row", "plain")}
+    sample_bound = kernel_bound(sample)
+    prof = profiled_join(join)
+    del pairs
+    return dict(points=JACCARD_POINTS, vocab=JACCARD_VOCAB, t=JACCARD_T,
+                n_feat=canon.n_feat, lanes=int(prepared[0]["args"][0]
+                                              .shape[1]),
+                eps_geom=canon.eps_geom, cells=int(index.num_cells),
+                launches=launches,
+                launch_caps=[p["kw"]["c"] for p in prepared],
+                launch_rows=[p["args"][1].shape[0] for p in prepared],
+                smem_bytes=fj.shared_bytes(128, int(
+                    prepared[0]["args"][0].shape[1]), 4, True),
+                total_pairs=npairs, planted_pairs=int(dup.size),
+                planted_found=True, data_s=data_s, canonicalize_s=canon_s,
+                join_canonical_s=e2e, join_canonical_runs_s=runs,
+                join_canonical_peak_bytes=peak, join_s=raw_s,
+                join_runs_s=raw_runs, join_peak_bytes=raw_peak,
+                sampled_sets_checked=SAMPLED_QUERIES,
+                b1e_ms=ms, b1e_bound_ms=bound_ms, b1e_bound_by=bound_by,
+                b1e_bound_bytes=nbytes, b1e_bound_ops=ops,
+                b1e_sample_rows=PLAIN_ROWS, b1e_sample_run_ms=timed["run"],
+                b1e_sample_row_ms=timed["row"],
+                b1e_sample_plain_ms=timed["plain"],
+                b1e_sample_bound_ms=sample_bound[0],
+                b1e_timed_rounds_ms=rounds, b1e_sample_max_abs_err=worst,
+                profile=prof), canon, mat
+
+
+def metric_services(emb, cos_canon, mat, jac_canon):
+    """Both services per metric on the card, requests of 1,024 queries:
+    cosine counts against B2's row sums on the unit rows, Jaccard counts
+    against a direct evaluation, sampled pairs; one batching stream per
+    metric against the solo answers; B1 (e) counted on the Jaccard path."""
+    from repro_torch.core import metric
+    from repro_torch.kernels import fused_join as fj
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(31)
+    out = {}
+    for m, data, canon in (("cosine", emb, cos_canon),
+                           ("jaccard", mat, jac_canon)):
+        npts = canon.geom.shape[0]
+        t0 = time.perf_counter()
+        kw = dict(metric=m, device=DEVICE,
+                  vocab=JACCARD_VOCAB if m == "jaccard" else None)
+        svc = serve.JoinService(data, canon.eps, return_pairs=True, **kw)
+        bat = serve.BatchingJoinService(data, canon.eps, return_pairs=True,
+                                        max_batch=SERVE_BATCH, **kw)
+        sync()
+        build_s = time.perf_counter() - t0
+        if m == "cosine":
+            def make(k):
+                near = emb[rng.integers(0, npts, k // 2)]
+                near = near * rng.uniform(0.5, 3.0, (k // 2, 1)) + \
+                    rng.normal(0, 0.005, near.shape)
+                return np.concatenate([near, rng.normal(
+                    size=(k - k // 2, COSINE_DIMS))])
+        else:
+            def make(k):
+                rows = [np.flatnonzero(mat[i]) for i in
+                        rng.integers(0, npts, k // 2)]
+                near = [np.concatenate([r[1:], [JACCARD_VOCAB + 7]])
+                        for r in rows]          # one token out of vocabulary
+                rand = [rng.choice(JACCARD_VOCAB, int(s), replace=False)
+                        for s in rng.integers(16, 257, k - k // 2)]
+                return near + rand
+        requests = [make(SERVE_BATCH) for _ in range(METRIC_REQUESTS)]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # warmup() marks steady
+            svc.warmup(SERVE_BATCH)
+            bat.warmup()
+        sync()
+        fj.EXTERNAL_LAUNCHES = fj.JACCARD_LAUNCHES = 0
+        results = [svc.query(q) for q in requests]
+        launches = (fj.EXTERNAL_LAUNCHES, fj.JACCARD_LAUNCHES)
+        check(launches[0] > 0 and launches[1] == (launches[0] if m ==
+                                                  "jaccard" else 0),
+              f"{m} service launched B1 (external, jaccard) {launches}")
+        p50, p99 = svc.percentiles()
+        svc.assert_no_retrace()
+        band = 0
+        if m == "cosine":
+            unit = torch.as_tensor(canon.geom).to(DEVICE)
+            for q, res in zip(requests, results):
+                qu = metric.canonicalize_queries(canon, q)[0]
+                band += counts_vs_b2(qu, res.counts, unit, canon.eps_geom,
+                                     "cosine service")
+            check_sampled_pairs(metric.canonicalize_queries(
+                canon, requests[0])[0], results[0], unit, canon.eps_geom,
+                32, "cosine service")
+            del unit
+        else:
+            words, sizes = canon_on_card(canon)
+            for q, res in zip(requests, results):
+                qs, qw = metric.canonicalize_queries(canon, q)
+                qw = torch.as_tensor(qw).to(DEVICE).to(torch.int32)
+                qs = torch.as_tensor(qs[:, 0]).to(DEVICE)
+                got = torch.as_tensor(res.counts).to(DEVICE)
+                for a in range(0, len(q), 64):
+                    hit = jaccard_direct(words, sizes, qw[a:a + 64],
+                                         qs[a:a + 64], canon.eps)
+                    check(torch.equal(hit.sum(dim=1, dtype=torch.int32),
+                                      got[a:a + 64]),
+                          "jaccard service: counts differ from the direct "
+                          "evaluation")
+                    if a == 0:
+                        want = torch.nonzero(hit).to(torch.int32).cpu()
+                        pr = torch.as_tensor(res.pairs)
+                        check(torch.equal(pr[pr[:, 0] < 64], want),
+                              "jaccard service: pairs differ from the "
+                              "direct evaluation")
+        sizes_b = rng.integers(1, 513, 24)
+        stream = [make(int(k)) for k in sizes_b]
+        tickets = [bat.submit(q) for q in stream]
+        t0 = time.perf_counter()
+        bat.pump()
+        bat.drain()
+        bat_wall = time.perf_counter() - t0
+        for q, t in zip(stream, tickets):
+            same_answer(svc.prepared.join(q), t.result(), f"{m} batching")
+        bat.assert_no_retrace()
+        out[m] = dict(points=npts, requests=METRIC_REQUESTS,
+                      request_queries=SERVE_BATCH, build_s=build_s,
+                      c=svc.prepared.c, classes=list(svc.prepared.classes),
+                      offsets=svc.prepared.n_offsets,
+                      merged=svc.prepared.merged, launches=launches[0],
+                      p50_ms=p50, p99_ms=p99,
+                      neighbors_found=int(sum(r.total for r in results)),
+                      b2_band_queries=band if m == "cosine" else None,
+                      batching=dict(requests=len(stream),
+                                    launches=bat.n_launches,
+                                    coalesce_factor=bat.coalesce_factor,
+                                    wall_s=bat_wall, equal_to_solo=True))
+        del svc, bat
+    return out
+
+
+def phase_metrics():
+    import repro_torch
+    t_phase = time.perf_counter()
+    totals, worst = metric_bench_totals()
+    emit("metrics", part="bench_totals", workloads=totals)
+    cosine, emb, cos_canon = metric_cosine_scale()
+    emit("metrics", part="cosine", **cosine)
+    jaccard, jac_canon, mat = metric_jaccard_scale()
+    emit("metrics", part="jaccard", **jaccard)
+    cos_prof = profiled_join(lambda: repro_torch.self_join(
+        emb, COSINE_T, metric="cosine", device=DEVICE))
+    emit("metrics", part="cosine_profile", points=COSINE_POINTS,
+         **cos_prof)
+    services = metric_services(emb, cos_canon, mat, jac_canon)
+    emit("metrics", part="services", **services,
+         phase_s=time.perf_counter() - t_phase)
+    return dict(launches=jaccard["launches"], ms=jaccard["b1e_ms"],
+                sample_ms=jaccard["b1e_sample_run_ms"],
+                plain_ms=jaccard["b1e_sample_plain_ms"],
+                bound_ms=jaccard["b1e_bound_ms"],
+                bound_by=jaccard["b1e_bound_by"],
+                worst=max(worst, jaccard["b1e_sample_max_abs_err"]),
+                cosine_launches=cosine["launches"],
+                external_launches=services["jaccard"]["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1195,6 +1812,7 @@ def main() -> int:
     brute = phase_brute(workloads)
     phase_profile()
     served = phase_serve()
+    metrics = phase_metrics()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -1207,8 +1825,13 @@ def main() -> int:
         "launches_by_variant": {"run_loop": b1["run_loop_launches"],
                                 "row_loop": (b1["launches"]
                                              - b1["run_loop_launches"]),
-                                "external": served["launches"]},
-        "max_abs_err": max(worst, served["worst"]), "ms": b1["ms"],
+                                "external": served["launches"],
+                                "cosine": metrics["cosine_launches"],
+                                "jaccard": metrics["launches"],
+                                "jaccard_external":
+                                    metrics["external_launches"]},
+        "max_abs_err": max(worst, served["worst"], metrics["worst"]),
+        "ms": b1["ms"],
         "row_loop_ms": b1["row_loop_ms"],
         "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"], "library_ms": None,
@@ -1217,6 +1840,12 @@ def main() -> int:
         "external_plain_device_ms": served["plain_device_ms"],
         "external_bound_ms": served["bound_ms"],
         "external_bound_by": served["bound_by"],
+        "jaccard_ms": metrics["ms"],
+        "jaccard_sample_ms": metrics["sample_ms"],
+        "jaccard_sample_plain_ms": metrics["plain_ms"],
+        "jaccard_bound_ms": metrics["bound_ms"],
+        "jaccard_bound_by": metrics["bound_by"],
+        "jaccard_library_ms": None,
         "matched_plain": True,
     }, {
         "name": "distance_tile_hits", "route": "cuda",

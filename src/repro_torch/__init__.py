@@ -2,7 +2,9 @@
 PyTorch, with its kernels written in CUDA for Hopper.
 
 A port of the JAX package ``repro`` (which stays the reference), slice by
-slice. This package imports torch and numpy only; it never imports JAX or
+slice. The joins take ``metric="l2" | "cosine" | "jaccard"``; the metric
+trait (canonicalization, token packing, oracles) is ``repro_torch.core.metric``,
+as ``repro.core.metric`` is the JAX package's. This package imports torch and numpy only; it never imports JAX or
 anything of ``repro``. Entry points run on CUDA unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run instead.
 """

@@ -32,9 +32,14 @@ offset tables, ``grid.external_range_cap``, the class set).
 asserts they stay still. ``TRACE_EVENTS`` carries the serving metrics
 (``metric:`` keys) only.
 
-Left for later: cosine and Jaccard requests (ROADMAP A8), the measured query
-tile (A11; it stays at ``TQ_DEFAULT``). The port keeps the device emit only,
-as for the self-join (A4).
+Metric-aware serving: ``prepare(index, canon=)`` with the
+``metric.Canonical`` the index was built from takes requests in raw metric
+form (embeddings for cosine, token sets or a binary matrix for jaccard) and
+canonicalizes each against the index's form; jaccard serves the per-cell
+sweep with the packed words in feature lanes.
+
+Left for later: the measured query tile (A11; it stays at ``TQ_DEFAULT``).
+The port keeps the device emit only, as for the self-join (A4).
 
 Typical use:
 
@@ -57,9 +62,11 @@ from repro_torch.core import metric as metric_lib
 from repro_torch.core.grid import (CAP_ALIGN, GridIndex, build_grid,
                                    capacity_classes, cell_run_plan,
                                    external_range_cap, round_up)
+from repro_torch.core import selfjoin as selfjoin_lib
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_join import (TQ_DEFAULT, pad_points,
+from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
+                                            pad_points,
                                             resolve_merge_last_dim)
 
 # Serving metrics (``metric:`` keys): the batching service publishes its
@@ -164,33 +171,21 @@ def _bucket_select(ws: torch.Tensor, wc: torch.Tensor, q_pad: torch.Tensor,
 def _emit_pairs_device(order, hits, counts, slot_base, win_start, *,
                        c: int, tq: int, capacity: int):
     """Device fill: scatter (query row, point id) pairs from the count
-    pass's hit plane, with no distances. Rows are query-major (per query:
-    offsets in sweep order, slots in window order). Returns (keys, vals)
-    with ``capacity`` slots each, -1 past the pairs."""
-    n_off, qp, _ = hits.shape
-    npts = order.shape[0]
+    pass's hit plane, with no distances, in the steps of
+    ``fused_join.emit_steps``. Rows are query-major (per query: offsets in
+    sweep order, slots in window order). Returns (keys, vals) with
+    ``capacity`` slots each, -1 past the pairs."""
     dev = hits.device
-    h = hits.to(torch.bool).permute(1, 0, 2).reshape(qp, n_off * c)
-    slots = torch.arange(c, dtype=torch.int32, device=dev)
-    cand = win_start[:, :, None] + slots[None, None, :]
-    cp = torch.clamp(cand.permute(1, 0, 2).reshape(qp, n_off * c),
-                     max=npts - 1)
-    rank = torch.cumsum(h, dim=1) - 1              # hit rank within its query
-    tile_tot = counts.reshape(-1, tq).sum(dim=1, dtype=torch.int64)
-    tile_base = torch.cumsum(tile_tot, 0) - tile_tot
-    qbase = (tile_base[:, None].expand(-1, tq).reshape(-1)
-             + slot_base.long())
-    pos = qbase[:, None] + rank
-    qid = torch.arange(qp, dtype=torch.int32, device=dev)[:, None].expand(
-        h.shape)
-    cid = order[cp.long()]
-    # JAX drops writes out of range; here they go to one spare slot past
-    # the end, which is cut off
-    idx = torch.where(h & (pos < capacity), pos, capacity).reshape(-1)
     keys = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
     vals = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
-    keys.scatter_(0, idx, qid.reshape(-1))
-    vals.scatter_(0, idx, cid.reshape(-1))
+    for a, b, h, cand, pos in emit_steps(hits, counts, slot_base, win_start,
+                                         c=c, tq=tq, npts=order.shape[0]):
+        qid = torch.arange(a, b, dtype=torch.int32, device=dev)[:, None]
+        # JAX drops writes out of range; here they go to one spare slot past
+        # the end, which is cut off
+        idx = torch.where(h & (pos < capacity), pos, capacity).reshape(-1)
+        keys.scatter_(0, idx, qid.expand(h.shape).reshape(-1))
+        vals.scatter_(0, idx, order[cand].reshape(-1))
     return keys[:capacity], vals[:capacity]
 
 
@@ -378,19 +373,45 @@ class PreparedJoin:
     its own capacity; rows with no candidate are dropped before any launch.
     Deciding the launch shapes reads the per-query capacities on the host,
     the one synchronisation of ``join_async``, as in the JAX package.
+
+    ``canon`` makes the index metric-aware: it is the ``metric.Canonical``
+    the index was built from (the grid over ``canon.geom`` at
+    ``canon.eps_geom``). Requests then arrive in raw metric form and are
+    canonicalized against the index's normalization or vocabulary; a
+    request's threshold is in metric units.
     """
 
     def __init__(self, index: GridIndex,
                  merge_last_dim: Optional[bool] = None,
-                 run_loop: bool = True, canon=None):
-        if canon is not None:
-            raise NotImplementedError(
-                "metric-aware serving (canon=) is not ported yet "
-                "(ROADMAP A8)")
+                 run_loop: bool = True,
+                 canon: Optional[metric_lib.Canonical] = None):
         self.index = index
         self.device = index.device
         self.n_dims = index.n_dims
         self.eps = float(index.eps)
+        self.canon = canon
+        self.metric = "l2" if canon is None else canon.metric
+        self.n_feat = 0 if canon is None else int(canon.n_feat)
+        # the build threshold in metric units (cosine similarity, jaccard
+        # t); ``eps`` above stays the radius the stencil covers
+        self.metric_eps = self.eps if canon is None else float(canon.eps)
+        # the default kernel scalar, unsquared (``Canonical.refine``)
+        self.refine = self.eps if canon is None else float(canon.refine)
+        feats = None
+        if canon is not None:
+            metric_lib.check_metric(canon.metric)
+            # index.eps went through the geometry's dtype (float32 set
+            # sizes for jaccard), so compare at float32 resolution
+            if abs(self.eps - float(canon.eps_geom)) > 1e-5 * max(1.0,
+                                                                  self.eps):
+                raise ValueError(
+                    f"index eps {self.eps} does not match the canonical "
+                    f"geometry radius {canon.eps_geom}; build the grid "
+                    f"over canon.geom at canon.eps_geom")
+            feats = selfjoin_lib._metric_feats_sorted(canon, index)
+        # the jaccard geometry is the 1-D set size: nothing to merge
+        if self.metric == "jaccard":
+            merge_last_dim = False
         # merged-range sweep: 3^(n-1) reduced offsets, full stencil
         # (external queries have no UNICOMP)
         self.merged = resolve_merge_last_dim(self.n_dims, merge_last_dim)
@@ -414,7 +435,7 @@ class PreparedJoin:
                                    device=self.device)          # unread
         PREPARE_EVENTS["points_pad"] += 1
         self.points_pad = pad_points(index.points_sorted, self.c,
-                                     last_coord=last)
+                                     last_coord=last, feats=feats)
         self.order = index.order
         self.dtype = grid_lib._NUMPY_DTYPES[index.points_sorted.dtype]
         self.gmin_np = index.grid_min.cpu().numpy()
@@ -433,16 +454,21 @@ class PreparedJoin:
         qc = np.floor((q - self.gmin_np[None, :]) / self.eps_np)
         return np.clip(qc, -_COORD_CLIP, _COORD_CLIP).astype(np.int64)
 
-    def _pad_queries(self, q: np.ndarray,
-                     qc: np.ndarray) -> tuple[torch.Tensor, int]:
+    def _pad_queries(self, q: np.ndarray, qc: np.ndarray,
+                     feats: Optional[np.ndarray] = None
+                     ) -> tuple[torch.Tensor, int]:
         """(Q, n) host queries -> (qp, L) rows on the device, laid out as
-        ``points_pad`` rows; merged sweeps carry the last-dimension cell
-        coordinate (of ``qc``, the rows' ``_cell_coords``) in lane n."""
+        ``points_pad`` rows: the feature rows ``feats`` (jaccard's words)
+        in lanes [n, n + n_feat), and for merged sweeps the last-dimension
+        cell coordinate (of ``qc``, the rows' ``_cell_coords``) after
+        them."""
         qp = bucket_rows(q.shape[0])
         q_pad = np.zeros((qp, int(self.points_pad.shape[1])), self.dtype)
         q_pad[: q.shape[0], : self.n_dims] = q
+        if feats is not None:
+            q_pad[: q.shape[0], self.n_dims:self.n_dims + self.n_feat] = feats
         if self.merged:
-            q_pad[: q.shape[0], self.n_dims] = qc[:, -1]
+            q_pad[: q.shape[0], self.n_dims + self.n_feat] = qc[:, -1]
         return _to_device(q_pad, self.device), qp
 
     def _q_pos(self, qp: int) -> torch.Tensor:
@@ -466,12 +492,28 @@ class PreparedJoin:
         plan = cell_run_plan(torch.from_numpy(ids), tile)
         return _to_device(plan.run_ord.numpy(), self.device)
 
-    def _check_queries(self, queries) -> np.ndarray:
-        q = np.asarray(queries, self.dtype)
+    def _check_queries(self, queries
+                       ) -> tuple[np.ndarray, Optional[np.ndarray]]:
+        """(geometry rows, feature rows or None) of a request: l2 rows as
+        they are; a (geometry, features) pair as it is (the batching
+        service canonicalizes once, at admission); raw metric input
+        canonicalized against the index's form (unit rows for cosine,
+        sizes and words packed against the index's vocabulary for
+        jaccard)."""
+        qf = None
+        if self.metric == "l2":
+            q = np.asarray(queries, self.dtype)
+        elif isinstance(queries, tuple) and len(queries) == 2:
+            qg, qf = queries
+            q = np.asarray(qg, self.dtype)
+            qf = None if qf is None else np.asarray(qf)
+        else:
+            qg, qf = metric_lib.canonicalize_queries(self.canon, queries)
+            q = np.asarray(qg, self.dtype)
         if q.ndim != 2 or q.shape[1] != self.n_dims:
             raise ValueError(f"queries must be (Q, {self.n_dims}), "
                              f"got {q.shape}")
-        return q
+        return q, qf
 
     def launch_inputs(self, queries, *, eps: Optional[float] = None,
                       keep_hits: bool = True):
@@ -479,13 +521,15 @@ class PreparedJoin:
         queries, the descriptors and the class partition. Returns
         (plan, launches): ``plan`` holds (perm, wc, qp, n_queries, eps) and
         each launch (rows, n_rows, args, kw) with ``args``/``kw`` ready for
-        ``ops.fused_join_hits(*args, **kw)``."""
-        q = self._check_queries(queries)
+        ``ops.fused_join_hits(*args, **kw)``. ``eps`` is in metric units
+        (``metric.request_scalar`` maps it onto the kernel scalar)."""
+        q, qf = self._check_queries(queries)
         if eps is None:
-            eps = self.eps
+            eps = self.refine
         else:
             eps = metric_lib.request_scalar(
-                "l2", float(eps), index_eps=self.eps, index_eps_geom=self.eps)
+                self.metric, float(eps), index_eps=self.metric_eps,
+                index_eps_geom=self.eps)
         n_queries = q.shape[0]
         # one set of cell coordinates feeds the sort and the merged lane
         qc = self._cell_coords(q)
@@ -495,10 +539,12 @@ class PreparedJoin:
             # identity (a linearized key could alias out-of-grid cells)
             perm = np.lexsort(qc.T)
             q, qc = q[perm], qc[perm]
+            if qf is not None:
+                qf = qf[perm]
             head = np.ones(n_queries, bool)
             head[1:] = np.any(qc[1:] != qc[:-1], axis=1)
             gid = np.cumsum(head) - 1      # per-row cell group id
-        q_dev, qp = self._pad_queries(q, qc)
+        q_dev, qp = self._pad_queries(q, qc, qf)
         if self.merged:
             ws, wc = _external_range_windows(self.index, self.offsets,
                                              self.lo_off, self.hi_off,
@@ -508,7 +554,8 @@ class PreparedJoin:
                                        n_queries)
         common = dict(n_real=self.n_dims, unicomp=False, external=True,
                       merged=self.merged, keep_hits=keep_hits,
-                      run_loop=self.run_loop)
+                      run_loop=self.run_loop, metric=self.metric,
+                      n_feat=self.n_feat)
         launches = []
         tile = TQ_DEFAULT     # the measured tile waits for ROADMAP A11
         if not self.bucketed:
@@ -578,8 +625,10 @@ class PreparedJoin:
              with_stats: bool = False) -> QueryJoinResult:
         """Epsilon join of a query batch against the prepared index.
 
-        ``eps`` defaults to the index's build radius; a request may ask for
-        any radius up to it (``metric.request_scalar`` validates). Counts
+        ``eps`` is in metric units and defaults to the index's build
+        threshold; a request may ask for any threshold the built stencil
+        covers (smaller radii for l2, higher similarity floors for cosine
+        and jaccard; ``metric.request_scalar`` validates). Counts
         include an indexed point that coincides with a query (external
         queries have no self). On a skewed index the batch is served one
         capacity class at a time; the sorted pair set equals the
@@ -594,6 +643,18 @@ class PreparedJoin:
         """Counts-only path (no hit plane)."""
         return self.join(queries, eps=eps, return_pairs=False).counts
 
+    def _warm_queries(self, n: int):
+        """``n`` raw queries valid for the metric: warm joins go through a
+        request's canonicalization, which refuses zero vectors under cosine
+        and expects token sets under jaccard."""
+        if self.metric == "cosine":
+            raw = np.zeros((n, self.n_dims), self.dtype)
+            raw[:, 0] = 1.0
+            return raw
+        if self.metric == "jaccard":
+            return [() for _ in range(n)]   # empty token sets (size 0)
+        return np.zeros((n, self.n_dims), self.dtype)
+
     def warm(self, batch_size: int, *, return_pairs: Optional[bool] = None
              ) -> int:
         """Do off the request path what a first request would otherwise do:
@@ -605,9 +666,8 @@ class PreparedJoin:
         n = max(int(batch_size), 1)
         variants = ((True, False) if return_pairs is None
                     else (bool(return_pairs),))
-        zeros = np.zeros((n, self.n_dims), self.dtype)
         for keep in variants:
-            self.join(zeros, return_pairs=keep)
+            self.join(self._warm_queries(n), return_pairs=keep)
         if self.bucketed:
             tile = TQ_DEFAULT
             for cb in self.classes:
@@ -619,25 +679,28 @@ class PreparedJoin:
                 for keep in variants:
                     ops.fused_join_hits(
                         self.points_pad, q_b, ws, ws, self.is_zero,
-                        self._q_pos(tile), self.eps, c=cb,
+                        self._q_pos(tile), self.refine, c=cb,
                         n_real=self.n_dims, unicomp=False, external=True,
                         merged=self.merged, tq=tile, keep_hits=keep,
                         run_ord=self._q_pos(tile) if self.run_loop else None,
-                        run_loop=self.run_loop)
+                        run_loop=self.run_loop, metric=self.metric,
+                        n_feat=self.n_feat)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return bucket_rows(n)
 
 
 def prepare(index: GridIndex, merge_last_dim: Optional[bool] = None,
-            run_loop: bool = True, canon=None) -> PreparedJoin:
+            run_loop: bool = True,
+            canon: Optional[metric_lib.Canonical] = None) -> PreparedJoin:
     """Prepare a grid index for repeated external-query joins.
 
     ``merge_last_dim`` (default on) serves requests through the 3^(n-1)
     merged-range stencil; ``False`` keeps the per-cell 3^n sweep.
     ``run_loop`` (default on) cell-sorts request batches and runs the
     kernel's run loop; ``False`` keeps the unsorted row loop. ``canon``
-    (metric-aware serving) waits for ROADMAP A8 and raises."""
+    attaches the metric the index was canonicalized for; requests then
+    arrive in raw metric form."""
     return PreparedJoin(index, merge_last_dim=merge_last_dim,
                         run_loop=run_loop, canon=canon)
 
@@ -647,17 +710,37 @@ def epsilon_join(queries, points, eps: Optional[float] = None, *,
                  return_pairs: bool = True, sort_pairs: bool = True,
                  emit: Optional[str] = None, with_stats: bool = False,
                  merge_last_dim: Optional[bool] = None,
-                 metric: str = "l2", device=None) -> QueryJoinResult:
+                 metric: str = "l2", vocab: Optional[int] = None,
+                 device=None) -> QueryJoinResult:
     """One-shot external-query epsilon join: the counts and pairs of all
     indexed points within ``eps`` of each query.
 
     Builds the grid over ``points`` on ``device`` (CUDA by default;
     ``device="cpu"`` runs the plain version) unless ``index`` is given, in
     which case the join runs on the index's device. Services answering
-    many requests hold a ``prepare(index)`` object instead. Metrics other
-    than l2 wait for ROADMAP A8 and raise.
+    many requests hold a ``prepare(index)`` object instead.
+
+    ``metric`` "cosine" or "jaccard": ``eps`` is the threshold in metric
+    units, ``points`` the raw dataset (or a ready ``metric.Canonical``),
+    ``queries`` raw metric input and ``vocab`` the jaccard packing
+    vocabulary; the grid is built here over the canonical geometry, so
+    ``index`` must be None.
     """
     metric_lib.check_metric(metric)
+    if metric != "l2" or isinstance(points, metric_lib.Canonical):
+        if index is not None:
+            raise ValueError(
+                "epsilon_join: pass raw points (or a Canonical), not a "
+                "prebuilt index, for non-L2 metrics -- the grid must be "
+                "built over the canonical geometry")
+        canon = (points if isinstance(points, metric_lib.Canonical)
+                 else metric_lib.canonicalize(points, eps, metric=metric,
+                                              vocab=vocab))
+        idx = build_grid(np.asarray(canon.geom), float(canon.eps_geom),
+                         device=device)
+        return prepare(idx, merge_last_dim=merge_last_dim, canon=canon).join(
+            queries, eps=None, return_pairs=return_pairs,
+            sort_pairs=sort_pairs, emit=emit, with_stats=with_stats)
     if index is None:
         index = build_grid(np.asarray(points), float(eps), device=device)
     elif device is not None and (

@@ -19,9 +19,15 @@ kernel reads each window once per run of rows that share a cell.
 to a third of the rows (by default) and each batch's pairs go to the host
 while the next batch runs.
 
-Only ``distance_impl="fused"`` with the L2 metric and the ``"dense"`` and
-``"dense-run"`` count routes is ported so far; the other options of the JAX
-package raise ``NotImplementedError`` naming their ROADMAP item.
+``metric="cosine"`` joins raw embeddings by minimum cosine similarity and
+``metric="jaccard"`` token sets by minimum Jaccard similarity
+(``core.metric``): cosine runs this L2 machinery unchanged on the unit rows,
+jaccard the per-cell sweep over a 1-D size grid with the packed token words
+in feature lanes and the kernel's popcount refine.
+
+Only ``distance_impl="fused"`` and the ``"dense"`` and ``"dense-run"`` count
+routes are ported so far; the other options of the JAX package raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from repro_torch.core.grid import (GridIndex, RunPlan, build_grid,
                                    window_descriptors, window_descriptors_at)
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_join import (TQ_DEFAULT, pad_points,
+from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
+                                            pad_points,
                                             resolve_merge_last_dim)
 
 _ROUTES = ("dense", "compact", "sparse", "jnp", "dense-flat", "sparse-flat",
@@ -201,14 +208,17 @@ def _launch_run_plan(index: GridIndex, q_pos, *, tile: int) -> RunPlan:
 
 def _fused_pad(index: GridIndex, *, q_size: int, c: int,
                q_start_max: int = 0, tq: int = TQ_DEFAULT,
-               merged: bool = False):
+               merged: bool = False, feats=None):
     """One padded copy of the points for every launch of a sweep. The tail
     covers the c-slot window reads and the last batch's rounded-up query
-    slice; merged sweeps carry the last-dimension cell coordinate."""
+    slice; ``feats`` (a metric's feature payload in sorted point order)
+    rides right after the coordinates, and merged sweeps carry the
+    last-dimension cell coordinate after that."""
     qp = round_up(max(q_size, 1), tq)
     tail = max(c, q_start_max + qp - index.num_points)
     lc = point_last_coords(index) if merged else None
-    return pad_points(index.points_sorted, tail, last_coord=lc), qp
+    return pad_points(index.points_sorted, tail, last_coord=lc,
+                      feats=feats), qp
 
 
 def _launch_positions(index: GridIndex, launch) -> torch.Tensor:
@@ -245,12 +255,16 @@ def _launch_prep(index: GridIndex, points_pad, deltas, launch, *,
 
 def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
                   unicomp: bool, keep_hits: bool, merged: bool,
-                  run_loop: bool = False):
+                  run_loop: bool = False, metric: str = "l2",
+                  n_feat: int = 0, refine_eps=None):
     """One launch through the fused kernel at its capacity (the JAX
     package's ``_fused_batch_run`` and ``_fused_bucket_launch``). With
     ``run_loop`` the descriptors come from the per-cell tables and the
     kernel reads one window per cell run; the run plan is returned too
-    (None without)."""
+    (None without). ``metric`` / ``n_feat`` pick the refine predicate;
+    ``refine_eps`` is the scalar it compares against when the index's cell
+    width is not it (jaccard prunes on set sizes at ``eps_geom`` and refines
+    against the threshold t)."""
     _, _, _, _, c, tile = launch
     plan = None
     with record_function("self_join.plan"):
@@ -262,21 +276,24 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
             plan = _launch_run_plan(index, q_pos, tile=tile)
     with record_function("self_join.kernel"):
         hits, counts, base = ops.fused_join_hits(
-            points_pad, q_batch, ws, wc, is_zero, q_pos, index.eps, c=c,
+            points_pad, q_batch, ws, wc, is_zero, q_pos,
+            index.eps if refine_eps is None else refine_eps, c=c,
             n_real=index.n_dims, unicomp=unicomp, merged=merged, tq=tile,
             keep_hits=keep_hits,
             run_ord=None if plan is None else plan.run_ord,
-            run_loop=run_loop)
+            run_loop=run_loop, metric=metric, n_feat=n_feat)
     return ws, wc, wcells, hits, counts, base, q_pos, plan
 
 
 def _fused_launches(index: GridIndex, *, n_batches: int = 1,
-                    bucketed: Optional[bool] = None, merged: bool = False):
+                    bucketed: Optional[bool] = None, merged: bool = False,
+                    feats=None):
     """The launch schedule of one fused sweep: one launch per occupancy
     bucket, or contiguous batches when the plan has a single class; either
     is cut to ``ceil(npts / n_batches)`` rows a launch (``n_batches``
     clamped to [1, npts]). Returns (launches, points_pad, c_global), each
-    launch (sel | None, q_start, q_size, qp, c, tile)."""
+    launch (sel | None, q_start, q_size, qp, c, tile); ``feats`` rides the
+    padded points (``_fused_pad``)."""
     npts = index.num_points
     c_glob = global_window_cap(index, merged)
     n_batches = max(min(int(n_batches), max(npts, 1)), 1)
@@ -289,12 +306,14 @@ def _fused_launches(index: GridIndex, *, n_batches: int = 1,
         cap = c_glob if plan is None else plan.caps[0]
         points_pad, qp = _fused_pad(
             index, q_size=batch_rows, c=c_glob, tq=tile,
-            q_start_max=(n_batches - 1) * batch_rows, merged=merged)
+            q_start_max=(n_batches - 1) * batch_rows, merged=merged,
+            feats=feats)
         launches = [(None, b * batch_rows,
                      min(batch_rows, npts - b * batch_rows), qp, cap, tile)
                     for b in range(n_batches)]
         return launches, points_pad, c_glob
-    points_pad, _ = _fused_pad(index, q_size=1, c=c_glob, merged=merged)
+    points_pad, _ = _fused_pad(index, q_size=1, c=c_glob, merged=merged,
+                               feats=feats)
     launches = []
     for cap, sel in zip(plan.caps, plan.sel):
         for i in range(0, sel.shape[0], batch_rows):
@@ -319,25 +338,13 @@ def _emit_from_hits(index: GridIndex, ids, hits, counts, slot_base,
                     win_start, q_pos, *, c: int, tq: int, unicomp: bool,
                     capacity: int):
     """Device fill: scatter pairs to the slots the kernel's per-tile scan
-    (``slot_base``) assigned, offset by the scan of the tile totals. Rows
-    are query-major (per query: offsets in sweep order, slots in window
-    order). Returns (keys, vals) with ``capacity`` slots each."""
-    n_off, qp, _ = hits.shape
+    (``slot_base``) assigned, offset by the scan of the tile totals, in the
+    steps of ``fused_join.emit_steps``. Rows are query-major (per query:
+    offsets in sweep order, slots in window order). Returns (keys, vals)
+    with ``capacity`` slots each."""
     npts = index.num_points
     dev = hits.device
-    slots = torch.arange(c, dtype=torch.int32, device=dev)
-    cand_pos = win_start[:, :, None] + slots[None, None, :]
-    h = hits.to(torch.bool).permute(1, 0, 2).reshape(qp, n_off * c)
-    cp = torch.clamp(cand_pos.permute(1, 0, 2).reshape(qp, n_off * c),
-                     max=npts - 1)
-    rank = torch.cumsum(h, dim=1) - 1            # hit rank within its query
-    tile_tot = counts.reshape(-1, tq).sum(dim=1, dtype=torch.int64)
-    tile_base = torch.cumsum(tile_tot, 0) - tile_tot
-    qbase = torch.repeat_interleave(tile_base, tq) + slot_base.long()
-    pos = qbase[:, None] + rank
     q_pos_c = torch.clamp(q_pos, max=npts - 1).long()
-    qid = ids[q_pos_c][:, None].expand(h.shape)
-    cid = ids[cp.long()]
     # non-hits write the spare slot ``capacity``, which is cut off
     keys = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
     vals = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
@@ -346,12 +353,16 @@ def _emit_from_hits(index: GridIndex, ids, hits, counts, slot_base,
         keys.scatter_(0, idx.reshape(-1), k.reshape(-1))
         vals.scatter_(0, idx.reshape(-1), v.reshape(-1))
 
-    if unicomp:
-        # every hit is an unordered pair -> two ordered result rows
-        put(torch.where(h, 2 * pos, capacity), qid, cid)
-        put(torch.where(h, 2 * pos + 1, capacity), cid, qid)
-    else:
-        put(torch.where(h, pos, capacity), qid, cid)
+    for a, b, h, cand, pos in emit_steps(hits, counts, slot_base, win_start,
+                                         c=c, tq=tq, npts=npts):
+        qid = ids[q_pos_c[a:b]][:, None].expand(h.shape)
+        cid = ids[cand]
+        if unicomp:
+            # every hit is an unordered pair -> two ordered result rows
+            put(torch.where(h, 2 * pos, capacity), qid, cid)
+            put(torch.where(h, 2 * pos + 1, capacity), cid, qid)
+        else:
+            put(torch.where(h, pos, capacity), qid, cid)
     return keys[:capacity], vals[:capacity]
 
 
@@ -399,7 +410,9 @@ class _HostCopies:
 def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
                      n_batches: int = 1, bucketed: Optional[bool] = None,
                      merged: bool = True, run_loop: Optional[bool] = None,
-                     to_host: bool = False) -> torch.Tensor:
+                     to_host: bool = False, metric: str = "l2",
+                     n_feat: int = 0, feats=None,
+                     refine_eps=None) -> torch.Tensor:
     """Single-pass count -> fill driver for ``distance_impl="fused"``.
 
     Each launch's kernel returns its hit plane and counts; the result size
@@ -410,6 +423,11 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     share of the rows; ``to_host`` copies each launch's pairs to the host
     while the next launch runs and returns a CPU tensor, so the device
     holds one batch's result at a time.
+
+    ``metric`` / ``n_feat`` / ``feats`` / ``refine_eps``: the refine
+    predicate, its feature payload in sorted point order, and the kernel
+    scalar where it is not the index's cell width (``_fused_launch``). The
+    emit reads only hits and descriptors, whatever the metric.
 
     The stages run inside ``torch.profiler.record_function`` spans
     (``self_join.plan``, ``.kernel``, ``.emit``) that a profiler groups its
@@ -423,7 +441,8 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         else:
             deltas, is_zero = _offset_tables(index, unicomp)
         launches, points_pad, _ = _fused_launches(
-            index, n_batches=n_batches, bucketed=bucketed, merged=merged)
+            index, n_batches=n_batches, bucketed=bucketed, merged=merged,
+            feats=feats)
     mult = 2 if unicomp else 1
     host = _HostCopies(index.device) if to_host else None
 
@@ -446,7 +465,8 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     for launch in launches:
         ws, _, _, hits, counts, base, q_pos, _ = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
-            keep_hits=True, merged=merged, run_loop=run_loop)
+            keep_hits=True, merged=merged, run_loop=run_loop, metric=metric,
+            n_feat=n_feat, refine_eps=refine_eps)
         if prev is not None:
             finish(prev)
         prev = (ws, hits, counts, base, q_pos, launch[4], launch[5])
@@ -462,13 +482,16 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
                            query_batch: Optional[int] = None,
                            bucketed: Optional[bool] = None,
                            merged: bool = True,
-                           run_loop: bool = False) -> JoinStats:
+                           run_loop: bool = False, metric: str = "l2",
+                           n_feat: int = 0, feats=None,
+                           refine_eps=None) -> JoinStats:
     """Count-only fused sweep (no hit plane). Occupancy-bucketed by
     default; an explicit ``query_batch`` runs contiguous batches at the
     global capacity (the paper's SV-A memory bound). Merged and per-cell
     sweeps report the same totals, cells and candidates. ``run_loop`` (the
     ``"dense-run"`` route) reads windows once per cell run: the same totals
-    and counters, with the window reads it issued and saved."""
+    and counters, with the window reads it issued and saved. The metric
+    arguments are ``_self_join_fused``'s."""
     if merged:
         deltas, is_zero = _merged_offset_tables(index, unicomp)
     else:
@@ -481,18 +504,20 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
         q_size = int(query_batch)
         points_pad, qp = _fused_pad(
             index, q_size=q_size, c=c, tq=TQ_DEFAULT,
-            q_start_max=((npts - 1) // q_size) * q_size, merged=merged)
+            q_start_max=((npts - 1) // q_size) * q_size, merged=merged,
+            feats=feats)
         launches = [(None, q_start, min(q_size, npts - q_start), qp, c,
                      TQ_DEFAULT) for q_start in range(0, npts, q_size)]
     else:
         launches, points_pad, _ = _fused_launches(index, bucketed=bucketed,
-                                                  merged=merged)
+                                                  merged=merged, feats=feats)
     row_bytes = points_pad.shape[1] * points_pad.element_size()
     total = cells = cands = dma_windows = dma_saved = 0
     for launch in launches:
         _, wc, wcells, _, counts, _, _, plan = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
-            keep_hits=False, merged=merged, run_loop=run_loop)
+            keep_hits=False, merged=merged, run_loop=run_loop, metric=metric,
+            n_feat=n_feat, refine_eps=refine_eps)
         qp, cap = launch[3], launch[4]
         if plan is None:
             dma_windows += n_off * qp
@@ -555,12 +580,69 @@ def dma_window_stats(index: GridIndex, *, unicomp: bool = True,
 # Public API
 # ---------------------------------------------------------------------------
 
-def _check_impl(distance_impl: str, metric: str) -> None:
-    metric_lib.check_metric(metric)
+def _check_impl(distance_impl: str) -> None:
     if distance_impl != "fused":
         raise NotImplementedError(
             f"distance_impl={distance_impl!r} is not ported yet (ROADMAP "
             f"A12); the PyTorch port has 'fused' only")
+
+
+def _metric_canonical(points, eps, metric: str,
+                      vocab=None) -> metric_lib.Canonical:
+    """Resolve (points, eps, metric) to a ``metric.Canonical``: a ready one
+    passes through (``eps`` must then be None or its threshold),
+    ``metric.canonicalize`` makes one otherwise."""
+    if isinstance(points, metric_lib.Canonical):
+        canon = points
+        if metric not in ("l2", canon.metric):
+            raise ValueError(
+                f"metric={metric!r} conflicts with the canonical dataset's "
+                f"metric {canon.metric!r}")
+        if eps is not None and float(eps) != canon.eps:
+            raise ValueError(
+                f"eps={eps} conflicts with the canonical dataset's "
+                f"threshold {canon.eps}; canonicalize at the new threshold")
+        return canon
+    return metric_lib.canonicalize(points, eps, metric=metric, vocab=vocab)
+
+
+def _metric_feats_sorted(canon: metric_lib.Canonical, index: GridIndex):
+    """The feature payload in the index's sorted point order
+    (``points_sorted[i] == points[order[i]]``) on its device, or None."""
+    if canon.feats is None:
+        return None
+    order = index.order.cpu().numpy()
+    return torch.as_tensor(np.asarray(canon.feats)[order]).to(index.device)
+
+
+def _metric_grid(canon: metric_lib.Canonical, device) -> GridIndex:
+    """The grid over the canonical geometry at the derived prune radius:
+    unit rows for cosine (an exact L2 grid), the 1-D set size for
+    jaccard."""
+    return build_grid(np.asarray(canon.geom), float(canon.eps_geom),
+                      device=device)
+
+
+def _metric_self_join(canon: metric_lib.Canonical, *, unicomp: bool,
+                      sort_result: bool, bucketed: Optional[bool],
+                      device) -> torch.Tensor:
+    """The pair-emitting join of a canonicalized cosine or jaccard dataset.
+    Cosine runs the L2 machinery (merged sweep, occupancy buckets, run
+    loop) on the unit rows. Jaccard takes the per-cell sweep of the 1-D
+    size grid, with the words in feature lanes and the kernel refining
+    against t itself."""
+    with record_function("self_join.grid"):
+        index = _metric_grid(canon, device)
+    if canon.metric == "jaccard":
+        return _self_join_fused(
+            index, unicomp=unicomp, sort_result=sort_result,
+            bucketed=bucketed, merged=False, metric="jaccard",
+            n_feat=canon.n_feat, feats=_metric_feats_sorted(canon, index),
+            refine_eps=canon.eps)
+    return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
+                            bucketed=bucketed,
+                            merged=_resolve_merge(index, None),
+                            metric=canon.metric)
 
 
 def self_join(points, eps, *, unicomp: bool = True,
@@ -568,7 +650,7 @@ def self_join(points, eps, *, unicomp: bool = True,
               distance_impl: str = "fused", sort_result: bool = True,
               bucketed: Optional[bool] = None,
               merge_last_dim: Optional[bool] = None, metric: str = "l2",
-              device=None) -> torch.Tensor:
+              vocab: Optional[int] = None, device=None) -> torch.Tensor:
     """Epsilon self-join: every ordered pair (i, j), i != j, with
     ||p_i - p_j|| <= eps, as a (K, 2) int32 tensor of point ids.
 
@@ -579,13 +661,30 @@ def self_join(points, eps, *, unicomp: bool = True,
     choice gives the same pair set. ``sort_result`` orders the pairs
     lexicographically, as the paper sorts its result.
 
+    ``metric``: "l2" (``eps`` is the radius), "cosine" (``points`` are raw
+    embeddings, ``eps`` the minimum cosine similarity in [-1, 1)) or
+    "jaccard" (``points`` are token-id iterables or an (N, V) binary
+    matrix, ``eps`` the minimum Jaccard similarity in (0, 1]; ``vocab``
+    fixes the packed vocabulary). ``points`` may also be a ready
+    ``metric.Canonical`` (with ``eps=None``). Cosine and jaccard build
+    their own grid over the canonical geometry and always run the fused
+    path; ``index``, ``distance_impl`` and ``merge_last_dim`` apply to l2.
+
     ``device`` is where the join runs: CUDA by default, which raises
     ``RuntimeError`` when no CUDA device is present; ``device="cpu"`` runs
     the plain PyTorch version of the kernel. The pairs come back on that
     device.
     """
-    _check_impl(distance_impl, metric)
+    metric_lib.check_metric(metric)
     dev = resolve_device(device)
+    if metric != "l2" or isinstance(points, metric_lib.Canonical):
+        canon = _metric_canonical(points, eps, metric, vocab)
+        if canon.metric != "l2":
+            return _metric_self_join(canon, unicomp=unicomp,
+                                     sort_result=sort_result,
+                                     bucketed=bucketed, device=dev)
+        points, eps = canon.geom, canon.eps
+    _check_impl(distance_impl)
     with record_function("self_join.grid"):
         index = _resolve_index(points, eps, index, dev)
     return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
@@ -600,7 +699,8 @@ def self_join_count(points, eps, *, unicomp: bool = True,
                     route: Optional[str] = None,
                     bucketed: Optional[bool] = None,
                     merge_last_dim: Optional[bool] = None,
-                    metric: str = "l2", device=None) -> JoinStats:
+                    metric: str = "l2", vocab: Optional[int] = None,
+                    device=None) -> JoinStats:
     """Total ordered-pair count and work counters, without the pairs.
 
     Runs the ``"dense"`` route (``route=None`` means it): the
@@ -608,17 +708,40 @@ def self_join_count(points, eps, *, unicomp: bool = True,
     the same sweep through the cell-run loop, with the same totals and
     counters and its window-read accounting. The JAX package's other
     routes are not ported yet (ROADMAP A11). ``distance_impl`` defaults to
-    ``"fused"``, the only implementation the port has. ``device`` as in
+    ``"fused"``, the only implementation the port has.
+
+    ``metric`` / ``vocab`` as in ``self_join``: cosine counts over the unit
+    rows with the L2 routes; jaccard runs the dense per-cell sweep of the
+    size grid, and its only routes are "dense" and "dense-run" (any other
+    raises ``ValueError``, as in the JAX package). ``device`` as in
     ``self_join``.
     """
     if route is not None and route not in _ROUTES:
         raise ValueError(f"unknown route {route!r}; expected one of {_ROUTES}")
+    metric_lib.check_metric(metric)
+    dev = resolve_device(device)
+    if metric != "l2" or isinstance(points, metric_lib.Canonical):
+        canon = _metric_canonical(points, eps, metric, vocab)
+        if canon.metric == "jaccard":
+            if route not in (None, "dense", "dense-run"):
+                raise ValueError(
+                    f"route {route!r} does not support metric='jaccard'; "
+                    f"only the fused dense sweep carries the bitmap refine")
+            idx = _metric_grid(canon, dev)
+            return _self_join_count_fused(
+                idx, unicomp=unicomp, query_batch=query_batch,
+                bucketed=bucketed, merged=False,
+                run_loop=route == "dense-run", metric="jaccard",
+                n_feat=canon.n_feat, feats=_metric_feats_sorted(canon, idx),
+                refine_eps=canon.eps)
+        if canon.metric == "cosine":
+            index = _metric_grid(canon, dev)
+        points, eps = canon.geom, canon.eps_geom
     if route not in (None, "dense", "dense-run"):
         raise NotImplementedError(
             f"route {route!r} is not ported yet (ROADMAP A11); the PyTorch "
             f"port has 'dense' and 'dense-run'")
-    _check_impl(distance_impl, metric)
-    dev = resolve_device(device)
+    _check_impl(distance_impl)
     index = _resolve_index(points, eps, index, dev)
     return _self_join_count_fused(index, unicomp=unicomp,
                                   query_batch=query_batch, bucketed=bucketed,
@@ -643,7 +766,7 @@ def self_join_batched(points, eps, *, unicomp: bool = True,
     the host. ``distance_impl`` "jnp" and "pallas" are not ported yet
     (ROADMAP A12). ``device`` as in ``self_join``.
     """
-    _check_impl(distance_impl, "l2")
+    _check_impl(distance_impl)
     dev = resolve_device(device)
     with record_function("self_join.grid"):
         index = _resolve_index(points, eps, index, dev)

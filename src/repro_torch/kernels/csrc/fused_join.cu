@@ -1,9 +1,10 @@
-// Fused gather-refine kernel of the L2 epsilon self-join, for Hopper (sm_90a).
+// Fused gather-refine kernel of the epsilon self-join, for Hopper (sm_90a).
 //
 // Replaces repro/kernels/fused_join.py::_fused_kernel, the Pallas TPU kernel,
-// for the l2 metric: per-cell and merged sweeps, the three masks (UNICOMP,
-// self, external queries), with and without the hits plane, in float64 and
-// float32. It computes what
+// for the l2 metric (and cosine, which is l2 on unit rows): per-cell and
+// merged sweeps, the three masks (UNICOMP, self, external queries), with and
+// without the hits plane, in float64 and float32; and for the jaccard metric
+// (the JACCARD template parameter, below). It computes what
 // repro_torch/kernels/fused_join.py::_fused_join_hits_reference computes, bit
 // for bit:
 //
@@ -54,7 +55,7 @@
 // refines against that copy. Runs and slots are staged in chunks that fit
 // stage_bytes of shared memory (a run of c slots, or c-slot segments when a
 // whole window does not fit), so any capacity works within the 48 KiB a
-// launch gets by default. Every row still masks with its own win_start /
+// launch gets by default (l2). Every row still masks with its own win_start /
 // win_count, and a row whose window is not its head's (a plan that breaks
 // the shared-window contract) reads global memory, so the result is the row
 // loop's, bit for bit. Runs are found from changes of run_ord inside the
@@ -64,6 +65,25 @@
 // both loops unchanged apart from the mask: a query row is read only from
 // q_batch, staged in shared memory, and points_pad only at window rows, so
 // queries that are not rows of points_pad (and q_pos of zeros) are safe.
+//
+// Jaccard (JACCARD, the TPU kernel's metric="jaccard"; refine in
+// repro/core/metric.py::tile_refine_hits). Rows hold the set size in lane 0
+// and n_feat packed 16-bit token words, exact small integers in float32, in
+// lanes [n_real, n_real + n_feat):
+//     inter = sum_k popc(int(q[k]) & int(p[k]))      (int, then to float)
+//     union = (q[0] + p[0]) - inter
+//     hit   = union > 0 && inter >= t * union        (t = scal, unsquared)
+// with the same round-to-nearest intrinsics, then the same masks. Only the
+// per-cell sweep (the size grid is 1-D) in float32 is instantiated, with the
+// three masks, both loops and both hit modes; feature lanes ride only this
+// variant (the wrapper refuses them elsewhere), so the l2 instances keep
+// their lane arithmetic constant. The run loop stages all the
+// lanes a refine reads (sizes and words), so its stage holds fewer slots.
+// What bounds it: operations, n_feat AND + popcount + add a slot, over
+// windows as long as a whole size cell. A wide vocabulary's query tile
+// (tq * lanes floats) passes the 48 KiB default of shared memory, so the
+// launch opts in to more, up to the device's limit (227 KB on the H100);
+// the wrapper refuses a tile beyond that.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +104,17 @@ __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 
-// One slot's refine and masks, in the plain version's order of operations.
+// The mask mode's rule: UNICOMP keeps the triangle on the zero offset, SELF
+// drops the self pair, EXTERNAL keeps every hit.
+template <int MASK>
+__device__ __forceinline__ bool mask_hit(bool hit, bool zero, int cand,
+                                         int qpos) {
+  if (MASK == kMaskUnicomp) return hit && (!zero || cand > qpos);
+  if (MASK == kMaskSelf) return hit && cand != qpos;
+  return hit;
+}
+
+// One slot's L2 refine and masks, in the plain version's order of operations.
 template <typename T, bool MERGED, int MASK>
 __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
                                             int n_real, bool zero, int cand,
@@ -96,12 +126,39 @@ __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
   }
   bool hit = d2 <= eps2;
   if (MERGED) hit = hit && fabs(sub_rn(p[n_real], q[n_real])) <= T(1);
-  if (MASK == kMaskUnicomp) hit = hit && (!zero || cand > qpos);
-  if (MASK == kMaskSelf) hit = hit && cand != qpos;
-  return hit;
+  return mask_hit<MASK>(hit, zero, cand, qpos);
 }
 
-template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP>
+// Jaccard (B1 (e)): the intersection is the popcount of the AND of the packed
+// 16-bit words in lanes [n_real, n_real + n_feat), summed as int and then
+// converted exactly; the sizes come from lane 0. The words are exact small
+// integers stored as floats, so the conversions to int are exact.
+template <typename T, int MASK>
+__device__ __forceinline__ bool refine_jaccard(const T* p, const T* q, T t,
+                                               int n_real, int n_feat,
+                                               bool zero, int cand, int qpos) {
+  int inter = 0;
+  for (int k = n_real; k < n_real + n_feat; ++k)
+    inter += __popc(static_cast<int>(q[k]) & static_cast<int>(p[k]));
+  const T fi = static_cast<T>(inter);
+  const T uni = sub_rn(add_rn(q[0], p[0]), fi);
+  return mask_hit<MASK>(uni > T(0) && fi >= mul_rn(t, uni), zero, cand, qpos);
+}
+
+template <typename T, bool MERGED, int MASK, bool JACCARD>
+__device__ __forceinline__ bool refine(const T* p, const T* q, T scal,
+                                       int n_real, int n_feat, bool zero,
+                                       int cand, int qpos) {
+  if constexpr (JACCARD)
+    return refine_jaccard<T, MASK>(p, q, scal, n_real, n_feat, zero, cand,
+                                   qpos);
+  else
+    return refine_slot<T, MERGED, MASK>(p, q, scal, n_real, zero, cand,
+                                        qpos);
+}
+
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
+          bool JACCARD>
 __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const T* __restrict__ points_pad,   // (rows, lanes)
     const T* __restrict__ q_batch,      // (qp, lanes)
@@ -110,11 +167,11 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const int* __restrict__ is_zero,    // (n_off,)
     const int* __restrict__ q_pos,      // (qp,)
     const int* __restrict__ run_ord,    // (qp,), RUN_LOOP only
-    const T* __restrict__ scal,         // (1,) eps^2 in T
+    const T* __restrict__ scal,         // (1,) eps^2, or t for Jaccard, in T
     int8_t* __restrict__ hits,          // (n_off, qp, c), KEEP_HITS only
     int* __restrict__ counts,           // (qp,)
     int* __restrict__ slot_base,        // (qp,)
-    int n_off, int qp, int c, int n_real, int lanes, int tq,
+    int n_off, int qp, int c, int n_real, int n_feat, int lanes, int tq,
     int stage_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);                        // tq * lanes
@@ -153,7 +210,8 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     }
   }
   const T eps2 = scal[0];
-  const int n_use = n_real + (MERGED ? 1 : 0);   // lanes a refine reads
+  // lanes a refine reads: coordinates (sizes), Jaccard's words, merged lane
+  const int n_use = n_real + (JACCARD ? n_feat : 0) + (MERGED ? 1 : 0);
   const int stage_rows = stage_bytes / (n_use * (int)sizeof(T));
   const int seg_cap = c < stage_rows ? c : stage_rows;  // slots per segment
   const int runs_per_chunk = stage_rows / seg_cap;
@@ -175,9 +233,9 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
         bool hit = false;
         if (s < wc_s[r]) {
           const int cand = ws_s[r] + s;
-          hit = refine_slot<T, MERGED, MASK>(
+          hit = refine<T, MERGED, MASK, JACCARD>(
               points_pad + (size_t)cand * lanes, q_s + r * lanes, eps2,
-              n_real, zero, cand, qpos_s[r]);
+              n_real, n_feat, zero, cand, qpos_s[r]);
         }
         if (KEEP_HITS) hits_j[idx] = hit ? 1 : 0;
         if (hit) atomicAdd(&cnt_s[r], 1);
@@ -218,8 +276,9 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
             const T* p = (ws_s[r] == ws_s[h] && slot < wc_s[h])
                 ? stage + ((size_t)(u - u0) * seg_cap + s) * n_use
                 : points_pad + (size_t)cand * lanes;
-            hit = refine_slot<T, MERGED, MASK>(
-                p, q_s + r * lanes, eps2, n_real, zero, cand, qpos_s[r]);
+            hit = refine<T, MERGED, MASK, JACCARD>(
+                p, q_s + r * lanes, eps2, n_real, n_feat, zero, cand,
+                qpos_s[r]);
           }
           if (KEEP_HITS) hits_j[(size_t)r * c + slot] = hit ? 1 : 0;
           if (hit) atomicAdd(&cnt_s[r], 1);
@@ -242,78 +301,107 @@ struct Args {
   const void* win_start; const void* win_count; const void* is_zero;
   const void* q_pos; const void* run_ord; const void* scal;
   void* hits; void* counts; void* slot_base;
-  int n_off, qp, c, n_real, lanes, tq, stage_bytes;
+  int n_off, qp, c, n_real, n_feat, lanes, tq, stage_bytes;
 };
 
-template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP>
-void launch(const Args& a, cudaStream_t stream) {
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
+          bool JACCARD>
+int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.tq * a.lanes * sizeof(T) + 4 * a.tq * sizeof(int)
       + (RUN_LOOP ? (size_t)a.stage_bytes + (2 * a.tq + 2) * sizeof(int) : 0);
-  fused_join_kernel<T, MERGED, MASK, KEEP_HITS, RUN_LOOP>
-      <<<a.qp / a.tq, kThreads, smem, stream>>>(
-          static_cast<const T*>(a.points_pad), static_cast<const T*>(a.q_batch),
-          static_cast<const int*>(a.win_start), static_cast<const int*>(a.win_count),
-          static_cast<const int*>(a.is_zero), static_cast<const int*>(a.q_pos),
-          static_cast<const int*>(a.run_ord), static_cast<const T*>(a.scal),
-          static_cast<int8_t*>(a.hits), static_cast<int*>(a.counts),
-          static_cast<int*>(a.slot_base),
-          a.n_off, a.qp, a.c, a.n_real, a.lanes, a.tq, a.stage_bytes);
+  auto kernel = fused_join_kernel<T, MERGED, MASK, KEEP_HITS, RUN_LOOP, JACCARD>;
+  if (smem > 48 * 1024) {
+    // a wide vocabulary's query tile: opt in past the 48 KiB default (the
+    // wrapper has checked the device's opt-in limit)
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<a.qp / a.tq, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.points_pad), static_cast<const T*>(a.q_batch),
+      static_cast<const int*>(a.win_start), static_cast<const int*>(a.win_count),
+      static_cast<const int*>(a.is_zero), static_cast<const int*>(a.q_pos),
+      static_cast<const int*>(a.run_ord), static_cast<const T*>(a.scal),
+      static_cast<int8_t*>(a.hits), static_cast<int*>(a.counts),
+      static_cast<int*>(a.slot_base),
+      a.n_off, a.qp, a.c, a.n_real, a.n_feat, a.lanes, a.tq, a.stage_bytes);
+  return 0;
 }
 
-template <typename T, bool MERGED, int MASK, bool KEEP_HITS>
-void launch_run(const Args& a, bool run_loop, cudaStream_t s) {
-  if (run_loop) launch<T, MERGED, MASK, KEEP_HITS, true>(a, s);
-  else launch<T, MERGED, MASK, KEEP_HITS, false>(a, s);
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool JACCARD>
+int launch_run(const Args& a, bool run_loop, cudaStream_t s) {
+  if (run_loop) return launch<T, MERGED, MASK, KEEP_HITS, true, JACCARD>(a, s);
+  return launch<T, MERGED, MASK, KEEP_HITS, false, JACCARD>(a, s);
 }
 
-template <typename T, bool MERGED, int MASK>
-void launch_keep(const Args& a, bool keep_hits, bool run_loop, cudaStream_t s) {
-  if (keep_hits) launch_run<T, MERGED, MASK, true>(a, run_loop, s);
-  else launch_run<T, MERGED, MASK, false>(a, run_loop, s);
+template <typename T, bool MERGED, int MASK, bool JACCARD>
+int launch_keep(const Args& a, bool keep_hits, bool run_loop, cudaStream_t s) {
+  if (keep_hits) return launch_run<T, MERGED, MASK, true, JACCARD>(a, run_loop, s);
+  return launch_run<T, MERGED, MASK, false, JACCARD>(a, run_loop, s);
 }
 
-template <typename T, bool MERGED>
+template <typename T, bool MERGED, bool JACCARD>
 int launch_mask(const Args& a, int mask, bool keep_hits, bool run_loop,
                 cudaStream_t s) {
   switch (mask) {
-    case kMaskSelf: launch_keep<T, MERGED, kMaskSelf>(a, keep_hits, run_loop, s); break;
-    case kMaskUnicomp: launch_keep<T, MERGED, kMaskUnicomp>(a, keep_hits, run_loop, s); break;
-    case kMaskExternal: launch_keep<T, MERGED, kMaskExternal>(a, keep_hits, run_loop, s); break;
+    case kMaskSelf:
+      return launch_keep<T, MERGED, kMaskSelf, JACCARD>(a, keep_hits, run_loop, s);
+    case kMaskUnicomp:
+      return launch_keep<T, MERGED, kMaskUnicomp, JACCARD>(a, keep_hits, run_loop, s);
+    case kMaskExternal:
+      return launch_keep<T, MERGED, kMaskExternal, JACCARD>(a, keep_hits, run_loop, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
 }
 
 template <typename T>
 int launch_merged(const Args& a, bool merged, int mask, bool keep_hits,
                   bool run_loop, cudaStream_t s) {
-  if (merged) return launch_mask<T, true>(a, mask, keep_hits, run_loop, s);
-  return launch_mask<T, false>(a, mask, keep_hits, run_loop, s);
+  if (merged) return launch_mask<T, true, false>(a, mask, keep_hits, run_loop, s);
+  return launch_mask<T, false, false>(a, mask, keep_hits, run_loop, s);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
 // launch was accepted), or cudaErrorInvalidValue for an unknown mask mode
-// (0 self, 1 UNICOMP, 2 external). The Python wrapper validates shapes and
-// dtypes
-// (qp % tq == 0, lanes > n_real when merged, run_ord with run_loop) and the
-// shared-memory total; the self-join driver pads points_pad with a tail of
-// at least c rows, so every window read is in bounds.
+// (0 self, 1 UNICOMP, 2 external) or a Jaccard launch that is not float32
+// per-cell. The Python wrapper validates shapes and dtypes (qp % tq == 0,
+// lanes >= n_real + n_feat + merged, run_ord with run_loop) and the
+// shared-memory total against fused_join_smem_optin; the drivers pad
+// points_pad with a tail of at least c rows, so every window read is in
+// bounds.
 extern "C" int fused_join_launch(
     int is_double, int merged, int mask, int keep_hits, int run_loop,
-    const void* points_pad, const void* q_batch, const void* win_start,
-    const void* win_count, const void* is_zero, const void* q_pos,
-    const void* run_ord, const void* scal, void* hits, void* counts,
-    void* slot_base, int n_off, int qp, int c, int n_real, int lanes, int tq,
-    int stage_bytes, void* stream) {
+    int jaccard, const void* points_pad, const void* q_batch,
+    const void* win_start, const void* win_count, const void* is_zero,
+    const void* q_pos, const void* run_ord, const void* scal, void* hits,
+    void* counts, void* slot_base, int n_off, int qp, int c, int n_real,
+    int n_feat, int lanes, int tq, int stage_bytes, void* stream) {
   Args a{points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
-         scal, hits, counts, slot_base, n_off, qp, c, n_real, lanes, tq,
-         stage_bytes};
+         scal, hits, counts, slot_base, n_off, qp, c, n_real, n_feat, lanes,
+         tq, stage_bytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bad = is_double
-      ? launch_merged<double>(a, merged, mask, keep_hits, run_loop, s)
-      : launch_merged<float>(a, merged, mask, keep_hits, run_loop, s);
+  int bad;
+  if (jaccard) {
+    // the drivers reach Jaccard only as float32 words on the per-cell sweep
+    if (is_double || merged) return static_cast<int>(cudaErrorInvalidValue);
+    bad = launch_mask<float, false, true>(a, mask, keep_hits, run_loop, s);
+  } else {
+    bad = is_double
+        ? launch_merged<double>(a, merged, mask, keep_hits, run_loop, s)
+        : launch_merged<float>(a, merged, mask, keep_hits, run_loop, s);
+  }
   if (bad != 0) return bad;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The largest dynamic shared memory a block of this kernel may opt in to on
+// `device` (227 KB on the H100), or -1 when the query fails.
+extern "C" int fused_join_smem_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return v;
 }

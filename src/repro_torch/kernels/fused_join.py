@@ -1,9 +1,11 @@
-"""Fused gather-refine sweep of the L2 self-join: CUDA kernel and plain version.
+"""Fused gather-refine sweep of the self-join: CUDA kernel and plain version.
 
 One launch sweeps every stencil offset for a batch of query rows. Per
 (offset, row) the candidate window is a contiguous span of the padded,
 grid-sorted points, described by ``win_start`` / ``win_count``; each slot is
-refined against epsilon and masked (window length, merged last-dimension
+refined by the metric's predicate (``core.metric.plane_refine_hits``: the L2
+distance against epsilon for l2 and cosine, the bitmap popcount against the
+threshold t for jaccard) and masked (window length, merged last-dimension
 boundary, then the UNICOMP triangle, the self pair, or nothing for external
 queries, which are not points of the index). The launch returns
 
@@ -44,10 +46,11 @@ TQ_DEFAULT = 128  # query tile rows
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
 # one per call that reaches the kernel, and nowhere else; the others count
-# the run-loop and the external-query launches among them.
+# the run-loop, the external-query and the Jaccard launches among them.
 KERNEL_LAUNCHES = 0
 RUN_LOOP_LAUNCHES = 0
 EXTERNAL_LAUNCHES = 0
+JACCARD_LAUNCHES = 0
 # the kernel's mask modes (csrc/fused_join.cu): the self mask, the UNICOMP
 # triangle, and none for external queries
 MASK_SELF, MASK_UNICOMP, MASK_EXTERNAL = 0, 1, 2
@@ -68,19 +71,26 @@ def resolve_merge_last_dim(n_dims: int, merge_last_dim: bool | None) -> bool:
 
 
 def pad_points(points_sorted: torch.Tensor, tail: int,
-               last_coord: torch.Tensor | None = None) -> torch.Tensor:
-    """(N, n) -> (N + tail, L) zero-padded copy for window reads.
+               last_coord: torch.Tensor | None = None,
+               feats: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, n) -> (N + tail, L) zero-padded copy for window reads, with L the
+    ``pad_width`` of the occupied lanes.
 
-    ``tail`` >= C keeps every C-slot window read in bounds. ``last_coord``
-    (merged sweeps) is each point's last-dimension cell coordinate, stored
-    as an exact float in lane n; tail rows hold 0.
+    ``tail`` >= C keeps every C-slot window read in bounds. ``feats`` (the
+    jaccard metric's packed token words, in sorted point order) fill lanes
+    [n, n + n_feat), right after the coordinates. ``last_coord`` (merged
+    sweeps) is each point's last-dimension cell coordinate, stored as an
+    exact float in the next lane. Tail rows hold 0.
     """
     n_pts, n = points_sorted.shape
-    lanes = pad_width(n + (0 if last_coord is None else 1))
+    n_feat = 0 if feats is None else feats.shape[1]
+    lanes = pad_width(n + n_feat + (0 if last_coord is None else 1))
     out = points_sorted.new_zeros((n_pts + tail, lanes))
     out[:n_pts, :n] = points_sorted
+    if feats is not None:
+        out[:n_pts, n:n + n_feat] = feats.to(points_sorted.dtype)
     if last_coord is not None:
-        out[:n_pts, n] = last_coord.to(points_sorted.dtype)
+        out[:n_pts, n + n_feat] = last_coord.to(points_sorted.dtype)
     return out
 
 
@@ -96,17 +106,19 @@ def _mask_hits(hit, cand_pos, q_pos, zero, unicomp: bool,
 
 
 def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
-                 n_real, unicomp, external, merged):
+                 n_real, unicomp, external, merged, metric, n_feat):
     """Masked (Q, C) hits of every query row against one offset's windows."""
     slots = torch.arange(c, dtype=torch.int32, device=points_pad.device)
     cand_pos = ws[:, None] + slots[None, :]
-    hit = metric_lib.plane_refine_hits("l2", points_pad, q_batch, cand_pos,
-                                       scal, n_real=n_real)
+    hit = metric_lib.plane_refine_hits(metric, points_pad, q_batch, cand_pos,
+                                       scal, n_real=n_real, n_feat=n_feat)
     hit = hit & (slots[None, :] < wc[:, None])
     if merged:
-        # cell coordinates ride lane n_real as exact integers
-        ldiff = (points_pad[:, n_real][cand_pos.long()]
-                 - q_batch[:, n_real][:, None])
+        # cell coordinates ride the lane after the coordinate and feature
+        # lanes as exact integers
+        ml = n_real + n_feat
+        ldiff = (points_pad[:, ml][cand_pos.long()]
+                 - q_batch[:, ml][:, None])
         hit = hit & (torch.abs(ldiff) <= 1)
     return _mask_hits(hit, cand_pos, q_pos[:, None], zero, unicomp,
                       external)
@@ -114,7 +126,8 @@ def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
 
 def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
                                is_zero, q_pos, scal, *, c, tq, n_real,
-                               unicomp, external, merged, keep_hits):
+                               unicomp, external, merged, keep_hits,
+                               metric="l2", n_feat=0):
     """The plain PyTorch version of the kernel."""
     n_off, qp = win_start.shape
     dev = points_pad.device
@@ -125,7 +138,7 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
         hit = _offset_hits(points_pad, q_batch, win_start[j], win_count[j],
                            is_zero[j], q_pos, scal, c=c, n_real=n_real,
                            unicomp=unicomp, external=external,
-                           merged=merged)
+                           merged=merged, metric=metric, n_feat=n_feat)
         counts = counts + hit.sum(dim=1, dtype=torch.int32)
         if keep_hits:
             hits[j] = hit.to(torch.int8)
@@ -134,12 +147,16 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
     return hits, counts, base
 
 
-_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
-             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 11
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 # Shared memory the run loop stages windows in. With the query tile and the
 # per-row tables a 128-row f64 block then needs ~25 KiB, so eight 256-thread
 # blocks fit on an SM, as for the row loop; a 32 KiB stage let five fit.
 RUN_STAGE_BYTES = 14 * 1024
+# Shared memory a launch gets without opting in; past it (a wide Jaccard
+# vocabulary's query tile) the launch opts in, up to the device's limit.
+SMEM_DEFAULT = 48 * 1024
+_SMEM_OPTIN: dict = {}
 
 
 def _kernel_library():
@@ -148,12 +165,39 @@ def _kernel_library():
     lib = build.load("fused_join")
     lib.fused_join_launch.argtypes = _ARGTYPES
     lib.fused_join_launch.restype = ctypes.c_int
+    lib.fused_join_smem_optin.argtypes = [ctypes.c_int]
+    lib.fused_join_smem_optin.restype = ctypes.c_int
     return lib
+
+
+def smem_limit(device: torch.device) -> int:
+    """The most dynamic shared memory a block may opt in to on ``device``
+    (232,448 bytes on the H100), asked of the CUDA runtime once."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    limit = _SMEM_OPTIN.get(idx)
+    if limit is None:
+        limit = _kernel_library().fused_join_smem_optin(idx)
+        if limit <= 0:
+            raise RuntimeError(f"cannot read the shared-memory limit of "
+                               f"cuda:{idx}")
+        _SMEM_OPTIN[idx] = limit
+    return limit
+
+
+def shared_bytes(tq: int, lanes: int, item: int, run_loop: bool) -> int:
+    """Dynamic shared memory of one block: the query tile, four per-row
+    int tables and, for the run loop, the window stage and its run tables
+    (``csrc/fused_join.cu``'s layout)."""
+    smem = tq * lanes * item + 4 * tq * 4
+    if run_loop:
+        smem += RUN_STAGE_BYTES + (2 * tq + 2) * 4
+    return smem
 
 
 def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
             run_ord, scal, hits, counts, slot_base, merged, unicomp,
-            external, keep_hits, c, n_real, tq):
+            external, keep_hits, c, n_real, tq, metric, n_feat):
     """The kernel launch on the current stream, as the CUDA implementation
     of the torch op ``repro_torch::fused_join`` (below)."""
     dev = points_pad.device
@@ -165,12 +209,14 @@ def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
             int(points_pad.dtype == torch.float64), int(merged),
             (MASK_EXTERNAL if external
              else MASK_UNICOMP if unicomp else MASK_SELF),
-            int(keep_hits), int(run_ord is not None), points_pad.data_ptr(),
+            int(keep_hits), int(run_ord is not None),
+            int(metric == "jaccard"), points_pad.data_ptr(),
             q_batch.data_ptr(), win_start.data_ptr(), win_count.data_ptr(),
             is_zero.data_ptr(), q_pos.data_ptr(),
             0 if run_ord is None else run_ord.data_ptr(), scal.data_ptr(),
             hits.data_ptr(), counts.data_ptr(), slot_base.data_ptr(), n_off,
-            qp, c, n_real, points_pad.shape[1], tq, RUN_STAGE_BYTES, stream)
+            qp, c, n_real, n_feat, points_pad.shape[1], tq, RUN_STAGE_BYTES,
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_join kernel launch failed: CUDA error {err}")
 
@@ -183,22 +229,35 @@ _OPS.define("fused_join(Tensor points_pad, Tensor q_batch, Tensor win_start, "
             "Tensor win_count, Tensor is_zero, Tensor q_pos, Tensor? run_ord, "
             "Tensor scal, Tensor(a!) hits, Tensor(b!) counts, "
             "Tensor(c!) slot_base, bool merged, bool unicomp, bool external, "
-            "bool keep_hits, int c, int n_real, int tq) -> ()")
+            "bool keep_hits, int c, int n_real, int tq, str metric, "
+            "int n_feat) -> ()")
 _OPS.impl("fused_join", _launch, "CUDA")
 
 
 def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                           q_pos, run_ord, scal, *, c, tq, n_real, unicomp,
-                          external, merged, keep_hits):
+                          external, merged, keep_hits, metric, n_feat):
     """Launch ``csrc/fused_join.cu`` on the current stream (no sync);
     ``run_ord`` None runs the row loop, a (Qp,) plan the run loop."""
     global KERNEL_LAUNCHES, RUN_LOOP_LAUNCHES, EXTERNAL_LAUNCHES
+    global JACCARD_LAUNCHES
     dev = points_pad.device
     dtype = points_pad.dtype
     n_off, qp = win_start.shape
     lanes = points_pad.shape[1]
+    jaccard = metric == "jaccard"
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fused_join kernel takes float32/float64, got {dtype}")
+    if jaccard and dtype != torch.float32:
+        raise TypeError(f"the Jaccard kernel takes float32 rows (the packed "
+                        f"16-bit words are exact in float32, as "
+                        f"metric.pack_tokens makes them), got {dtype}")
+    if jaccard and merged:
+        raise ValueError("the Jaccard kernel has no merged sweep: its size "
+                         "grid is 1-D")
+    if n_feat and not jaccard:
+        raise ValueError(f"feature lanes ride the Jaccard kernel only; "
+                         f"metric {metric!r} got n_feat={n_feat}")
     for name, t, dt, shape in (
             ("q_batch", q_batch, dtype, (qp, lanes)),
             ("win_start", win_start, torch.int32, (n_off, qp)),
@@ -215,15 +274,16 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
         raise ValueError("points_pad must be contiguous")
     if tq <= 0 or qp % tq:
         raise ValueError(f"query rows {qp} must be a multiple of tq={tq}")
-    if n_real + (1 if merged else 0) > lanes:
+    if n_real + n_feat + (1 if merged else 0) > lanes:
         raise ValueError(f"{lanes} lanes cannot hold {n_real} coordinates"
+                         f"{f' and {n_feat} feature lanes' if n_feat else ''}"
                          f"{' and the merged lane' if merged else ''}")
-    smem = tq * lanes * points_pad.element_size() + 4 * tq * 4
-    if run_ord is not None:
-        smem += RUN_STAGE_BYTES + (2 * tq + 2) * 4
-    if smem > 48 * 1024:
+    smem = shared_bytes(tq, lanes, points_pad.element_size(),
+                        run_ord is not None)
+    if smem > SMEM_DEFAULT and smem > smem_limit(dev):
         raise ValueError(f"tile of {tq} rows x {lanes} lanes needs {smem} B "
-                         f"of shared memory, above the 48 KiB default")
+                         f"of shared memory, above the {smem_limit(dev)} B "
+                         f"a block of {dev} may opt in to")
     counts = torch.empty(qp, dtype=torch.int32, device=dev)
     base = torch.empty(qp, dtype=torch.int32, device=dev)
     hits = (torch.empty((n_off, qp, c), dtype=torch.int8, device=dev)
@@ -232,10 +292,11 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
     torch.ops.repro_torch.fused_join(
         points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
         scal, hits, counts, base, merged, unicomp, external, keep_hits, c,
-        n_real, tq)
+        n_real, tq, metric, n_feat)
     KERNEL_LAUNCHES += 1
     RUN_LOOP_LAUNCHES += run_ord is not None
     EXTERNAL_LAUNCHES += external
+    JACCARD_LAUNCHES += jaccard
     return hits, counts, base
 
 
@@ -256,8 +317,10 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
       is_zero:    (n_off,) int32, 1 for the zero offset.
       q_pos:      (Q_pad,) int32 sorted position of every query row
                   (zeros for external queries; no mask reads them).
-      eps:        the L2 radius, unsquared (squared once in the points'
-                  dtype by ``metric.device_refine_scalar``).
+      eps:        the refine threshold, unsquared: the L2 radius for l2
+                  and cosine (squared once in the points' dtype by
+                  ``metric.device_refine_scalar``), the similarity t for
+                  jaccard.
       c:          window capacity of this launch.
       n_real:     true dimensionality (lanes >= n_real are not distance).
       unicomp:    triangle rule on the zero offset, else the self mask.
@@ -275,9 +338,13 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
       method:     None picks by device: the CUDA kernel for CUDA tensors,
                   the plain version for CPU tensors. "kernel" and
                   "reference" force one; "kernel" on CPU tensors raises.
+      metric:     "l2", "cosine" (the l2 refine, on unit rows) or
+                  "jaccard" (the bitmap popcount; float32 rows, per-cell
+                  sweep only on the kernel).
+      n_feat:     feature lanes after the ``n_real`` coordinates (jaccard's
+                  packed words; ``pad_points(feats=)`` lays them out).
 
-    ``gid_pairs`` and metrics other than l2 are not ported yet and raise
-    ``NotImplementedError``.
+    ``gid_pairs`` is not ported yet and raises ``NotImplementedError``.
 
     Returns (hits, counts, slot_base).
     """
@@ -297,15 +364,13 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                 f"{points_pad.device}, got {run_ord.dtype} "
                 f"{tuple(run_ord.shape)} on {run_ord.device}")
     metric_lib.check_metric(metric)
-    if n_feat:
-        raise NotImplementedError("feature lanes are not ported yet "
-                                  "(ROADMAP A8 / B1(e))")
     if method is None:
         method = "kernel" if points_pad.is_cuda else "reference"
     scal = metric_lib.device_refine_scalar(metric, eps, points_pad.dtype,
                                            points_pad.device)
     kw = dict(c=c, tq=tq, n_real=n_real, unicomp=unicomp,
-              external=bool(external), merged=merged, keep_hits=keep_hits)
+              external=bool(external), merged=merged, keep_hits=keep_hits,
+              metric=metric, n_feat=n_feat)
     if method == "kernel":
         if not points_pad.is_cuda:
             raise RuntimeError("the fused_join CUDA kernel needs CUDA "
@@ -321,3 +386,38 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
             points_pad, q_batch, win_start, win_count, is_zero, q_pos, scal,
             **kw)
     raise ValueError(f"unknown fused_join method {method!r}")
+
+
+# Slots (query rows x offsets x window slots) one emit step holds: its
+# temporaries take ~60 bytes a slot, so a step stays near 4 GB however wide
+# the windows (a Jaccard size cell's window spans a whole cell).
+EMIT_STEP_SLOTS = 1 << 26
+
+
+def emit_steps(hits, counts, slot_base, win_start, *, c: int, tq: int,
+               npts: int):
+    """The hit plane of one launch in steps of whole query tiles of at most
+    ``EMIT_STEP_SLOTS`` slots, for the emits that scatter its pairs.
+
+    Yields (a, b, h, cand, pos) for query rows [a, b): ``h`` the (b - a,
+    n_off * c) hits, query-major (per row: offsets in sweep order, slots in
+    window order), ``cand`` each slot's sorted point position clamped to
+    [0, npts), ``pos`` each hit's output slot (the tile base from the scan
+    of the tile totals, plus the kernel's per-tile ``slot_base``, plus the
+    hit's rank in its row). Each step writes the slots the global scan gives
+    its rows, so the pairs do not depend on the step."""
+    n_off, qp, _ = hits.shape
+    slots = torch.arange(c, dtype=torch.int32, device=hits.device)
+    tile_tot = counts.reshape(-1, tq).sum(dim=1, dtype=torch.int64)
+    tile_base = torch.cumsum(tile_tot, 0) - tile_tot
+    qbase = torch.repeat_interleave(tile_base, tq) + slot_base.long()
+    step = max(EMIT_STEP_SLOTS // max(n_off * c, 1) // tq, 1) * tq
+    for a in range(0, qp, step):
+        b = min(a + step, qp)
+        h = hits[:, a:b].to(torch.bool).permute(1, 0, 2).reshape(b - a,
+                                                                 n_off * c)
+        cand = win_start[:, a:b, None] + slots[None, None, :]
+        cand = torch.clamp(cand.permute(1, 0, 2).reshape(b - a, n_off * c),
+                           max=npts - 1)
+        rank = torch.cumsum(h, dim=1) - 1        # hit rank within its row
+        yield a, b, h, cand.long(), qbase[a:b, None] + rank

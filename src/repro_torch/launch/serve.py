@@ -18,9 +18,13 @@ single launches of up to ``max_batch`` queries, with up to two batches in
 flight. Everything runs on the current stream of the index's device, so no
 tensor crosses streams.
 
+Both services take ``metric="cosine" | "jaccard"`` (``--metric`` on the
+command line): the index is built over the canonical geometry and requests
+arrive as raw embeddings or token sets, with thresholds in metric units.
+
 Not ported yet, each raising and naming its ROADMAP item: the slab-sharded
-service and ``n_slabs > 1`` (A14), the cosine and Jaccard metrics (A8), and
-``--arch`` other than ``selfjoin`` (the LM decode service, A17).
+service and ``n_slabs > 1`` (A14), and ``--arch`` other than ``selfjoin``
+(the LM decode service, A17).
 """
 from __future__ import annotations
 
@@ -151,22 +155,40 @@ class JoinService(_JoinServiceBase):
     ``reindex`` rebuilds both in a background thread and swaps them with a
     single reference assignment, so every request sees the old snapshot or
     the new one, never a mix.
+
+    ``metric`` "cosine" or "jaccard" canonicalizes ``points`` (raw
+    embeddings, or token sets / a binary matrix with ``vocab``) and builds
+    the index over the canonical geometry; ``eps`` and request thresholds
+    are then in metric units, and ``index`` must be None.
     """
 
     def __init__(self, points: np.ndarray, eps: float, *, index=None,
                  return_pairs: bool = False,
                  merge_last_dim: Optional[bool] = None,
-                 metric: str = "l2", device=None):
+                 metric: str = "l2", vocab: Optional[int] = None,
+                 device=None):
         super().__init__(return_pairs)
         metric_lib.check_metric(metric)
-        self.eps = float(eps)
+        self.metric = metric
+        self.vocab = vocab
+        self.eps = float(eps)          # in metric units throughout
         self.merge_last_dim = merge_last_dim
         t0 = time.perf_counter()
-        if index is None:
+        canon = None
+        if metric != "l2":
+            if index is not None:
+                raise ValueError(
+                    "JoinService: non-L2 metrics build their own index "
+                    "over the canonical geometry; pass raw points")
+            canon = metric_lib.canonicalize(points, eps, metric=metric,
+                                            vocab=vocab)
+            index = build_grid(np.asarray(canon.geom), float(canon.eps_geom),
+                               device=resolve_device(device))
+        elif index is None:
             index = build_grid(np.asarray(points), self.eps,
                                device=resolve_device(device))
         self.device = index.device
-        prepared = prepare(index, merge_last_dim=merge_last_dim)
+        prepared = prepare(index, merge_last_dim=merge_last_dim, canon=canon)
         self._snapshot = (index, prepared)
         self.build_s = time.perf_counter() - t0
         self.swaps = 0
@@ -205,16 +227,25 @@ class JoinService(_JoinServiceBase):
         if self._reindex_thread is not None and self._reindex_thread.is_alive():
             raise RuntimeError("reindex already in progress")
         self.join_reindex()          # surface a previous failure, if any
-        pts = np.asarray(points)
+        # non-L2 input may be ragged (token sets); canonicalized in the thread
+        pts = np.asarray(points) if self.metric == "l2" else points
 
         def work():
             try:
                 before = _counters(executable_cache_stats())
                 t0 = time.perf_counter()
-                index = build_grid(pts, self.eps, device=self.device)
+                canon = None
+                if self.metric != "l2":
+                    canon = metric_lib.canonicalize(
+                        pts, self.eps, metric=self.metric, vocab=self.vocab)
+                    geom, eps_geom = np.asarray(canon.geom), canon.eps_geom
+                else:
+                    geom, eps_geom = pts, self.eps
+                index = build_grid(geom, float(eps_geom), device=self.device)
                 self._sync()
                 t1 = time.perf_counter()
-                prepared = prepare(index, merge_last_dim=self.merge_last_dim)
+                prepared = prepare(index, merge_last_dim=self.merge_last_dim,
+                                   canon=canon)
                 t2 = time.perf_counter()
                 for qp in sorted(self._warm_buckets):
                     prepared.warm(qp, return_pairs=self.return_pairs)
@@ -355,13 +386,18 @@ class BatchingJoinService(_JoinServiceBase):
     query rows (``slice_result``) and equals serving it alone. A request
     wider than ``max_batch`` splits into parts; an empty request completes
     at once. ``n_slabs > 1`` waits for ROADMAP A14 and raises.
+
+    ``metric`` / ``vocab`` as in ``JoinService``; a request is
+    canonicalized once, at admission, and its geometry and feature rows
+    coalesce as one 2-D array.
     """
 
     def __init__(self, points: np.ndarray, eps: float, *, index=None,
                  n_slabs: int = 1, return_pairs: bool = False,
                  merge_last_dim: Optional[bool] = None,
                  max_batch: int = 1024, max_wait_ms: float = 2.0,
-                 metric: str = "l2", device=None):
+                 metric: str = "l2", vocab: Optional[int] = None,
+                 device=None):
         super().__init__(return_pairs)
         metric_lib.check_metric(metric)
         if n_slabs > 1:
@@ -371,12 +407,27 @@ class BatchingJoinService(_JoinServiceBase):
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
-        self.eps = float(eps)
+        self.metric = metric
+        self.eps = float(eps)          # in metric units
+        # the canonical form requests are canonicalized against
+        self._query_canon = None
+        if metric != "l2":
+            if index is not None:
+                raise ValueError(
+                    "BatchingJoinService: non-L2 metrics build their own "
+                    "index over the canonical geometry; pass raw points")
+            self._query_canon = metric_lib.canonicalize(
+                points, eps, metric=metric, vocab=vocab)
         t0 = time.perf_counter()
-        if index is None:
+        qc = self._query_canon
+        if qc is not None:
+            index = build_grid(np.asarray(qc.geom), float(qc.eps_geom),
+                               device=resolve_device(device))
+        elif index is None:
             index = build_grid(np.asarray(points), self.eps,
                                device=resolve_device(device))
-        self.prepared = prepare(index, merge_last_dim=merge_last_dim)
+        self.prepared = prepare(index, merge_last_dim=merge_last_dim,
+                                canon=qc)
         self.build_s = time.perf_counter() - t0
         self._queue: deque[_Sub] = deque()
         self._queued_rows = 0
@@ -393,10 +444,19 @@ class BatchingJoinService(_JoinServiceBase):
         part has been served from a coalesced launch (``pump``/``drain``
         advance the pipeline). Does not block."""
         pj = self.prepared
-        q = np.asarray(queries, pj.dtype)
-        if q.ndim != 2 or q.shape[1] != pj.n_dims:
-            raise ValueError(f"queries must be (Q, {pj.n_dims}), "
-                             f"got {q.shape}")
+        if self.metric != "l2":
+            # canonicalized once per request, at admission: geometry and
+            # feature rows coalesce as one 2-D array and split at launch
+            qg, qf = metric_lib.canonicalize_queries(self._query_canon,
+                                                     queries)
+            q = np.asarray(qg, pj.dtype)
+            if qf is not None:
+                q = np.concatenate([q, np.asarray(qf, pj.dtype)], axis=1)
+        else:
+            q = np.asarray(queries, pj.dtype)
+            if q.ndim != 2 or q.shape[1] != pj.n_dims:
+                raise ValueError(f"queries must be (Q, {pj.n_dims}), "
+                                 f"got {q.shape}")
         eps_key = float(self.eps if eps is None else eps)
         n = q.shape[0]
         if n == 0:
@@ -448,8 +508,14 @@ class BatchingJoinService(_JoinServiceBase):
 
     def _launch(self, group: list[_Sub]) -> None:
         qcat, bounds = coalesce_requests([s.queries for s in group])
-        pending = self.prepared.join_async(
-            qcat, eps=group[0].eps_key, return_pairs=self.return_pairs,
+        pj = self.prepared
+        qsend = qcat
+        if self.metric != "l2":
+            # the (geometry, features) pair join_async takes as it is
+            qsend = (qcat[:, :pj.n_dims],
+                     qcat[:, pj.n_dims:] if pj.n_feat else None)
+        pending = pj.join_async(
+            qsend, eps=group[0].eps_key, return_pairs=self.return_pairs,
             sort_pairs=True)
         self._inflight.append(_Inflight(pending, group, bounds))
         self.n_launches += 1
@@ -519,9 +585,27 @@ class BatchingJoinService(_JoinServiceBase):
 
 
 def _metric_workload(args, rng):
-    """(points, eps, make_queries) for the service smoke: the uniform box
-    for l2; cosine and Jaccard wait for ROADMAP A8."""
+    """(points, eps, make_queries) for the service smoke, per metric: the
+    uniform box for l2; random embeddings at a similarity floor for cosine;
+    random binary token matrices over 64 tokens at a Jaccard floor for
+    jaccard ((Q, V) matrices, 2-D, as the batching coalescer takes)."""
     metric_lib.check_metric(args.metric)
+    if args.metric == "cosine":
+        eps = args.eps if -1.0 <= args.eps < 1.0 else 0.9
+        if eps != args.eps:
+            print(f"[serve] --eps {args.eps} is not a cosine similarity; "
+                  f"using {eps}")
+        pts = rng.normal(size=(args.points, args.dims))
+        return pts, eps, lambda n: rng.normal(size=(n, args.dims))
+    if args.metric == "jaccard":
+        eps = args.eps if 0.0 < args.eps <= 1.0 else 0.5
+        if eps != args.eps:
+            print(f"[serve] --eps {args.eps} is not a jaccard threshold; "
+                  f"using {eps}")
+        vocab = 64
+        pts = (rng.random((args.points, vocab)) < 0.1).astype(np.float32)
+        return pts, eps, lambda n: (
+            rng.random((n, vocab)) < 0.1).astype(np.float32)
     pts = rng.uniform(0, 100, size=(args.points, args.dims))
     return pts, args.eps, lambda n: rng.uniform(0, 100, size=(n, args.dims))
 
@@ -547,7 +631,8 @@ def serve_selfjoin(args):
                           metric=args.metric, device=device)
         sweep = "merged-range" if svc.prepared.merged else "per-cell"
         print(f"[serve] indexed {args.points} pts on {device} in "
-              f"{svc.build_s:.3f}s (|G|={int(svc.index.num_cells)} "
+              f"{svc.build_s:.3f}s (metric={args.metric}, "
+              f"|G|={int(svc.index.num_cells)} "
               f"non-empty cells, C={svc.prepared.c}, "
               f"{svc.prepared.n_offsets} {sweep} stencil offsets)")
     t0 = time.perf_counter()
@@ -613,8 +698,8 @@ def main(argv=None):
                          "just counts")
     ap.add_argument("--metric", default="l2",
                     choices=("l2", "cosine", "jaccard"),
-                    help="similarity metric; cosine and jaccard are not "
-                         "ported yet (ROADMAP A8)")
+                    help="similarity metric: --eps is then a minimum "
+                         "cosine or Jaccard similarity")
     ap.add_argument("--no-merge", action="store_true",
                     help="serve through the per-cell 3^n stencil instead "
                          "of the merged-range 3^(n-1) sweep")

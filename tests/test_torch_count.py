@@ -58,10 +58,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, entry):
                                      device="cpu"), "A12"),
     (lambda p: repro_torch.self_join(p, 0.4, distance_impl="pallas",
                                      device="cpu"), "A12"),
-    (lambda p: repro_torch.self_join(p, 0.4, metric="cosine",
-                                     device="cpu"), "A8"),
-    (lambda p: repro_torch.self_join_count(p, 0.4, metric="jaccard",
-                                           device="cpu"), "A8"),
+    (lambda p: repro_torch.self_join_count(p, 0.9, metric="cosine",
+                                           route="sparse", device="cpu"),
+     "A11"),
+    (lambda p: repro_torch.self_join_count(p, 0.9, metric="cosine",
+                                           route="compact", device="cpu"),
+     "A11"),
     (lambda p: repro_torch.self_join_count(p, 0.4, route="sparse",
                                            device="cpu"), "A11"),
     (lambda p: repro_torch.self_join_count(p, 0.4, route="compact",

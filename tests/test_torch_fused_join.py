@@ -153,13 +153,16 @@ def test_kernel_method_refuses_cpu_tensors(launch_inputs):
 
 
 @pytest.mark.parametrize("option", [
-    dict(external=True, metric="cosine"), dict(gid_pairs=True),
+    dict(external=True, metric="cosine"), dict(),
     dict(metric="cosine"), dict(metric="jaccard"), dict(n_feat=2)])
 def test_unported_kernel_options_raise(launch_inputs, option):
+    """gid_pairs (ROADMAP A14 / B1 (d)) raises with every metric and lane
+    layout; the metrics themselves are ported (A8)."""
     jidx, arrays, c, eps = launch_inputs("uniform-2d", np.float64, True, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         tfj.fused_join_hits(*_torch(arrays), eps, c=c, n_real=2,
-                            unicomp=True, merged=True, **option)
+                            unicomp=True, merged=True, gid_pairs=True,
+                            **option)
 
 
 def test_run_loop_needs_a_run_plan(launch_inputs):

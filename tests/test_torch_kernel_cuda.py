@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on a card.
 
 The fused join (B1: the row loop, the cell-run loop, and the external-query
-mask in both) and the brute-force tiles (B2 hits, B3 counts) must equal their
-plain versions bit for bit, and the entry points on the card (the joins, the
-external-query join and the services) the same entry points on the CPU.
+mask in both; the Jaccard popcount refine, B1 (e), in all of them) and the
+brute-force tiles (B2 hits, B3 counts) must equal their plain versions bit
+for bit, and the entry points on the card (the joins, the external-query
+join and the services, for every metric) the same entry points on the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -19,6 +20,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import grid as tgrid
+from repro_torch.core import metric as tmetric
 from repro_torch.core import query_join as tqj
 from repro_torch.core import selfjoin as tsj
 from repro_torch.kernels import distance_tile as tdt
@@ -312,3 +314,186 @@ def test_services_on_card(cuda_device):
     svc.reindex(pts[rng.permutation(pts.shape[0])])
     assert np.array_equal(svc.query(stream[0]).counts, want[0].counts)
     svc.assert_no_retrace()
+
+
+def token_sets(n, vocab, seed, lo=0, hi=24):
+    """Seeded token sets of lo..hi tokens over ``vocab``, a twentieth of
+    them copies of an earlier set with one token swapped, so every
+    threshold finds pairs."""
+    rng = np.random.default_rng(seed)
+    out = [tuple(rng.choice(vocab, int(rng.integers(lo, hi + 1)),
+                            replace=False)) for _ in range(n)]
+    for i in rng.choice(np.arange(1, n), n // 20, replace=False):
+        src = list(out[int(rng.integers(0, i))])
+        if src:
+            src[0] = int(rng.integers(0, vocab))
+        out[i] = tuple(src)
+    return out
+
+
+def jaccard_launches(canon, device, unicomp, run_loop):
+    """Every launch of a Jaccard self-join sweep (per cell, over the size
+    grid) with its inputs and, for the run loop, its plan."""
+    index = tgrid.build_grid(canon.geom, canon.eps_geom, device=device)
+    feats = tsj._metric_feats_sorted(canon, index)
+    deltas, is_zero = tsj._offset_tables(index, unicomp)
+    tabs = (tgrid.cell_window_tables(index, deltas, merged=False,
+                                     tag=unicomp) if run_loop else None)
+    launches, points_pad, _ = tsj._fused_launches(index, merged=False,
+                                                  feats=feats)
+    for launch in launches:
+        ws, wc, _, qb, qpos = tsj._launch_prep(index, points_pad, deltas,
+                                               launch, merged=False,
+                                               tables=tabs)
+        plan = (tsj._launch_run_plan(index, qpos, tile=launch[5])
+                if run_loop else None)
+        yield launch, (points_pad, qb, ws, wc, is_zero, qpos), plan
+
+
+# (vocabulary, most tokens a set): 64 words of 1,024 tokens make the run
+# loop's block need more than 48 KiB of shared memory, 128 of 2,048 the
+# row loop's too, so both opt in past the default
+JACCARD_DATA = {"v60": (60, 24), "v1024": (1024, 200), "v2048": (2048, 300)}
+
+
+@pytest.mark.parametrize("data", list(JACCARD_DATA))
+@pytest.mark.parametrize("unicomp", [True, False])
+@pytest.mark.parametrize("run_loop", [True, False])
+def test_jaccard_kernel_matches_plain_version(cuda_device, data, unicomp,
+                                              run_loop):
+    """B1 (e): every launch of a Jaccard sweep against the plain version,
+    hits plane on and off, UNICOMP and self masks, row and run loop."""
+    vocab, hi = JACCARD_DATA[data]
+    canon = tmetric.canonicalize(token_sets(3000, vocab, 1, hi=hi), 0.6,
+                                 metric="jaccard", vocab=vocab)
+    before = tfj.JACCARD_LAUNCHES
+    hits = 0
+    for launch, args, plan in jaccard_launches(canon, cuda_device, unicomp,
+                                               run_loop):
+        for keep_hits in (True, False):
+            kw = dict(c=launch[4], n_real=1, unicomp=unicomp, merged=False,
+                      tq=launch[5], keep_hits=keep_hits, metric="jaccard",
+                      n_feat=canon.n_feat)
+            loop = (dict(run_ord=plan.run_ord, run_loop=True) if run_loop
+                    else {})
+            a = tfj.fused_join_hits(*args, canon.eps, method="kernel",
+                                    **loop, **kw)
+            b = tfj.fused_join_hits(*args, canon.eps, method="reference",
+                                    **kw)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+            hits += int(b[1].sum())
+    assert tfj.JACCARD_LAUNCHES > before and hits > 0
+
+
+@pytest.mark.parametrize("data", list(JACCARD_DATA))
+@pytest.mark.parametrize("run_loop", [True, False])
+def test_jaccard_external_kernel_matches_plain_version(cuda_device, data,
+                                                       run_loop):
+    """B1 (e) with the external mask: a request of token sets, some of them
+    out of the index's vocabulary, against the plain version."""
+    vocab, hi = JACCARD_DATA[data]
+    sets = token_sets(3000, vocab, 2, hi=hi)
+    canon = tmetric.canonicalize(sets, 0.6, metric="jaccard", vocab=vocab)
+    index = tgrid.build_grid(canon.geom, canon.eps_geom, device=cuda_device)
+    pj = tqj.prepare(index, run_loop=run_loop, canon=canon)
+    q = sets[:700] + token_sets(300, vocab + 40, 3, hi=hi)
+    for keep_hits in (True, False):
+        _, launches = pj.launch_inputs(q, keep_hits=keep_hits)
+        assert launches
+        for _, _, args, kw in launches:
+            a = tfj.fused_join_hits(*args, method="kernel", **kw)
+            plain = {k: v for k, v in kw.items()
+                     if k not in ("run_ord", "run_loop")}
+            b = tfj.fused_join_hits(*args, method="reference", **plain)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+
+
+def test_jaccard_kernel_refuses_what_it_cannot_run(cuda_device):
+    """float64 rows raise TypeError; a vocabulary whose query tile exceeds
+    the device's shared-memory opt-in limit raises, naming the limit; and
+    feature lanes on an l2 launch raise (only the Jaccard variant reads
+    them)."""
+    canon = tmetric.canonicalize(token_sets(500, 60, 4), 0.5,
+                                 metric="jaccard")
+    launch, args, _ = next(jaccard_launches(canon, cuda_device, True, False))
+    kw = dict(c=launch[4], n_real=1, unicomp=True, tq=launch[5],
+              metric="jaccard", n_feat=canon.n_feat, method="kernel")
+    with pytest.raises(TypeError, match="float32"):
+        tfj.fused_join_hits(args[0].double(), args[1].double(), *args[2:],
+                            0.5, **kw)
+    limit = tfj.smem_limit(args[0].device)
+    assert limit >= 48 * 1024
+    lanes = -(-limit // (4 * 128)) + 8
+    wide = torch.zeros((args[0].shape[0], lanes), device=cuda_device)
+    qwide = torch.zeros((args[1].shape[0], lanes), device=cuda_device)
+    with pytest.raises(ValueError, match=str(limit)):
+        tfj.fused_join_hits(wide, qwide, *args[2:], 0.5, **kw)
+    with pytest.raises(ValueError, match="Jaccard kernel only"):
+        tfj.fused_join_hits(*args, 0.5, **dict(kw, metric="l2"))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "jaccard"])
+def test_metric_joins_on_card_match_cpu(cuda_device, metric):
+    """self_join, self_join_count (both routes) and epsilon_join on the
+    card equal the CPU for each metric, through their kernels."""
+    if metric == "cosine":
+        rng = np.random.default_rng(6)
+        data = rng.normal(size=(20000, 4))
+        data[:400] = 2.5 * data[10000:10400]
+        eps, q = 0.99, rng.normal(size=(700, 4))
+    else:
+        data, eps = token_sets(4000, 200, 7, hi=40), 0.5
+        q = data[:500] + token_sets(200, 240, 8, hi=40)
+    before = tfj.JACCARD_LAUNCHES
+    gpu = tsj.self_join(data, eps, metric=metric, device=cuda_device)
+    assert (tfj.JACCARD_LAUNCHES > before) == (metric == "jaccard")
+    cpu = tsj.self_join(data, eps, metric=metric, device="cpu")
+    assert torch.equal(gpu.cpu(), cpu) and cpu.shape[0] > 0
+    for route in ("dense", "dense-run"):
+        assert tsj.self_join_count(data, eps, metric=metric, route=route,
+                                   device=cuda_device) == \
+            tsj.self_join_count(data, eps, metric=metric, route=route,
+                                device="cpu")
+    a = tqj.epsilon_join(q, data, eps, metric=metric, device=cuda_device)
+    b = tqj.epsilon_join(q, data, eps, metric=metric, device="cpu")
+    assert np.array_equal(a.counts, b.counts)
+    assert np.array_equal(a.pairs, b.pairs)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "jaccard"])
+def test_metric_services_on_card(cuda_device, metric):
+    """JoinService and BatchingJoinService per metric on the card: the
+    CPU service's answers, a stricter per-request threshold included, and
+    no counter moved in steady state."""
+    if metric == "cosine":
+        rng = np.random.default_rng(9)
+        data, eps = rng.normal(size=(5000, 4)), 0.95
+        stream = [rng.normal(size=(n, 4)) for n in (300, 17, 64)]
+    else:
+        data, eps = token_sets(3000, 200, 9, hi=40), 0.5
+        stream = [token_sets(n, 220, 10 + n, hi=40) for n in (300, 17, 64)]
+    cpu = repro_torch.JoinService(data, eps, return_pairs=True,
+                                  metric=metric, device="cpu")
+    svc = repro_torch.JoinService(data, eps, return_pairs=True,
+                                  metric=metric, device=cuda_device)
+    bat = repro_torch.BatchingJoinService(data, eps, return_pairs=True,
+                                          metric=metric, max_batch=256,
+                                          device=cuda_device)
+    svc.prepared.warm(300)
+    bat.warmup()
+    svc.mark_steady()
+    tickets = [bat.submit(q) for q in stream]
+    bat.drain()
+    for q, t in zip(stream, tickets):
+        want = cpu.query(q)
+        got = svc.query(q)
+        assert np.array_equal(got.counts, want.counts)
+        assert np.array_equal(got.pairs, want.pairs)
+        assert np.array_equal(t.result().pairs, want.pairs)
+        tight = 0.99 if metric == "cosine" else 0.7
+        assert np.array_equal(svc.query(q, eps=tight).pairs,
+                              cpu.query(q, eps=tight).pairs)
+    svc.assert_no_retrace()
+    bat.assert_no_retrace()

@@ -308,13 +308,22 @@ def test_request_eps_overrides_and_errors(jax_tables):
             "l2", e, index_eps=1.0, index_eps_geom=1.0) == \
             jmetric.request_scalar("l2", e, index_eps=1.0,
                                    index_eps_geom=1.0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmetric.request_scalar("cosine", 0.9, index_eps=0.8,
-                               index_eps_geom=0.6)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tqj.epsilon_join(q, pts, 0.9, metric="cosine", device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tqj.prepare(pj.index, canon=object())
+    # the metric rules (ported with ROADMAP A8): a cosine request above the
+    # build similarity maps to its chord, below it raises; an unknown
+    # metric and an l2 index under a cosine form are refused
+    g = tmetric.cosine_eps_geom(0.8)
+    assert tmetric.request_scalar("cosine", 0.9, index_eps=0.8,
+                                  index_eps_geom=g) == \
+        jmetric.request_scalar("cosine", 0.9, index_eps=0.8,
+                               index_eps_geom=g)
+    with pytest.raises(ValueError, match="below the index build"):
+        tmetric.request_scalar("cosine", 0.7, index_eps=0.8,
+                               index_eps_geom=g)
+    with pytest.raises(ValueError, match="unknown metric"):
+        tqj.epsilon_join(q, pts, 0.9, metric="hamming", device="cpu")
+    with pytest.raises(ValueError, match="does not match the canonical"):
+        tqj.prepare(pj.index, canon=tmetric.canonicalize(pts, 0.9,
+                                                         metric="cosine"))
 
 
 def test_range_query_matches_jax():

@@ -317,12 +317,15 @@ def test_unported_services_raise(dataset):
         ShardedJoinService(pts, eps, 3)
     with pytest.raises(NotImplementedError, match="A14"):
         BatchingJoinService(pts, eps, n_slabs=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        JoinService(pts, eps, metric="cosine", device="cpu")
+    # the metrics are ported (ROADMAP A8): a non-L2 service builds its own
+    # index, so a given one is refused, and an unknown metric too
+    with pytest.raises(ValueError, match="pass raw points"):
+        JoinService(pts, 0.9, metric="cosine",
+                    index=tgrid.build_grid(pts, eps, device="cpu"))
     with pytest.raises(NotImplementedError, match="A17"):
         serve.main(["--arch", "smoke-lm", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(["--metric", "jaccard", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        serve.main(["--metric", "hamming", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A14"):
         serve.main(["--slabs", "2", "--device", "cpu", "--points", "100"])
 
