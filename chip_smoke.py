@@ -27,6 +27,17 @@ each printing one JSON line:
                   on-card evaluation, and the full-scale oracle: B3's
                   per-point counts over all points against the join's,
                   and against B3's plain version on sampled rows
+  unfused         the unfused sweep on the main path's points: self_join
+                  through distance_impl "pallas" (kernel B4) and "jnp",
+                  each timed beside the fused join with its peak memory and
+                  equal to its pairs; B4 against its plain version on every
+                  launch of that join at f64 and f32, its time, plain time
+                  and bound; self_join_count through both impls, route
+                  "jnp" and route "compact" (every impl), the batched
+                  pallas join, per-point neighbour counts (merged and per
+                  cell) against the join's; the seven bench totals through
+                  "pallas"; a lattice with d^2 exactly on eps^2 against an
+                  integer count; one profiled pallas join
   batched         self_join_batched(n_batches=3) at the main path against
                   self_join, time and peak memory side by side; then the
                   paper's 10,000,000-point scale, its total against
@@ -65,15 +76,16 @@ each printing one JSON line:
   kernels         one line: every kernel with launches, agreement and times
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
-brute for B2, serve for B1 (b), metrics for the cosine join's B1 and the
-Jaccard join's B1 (e)) and read just after; comparisons with the
-plain versions run outside those windows. The last lines are the card's ``nvidia-smi`` name and
-power limit, then ``{"ok": true, "device": {...}}``. Any failure raises and
+unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
+join's B1 and the Jaccard join's B1 (e)) and read just after; comparisons
+with the plain versions run outside those windows. The last lines are the
+card's ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA device the script exits non-zero before
 printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -98,6 +110,11 @@ BENCH_TOTALS = {
     "clustered-6d": 531810,
 }
 MAIN_POINTS, MAIN_DIMS, MAIN_EPS = 2_000_000, 2, 0.2
+# its ordered-pair total (the seeded data's, on any machine)
+MAIN_TOTAL = 50_184_534
+# the unfused phase's lattice: integer sites of a LATTICE_SIDE^3 cube, each
+# twice, at eps 2 (many d^2 exactly on eps^2 = 4)
+LATTICE_SIDE, LATTICE_EPS = 40, 2
 # the paper's synthetic scale: ~10 points a cell, ~314 M ordered pairs
 PAPER_POINTS, PAPER_EPS = 10_000_000, 0.1
 SAMPLED_QUERIES = 1024
@@ -457,11 +474,13 @@ def phase_env():
 
 
 def phase_build():
-    from repro_torch.kernels import build, distance_tile as dt, fused_join as fj
+    from repro_torch.kernels import build, cell_join as cj
+    from repro_torch.kernels import distance_tile as dt, fused_join as fj
     t0 = time.perf_counter()
     built = build.build_all()
     fj._kernel_library()
     dt._kernel_library()
+    cj._kernel_library()
     seconds = time.perf_counter() - t0
     emit("build", seconds=seconds, libraries={
         name: dict(path=str(path.relative_to(ROOT)), built=bool(log),
@@ -697,7 +716,269 @@ def phase_main_path():
                         plain_ms=timed["plain"], bound_ms=bound_ms,
                         bound_by=bound_by),
                 b3_launches=launches[-1][2], b3_ms=b3_ms, b3_err=b3_err,
-                b3_bound=b3_bound, e2e=statistics.median(e2e), peak=peak)
+                b3_bound=b3_bound, e2e=statistics.median(e2e), peak=peak,
+                total_pairs=int(pairs.shape[0]))
+
+
+def unfused_launches(index, unicomp: bool = True):
+    """B4's inputs on every launch of one unfused join over ``index``, as
+    the driver gathers them: (q, cand, valid) per stencil offset (the count
+    and the fill pass launch B4 on the same inputs)."""
+    from repro_torch.core import selfjoin as sj
+    deltas, _ = sj._offset_tables(index, unicomp)
+    cap = sj._unfused_cap(index)
+    out = []
+    for o in range(deltas.shape[0]):
+        q, cand, _, valid, _, _ = sj._gather_batch(
+            index, sj._neighbor_ranks_for_delta(index, deltas[o]), 0,
+            index.num_points, cap)
+        out.append((q, cand, valid))
+    return out
+
+
+def b4_vs_plain(launches, eps) -> int:
+    """Max |kernel - plain| of B4 over ``launches``."""
+    from repro_torch.kernels import cell_join as cj
+    worst = 0
+    for q, cand, valid in launches:
+        a = cj.cell_join_hits(q, cand, valid, eps, method="kernel")
+        b = cj.cell_join_hits(q, cand, valid, eps, method="reference")
+        sync()
+        worst = max(worst, int((a.to(torch.int8) - b.to(torch.int8))
+                               .abs().max()))
+    return worst
+
+
+def b4_ms(launches, eps, method: str, reps: int = 5) -> float:
+    """Device ms of one B4 launch (or its plain version), by CUDA events
+    over ``reps`` back-to-back passes over ``launches``, after an untimed
+    pass."""
+    from repro_torch.kernels import cell_join as cj
+
+    def one_pass():
+        for q, cand, valid in launches:
+            cj.cell_join_hits(q, cand, valid, eps, method=method)
+
+    one_pass()
+    return event_ms(one_pass, reps) / len(launches)
+
+
+def b4_work(launches):
+    """B4's work over ``launches``, on what this data needs: bytes = the
+    32-byte sectors that hold a valid slot's candidate lanes (an invalid
+    slot's are never needed), q and valid read once and the int8 hits
+    written once; operations = 3n (subtract, multiply, add a lane) on every
+    valid slot."""
+    nbytes = flops = 0
+    for q, cand, valid in launches:
+        b, c, n = cand.shape
+        width = n * q.element_size()                 # bytes of one slot
+        slot = torch.nonzero(valid.reshape(-1)).reshape(-1)
+        first = slot * width // 32
+        last = ((slot + 1) * width - 1) // 32
+        sector = torch.zeros((b * c * width + 31) // 32, dtype=torch.bool,
+                             device=valid.device)
+        for j in range(width // 32 + 2):              # sectors a slot spans
+            s = first + j
+            sector[s[s <= last]] = True
+        nbytes += (int(sector.sum()) * 32 + q.numel() * q.element_size()
+                   + 2 * b * c)
+        flops += 3 * n * int(slot.numel())
+    return nbytes, flops
+
+
+def compact_fused_b1(pts, eps, counts) -> dict:
+    """``self_join_count_compact(distance_impl="fused")`` into
+    ``counts["compact-fused"]``, with B1's launches counted around it and
+    the inputs of its one launch (the o = 0 pass: per-cell sweep, no hit
+    plane) captured, then B1 held to its plain version on them."""
+    import repro_torch
+    from repro_torch.kernels import fused_join as fj, ops
+    seen = []
+    launch = ops.fused_join_hits
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+
+    ops.fused_join_hits = spy
+    try:
+        fj.KERNEL_LAUNCHES = 0
+        counts["compact-fused"] = repro_torch.self_join_count_compact(
+            pts, eps, distance_impl="fused", device=DEVICE)
+        sync()
+        launches = fj.KERNEL_LAUNCHES
+    finally:
+        ops.fused_join_hits = launch
+    check(launches == 1 == len(seen), f"the compact count launched B1 "
+          f"{launches} times over {len(seen)} calls, 1 scheduled")
+    args, kw = seen[0]
+    check(not kw["keep_hits"] and not kw["merged"],
+          "the compact count's B1 launch kept hits or merged lanes")
+    worst = max_abs_diff(fj.fused_join_hits(*args, method="kernel", **kw),
+                         fj.fused_join_hits(*args, method="reference", **kw))
+    check(worst == 0, f"the compact count's B1 launch differs from its "
+          f"plain version by {worst}")
+    return dict(launches=launches, worst=worst)
+
+
+def lattice_total(side: int, eps: int) -> int:
+    """Ordered pairs of the unfused phase's lattice: sites of a side^3
+    integer cube, each twice, within eps. Per nonzero offset o with
+    |o|^2 <= eps^2, prod(side - |o_i|) ordered site pairs, each 4 point
+    pairs; each site's two copies add 2."""
+    r = range(-eps, eps + 1)
+    sites = sum(int(np.prod([side - abs(v) for v in o]))
+                for o in np.array(np.meshgrid(r, r, r)).reshape(3, -1).T
+                if 0 < int((o * o).sum()) <= eps * eps)
+    return 4 * sites + 2 * side ** 3
+
+
+def phase_unfused(main):
+    """The unfused offset sweep on the main path's points: joins through
+    "pallas" (kernel B4) and "jnp" against the fused join, B4 against its
+    plain version on every launch at f64 and f32, the counts of every
+    route and impl, the batched join, per-point counts, the bench totals
+    through "pallas" and a lattice with d^2 exactly on eps^2."""
+    import repro_torch
+    from repro_torch.core import selfjoin as sj
+    from repro_torch.kernels import cell_join as cj
+    t_phase = time.perf_counter()
+    pts = syn(MAIN_POINTS, MAIN_DIMS)
+    eps = MAIN_EPS
+    fused = repro_torch.self_join(pts, eps, device=DEVICE)
+    check(fused.shape[0] == MAIN_TOTAL == main["total_pairs"],
+          f"fused join emitted {fused.shape[0]} pairs, recorded "
+          f"{MAIN_TOTAL}")
+    index = repro_torch.build_grid(pts, eps, device=DEVICE)
+    n_off = int(sj._offset_tables(index, True)[0].shape[0])
+    joins = {impl: (lambda impl=impl: repro_torch.self_join(
+        pts, eps, distance_impl=impl, device=DEVICE))
+        for impl in ("fused", "pallas", "jnp")}
+    timed, launches = {}, []
+    for impl in ("fused", "pallas", "jnp"):
+        joins[impl]()                                     # warm-up
+        sync()
+        runs = []
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            cj.KERNEL_LAUNCHES = 0
+            t0 = time.perf_counter()
+            pairs = joins[impl]()
+            sync()
+            runs.append(time.perf_counter() - t0)
+            if impl == "pallas":
+                launches.append(cj.KERNEL_LAUNCHES)
+            check(torch.equal(pairs, fused), f"{impl} join's pairs differ "
+                  f"from the fused join's")
+        timed[impl] = dict(s=statistics.median(runs), runs_s=runs,
+                           peak_bytes=torch.cuda.max_memory_allocated())
+        del pairs
+    check(launches == [2 * n_off] * 3, f"the pallas join launched B4 "
+          f"{launches} times, {2 * n_off} scheduled (count and fill per "
+          f"offset)")
+
+    # B4 against its plain version on every launch, f64 then f32
+    prepared = unfused_launches(index)
+    worst = b4_vs_plain(prepared, index.eps)
+    check(worst == 0, f"B4 differs from its plain version by {worst}")
+    ms = b4_ms(prepared, index.eps, "kernel")
+    plain_ms = b4_ms(prepared, index.eps, "reference")
+    nbytes, flops = b4_work(prepared)
+    bound_ms, bound_by = bound(nbytes, flops, "float64")
+    shape = list(prepared[0][1].shape)
+    del prepared
+    pts32 = pts.astype(np.float32)
+    index32 = repro_torch.build_grid(pts32, eps, device=DEVICE)
+    worst32 = b4_vs_plain(unfused_launches(index32), index32.eps)
+    check(worst32 == 0, f"f32: B4 differs from its plain version by "
+          f"{worst32}")
+    check(torch.equal(
+        repro_torch.self_join(pts32, eps, distance_impl="pallas",
+                              device=DEVICE),
+        repro_torch.self_join(pts32, eps, device=DEVICE)),
+        "f32: the pallas join's pairs differ from the fused join's")
+    del index32
+
+    # counts: every impl and route
+    t0 = time.perf_counter()
+    counts = {impl: repro_torch.self_join_count(pts, eps, distance_impl=impl,
+                                                device=DEVICE)
+              for impl in ("pallas", "jnp")}
+    counts["route=jnp"] = repro_torch.self_join_count(pts, eps, route="jnp",
+                                                      device=DEVICE)
+    counts["route=compact"] = repro_torch.self_join_count(
+        pts, eps, route="compact", device=DEVICE)
+    for impl in ("jnp", "pallas"):
+        counts[f"compact-{impl}"] = repro_torch.self_join_count_compact(
+            pts, eps, distance_impl=impl, device=DEVICE)
+    compact_b1 = compact_fused_b1(pts, eps, counts)
+    totals = {k: v.total_pairs for k, v in counts.items()}
+    check(set(totals.values()) == {MAIN_TOTAL}, f"count totals {totals}")
+    check(counts["pallas"] == counts["jnp"]
+          and dataclasses.replace(counts["route=jnp"], route="dense")
+          == counts["jnp"], "the unfused counts' counters differ")
+    counts_s = time.perf_counter() - t0
+
+    got = repro_torch.self_join_batched(pts, eps, distance_impl="pallas",
+                                        n_batches=3, sort_result=False,
+                                        device=DEVICE)
+    check(torch.equal(sj.sort_pairs(got.to(DEVICE), MAIN_POINTS), fused),
+          "batched pallas pairs differ from the fused join's")
+    del got
+    degree = torch.bincount(fused[:, 0].long(), minlength=MAIN_POINTS)
+    degree = degree.to(torch.int32).cpu().numpy()
+    for merged in (True, False):
+        check(np.array_equal(repro_torch.per_point_neighbor_counts(
+            pts, eps, merge_last_dim=merged, device=DEVICE), degree),
+            f"per-point counts (merged={merged}) differ from the join's")
+    del fused
+
+    bench = {}
+    for name, (bpts, beps) in bench_workloads().items():
+        stats = repro_torch.self_join_count(bpts, beps, distance_impl="pallas",
+                                            device=DEVICE)
+        check(stats.total_pairs == BENCH_TOTALS[name], f"{name}: pallas "
+              f"count {stats.total_pairs}, recorded {BENCH_TOTALS[name]}")
+        bench[name] = dict(total_pairs=stats.total_pairs,
+                           offsets=stats.offsets)
+
+    g = np.arange(LATTICE_SIDE)
+    sites = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    lat = np.concatenate([sites, sites]).astype(np.float64)
+    want = lattice_total(LATTICE_SIDE, LATTICE_EPS)
+    lat_index = repro_torch.build_grid(lat, LATTICE_EPS, device=DEVICE)
+    lat_worst = b4_vs_plain(unfused_launches(lat_index), lat_index.eps)
+    check(lat_worst == 0, f"lattice: B4 differs from its plain version by "
+          f"{lat_worst}")
+    for dtype in (np.float64, np.float32):
+        got = repro_torch.self_join(lat.astype(dtype), LATTICE_EPS,
+                                    distance_impl="pallas", device=DEVICE)
+        check(got.shape[0] == want, f"lattice {np.dtype(dtype).name}: "
+              f"{got.shape[0]} pairs, the integer count is {want}")
+
+    prof = profiled_join(joins["pallas"], kernel="cell_join_kernel")
+    emit("unfused", points=MAIN_POINTS, dims=MAIN_DIMS, eps=eps,
+         dtype="float64", total_pairs=MAIN_TOTAL, offsets=n_off,
+         launches=launches[-1], join_s={k: v["s"] for k, v in timed.items()},
+         join_runs_s={k: v["runs_s"] for k, v in timed.items()},
+         peak_bytes={k: v["peak_bytes"] for k, v in timed.items()},
+         b4_launch_shape=shape, b4_ms=ms, b4_plain_ms=plain_ms,
+         b4_bound_ms=bound_ms / n_off, b4_bound_by=bound_by,
+         b4_bound_bytes=nbytes // n_off, b4_bound_flops=flops // n_off,
+         b4_max_abs_err=max(worst, worst32, lat_worst),
+         b4_f32_max_abs_err=worst32, counts_s=counts_s,
+         count_totals=totals, cells_visited=counts["jnp"].cells_visited,
+         candidates_checked=counts["jnp"].candidates_checked,
+         compact_candidates=counts["route=compact"].candidates_checked,
+         compact_b1_launches=compact_b1["launches"],
+         compact_b1_max_abs_err=compact_b1["worst"],
+         bench_pallas=bench, lattice_points=len(lat),
+         lattice_pairs=want, profile=prof,
+         phase_s=time.perf_counter() - t_phase)
+    return dict(launches=launches[-1], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms / n_off, bound_by=bound_by,
+                worst=max(worst, worst32, lat_worst))
 
 
 def phase_batched(main):
@@ -852,10 +1133,11 @@ def phase_profile():
         lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE)))
 
 
-def profiled_join(join):
+def profiled_join(join, kernel: str = "fused_join_kernel"):
     """``join()`` once to warm up, then once under ``torch.profiler``: the
-    stage spans' host and device ms, B1's device time, device time by
-    kernel name and the device's busy share of the wall time."""
+    stage spans' host and device ms, the device time of the kernels whose
+    name holds ``kernel`` (B1's by default), device time by kernel name and
+    the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     join()
     sync()
@@ -890,14 +1172,15 @@ def profiled_join(join):
               and device_us(e) > 0
               and not e.key.startswith(("Activity Buffer", "self_join."))]
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    b1 = [e for e in events if "fused_join_kernel" in e.key]
-    b1_ms = sum(device_us(e) for e in b1) / 1e3 if b1 else None
+    ours = [e for e in events if kernel in e.key]
+    ours_ms = sum(device_us(e) for e in ours) / 1e3 if ours else None
     top = sorted(events, key=device_us, reverse=True)[:12]
     return dict(
-        wall_ms=wall_ms, stages=stages,
-        b1_device_ms=b1_ms, b1_calls=sum(e.count for e in b1),
-        b1_in_kernel_span=(b1_ms is not None and
-                           stages["self_join.kernel"]["device_ms"] >= b1_ms),
+        wall_ms=wall_ms, stages=stages, kernel=kernel,
+        kernel_device_ms=ours_ms, kernel_calls=sum(e.count for e in ours),
+        kernel_in_kernel_span=(
+            ours_ms is not None
+            and stages["self_join.kernel"]["device_ms"] >= ours_ms),
         device_busy_ms=busy_ms if events else None,
         device_busy_share=busy_ms / wall_ms if events else None,
         top_device_ms={e.key[:80]: device_us(e) / 1e3 for e in top},
@@ -1808,6 +2091,7 @@ def main() -> int:
     worst = phase_kernel_vs_plain(workloads)
     phase_bench_totals(workloads)
     main = phase_main_path()
+    unfused = phase_unfused(main)
     phase_batched(main)
     brute = phase_brute(workloads)
     phase_profile()
@@ -1867,6 +2151,16 @@ def main() -> int:
         "bound_by": brute["b3"]["bound_by"], "library_ms": None,
         "matched_plain": True, "timed_on": "uniform-2d, 100,000 points",
         "main_path_ms": main["b3_ms"], "main_path_bound_ms": main["b3_bound"][0],
+    }, {
+        "name": "cell_join_hits", "route": "cuda",
+        "source": f"{csrc}/cell_join.cu",
+        "replaces": "src/repro/kernels/cell_join.py:32",
+        "launches": unfused["launches"], "max_abs_err": unfused["worst"],
+        "ms": unfused["ms"], "plain_ms": unfused["plain_ms"],
+        "bound_ms": unfused["bound_ms"], "bound_by": unfused["bound_by"],
+        "library_ms": None, "matched_plain": True,
+        "timed_on": "one launch of the main path's unfused join, "
+                    "2,000,000 x 32 x 2 f64",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

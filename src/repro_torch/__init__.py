@@ -10,13 +10,15 @@ anything of ``repro``. Entry points run on CUDA unless the caller passes
 """
 from repro_torch.core import (GridIndex, JoinStats, brute_force_count,
                               brute_force_join, build_grid, epsilon_join,
-                              prepare, range_query, self_join,
-                              self_join_batched, self_join_count)
+                              per_point_neighbor_counts, prepare,
+                              range_query, self_join, self_join_batched,
+                              self_join_count, self_join_count_compact)
 
 __all__ = ["BatchingJoinService", "GridIndex", "JoinService", "JoinStats",
            "brute_force_count", "brute_force_join", "build_grid",
-           "epsilon_join", "prepare", "range_query", "self_join",
-           "self_join_batched", "self_join_count"]
+           "epsilon_join", "per_point_neighbor_counts", "prepare",
+           "range_query", "self_join", "self_join_batched", "self_join_count",
+           "self_join_count_compact"]
 
 
 def __getattr__(name):

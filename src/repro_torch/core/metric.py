@@ -77,6 +77,20 @@ def l2_sq_hits_presquared(d2, eps2):
     return d2 <= eps2
 
 
+def lane_d2(q: torch.Tensor, cand_lane, n: int) -> torch.Tensor:
+    """Squared L2 distance of each query row of ``q`` (B, >= n) to its
+    candidates, ``cand_lane(k)`` giving the candidates' lane k as (B, C):
+    ``d2 = 0``, then ``d2 = d2 + t * t`` with ``t = q[:, k] - c_k`` for
+    k = 0 .. n-1 in lane order, one eager op per subtract, multiply and
+    add. The one summation order of the port's plain L2 refines; kernels
+    B1 and B4 sum in it too, so they agree with them bit for bit."""
+    d2 = torch.zeros((), dtype=q.dtype, device=q.device)
+    for k in range(n):
+        t = q[:, k, None] - cand_lane(k)
+        d2 = d2 + t * t
+    return d2
+
+
 def device_refine_scalar(metric: str, eps, dtype,
                          device=None) -> torch.Tensor:
     """The (1, 1) scalar the refine compares against, in the points' dtype:
@@ -130,11 +144,7 @@ def plane_refine_hits(metric: str, points_pad: torch.Tensor,
         inter = inter.to(points_pad.dtype)
         union = (sq + sc) - inter
         return (union > 0) & (inter >= scalar * union)
-    d2 = torch.zeros(cand_pos.shape, dtype=points_pad.dtype,
-                     device=points_pad.device)
-    for dim in range(n_real):
-        t = q_batch[:, dim][:, None] - points_pad[:, dim][idx]
-        d2 = d2 + t * t
+    d2 = lane_d2(q_batch, lambda k: points_pad[:, k][idx], n_real)
     return l2_sq_hits_presquared(d2, scalar)
 
 

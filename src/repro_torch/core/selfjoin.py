@@ -2,8 +2,8 @@
 
 The paper's GPU kernel is thread-per-point: each thread walks the adjacent
 cells of its point and appends pairs through a global atomic. This port keeps
-the JAX package's formulation, an offset sweep with a single-pass count and
-fill:
+the JAX package's formulation, an offset sweep. ``distance_impl="fused"``
+(the port's default) is a single-pass count and fill:
 
   1. build the epsilon-grid (``grid.build_grid``);
   2. plan: stencil offset tables, capacity buckets (``grid.occupancy_plan``)
@@ -25,9 +25,17 @@ while the next batch runs.
 jaccard the per-cell sweep over a 1-D size grid with the packed token words
 in feature lanes and the kernel's popcount refine.
 
-Only ``distance_impl="fused"`` and the ``"dense"`` and ``"dense-run"`` count
-routes are ported so far; the other options of the JAX package raise
-``NotImplementedError`` naming their ROADMAP item.
+``distance_impl="jnp" | "pallas"`` is the unfused sweep, the paper's
+two-phase count -> fill (``_self_join_unfused``): per stencil offset of the
+per-cell stencil the (B, C, n) candidate tensor is gathered and refined, in
+plain torch ("jnp") or by kernel B4 (``kernels.cell_join``, "pallas"), once
+to count and once more to fill a result sized exactly. The same gather
+serves the compact count route (``self_join_count_compact``) and
+``per_point_neighbor_counts``.
+
+The count routes ``"dense"``, ``"dense-run"``, ``"compact"`` and ``"jnp"``
+are ported; the sparse and flat routes and the measured route choice of the
+JAX package raise ``NotImplementedError`` naming ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -39,10 +47,12 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.grid import (GridIndex, RunPlan, build_grid,
+from repro_torch.core.grid import (_NUMPY_DTYPES, GridIndex, RunPlan,
+                                   _keys64, _pad_probe, build_grid,
                                    cell_run_plan, cell_window_tables,
                                    global_window_cap, host_dims,
-                                   occupancy_plan, point_last_coords,
+                                   neighbor_rank, occupancy_plan,
+                                   point_last_coords,
                                    range_window_descriptors,
                                    range_window_descriptors_at, resolve_device,
                                    round_up, row_major_strides,
@@ -50,7 +60,7 @@ from repro_torch.core.grid import (GridIndex, RunPlan, build_grid,
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
-                                            pad_points,
+                                            fused_window_hits, pad_points,
                                             resolve_merge_last_dim)
 
 _ROUTES = ("dense", "compact", "sparse", "jnp", "dense-flat", "sparse-flat",
@@ -577,14 +587,327 @@ def dma_window_stats(index: GridIndex, *, unicomp: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# Unfused sweep (distance_impl "jnp" / "pallas"), the paper's two-phase
+# count -> fill: per stencil offset (a Python loop, JAX's lax.scan), gather
+# the (B, C, n) candidate tensor of the per-cell sweep and refine it. The fill
+# evaluates every distance a second time.
+# ---------------------------------------------------------------------------
+
+def _unfused_cap(index: GridIndex) -> int:
+    """Window slots a row of the unfused sweep: max_per_cell rounded to 8."""
+    return round_up(max(int(index.max_per_cell), 1), 8)
+
+
+def _neighbor_ranks_for_delta(index: GridIndex, delta) -> torch.Tensor:
+    """Rank in B of (cell + delta) for every slot of B; -1 where absent.
+    Padding slots probe the miss sentinel and resolve to padding slots,
+    whose cell_count is 0."""
+    valid = torch.arange(index.num_points, device=index.device) \
+        < index.num_cells
+    base = torch.where(valid, _keys64(index), 0)
+    qk = _pad_probe(base + delta, valid, _NUMPY_DTYPES[index.cell_keys.dtype])
+    return neighbor_rank(index, qk)
+
+
+def _distance_hits_jnp(q, cand, valid, eps):
+    """Plain candidate refine: (B, n) x (B, C, n) -> (B, C) bool hits, d^2
+    summed lane by lane in lane order (``metric.lane_d2``), as kernel B4
+    sums it, so "jnp" and "pallas" give the same pairs bit for bit."""
+    d2 = metric_lib.lane_d2(q, lambda k: cand[:, :, k], q.shape[1])
+    return metric_lib.l2_sq_hits(d2, eps) & valid
+
+
+def _get_distance_impl(name: str):
+    if name == "jnp":
+        return _distance_hits_jnp
+    if name == "pallas":
+        return ops.cell_join_hits
+    raise ValueError(f"unknown distance_impl {name!r}")
+
+
+def _gather_rows(points: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``points[pos]`` with a trailing lane axis, gathered lane by lane:
+    torch's row gather of such narrow rows (16 bytes at n = 2 in f64) ran
+    about 10x slower than one gather per lane on an H100."""
+    idx = pos.long()
+    return torch.stack([points[:, k][idx] for k in range(points.shape[1])],
+                       dim=-1)
+
+
+def _gather_batch(index: GridIndex, nbr_rank_cells, q_start: int,
+                  q_size: int, max_per_cell: int):
+    """Candidate window of each query row of a batch under one offset.
+
+    Returns (q (q_size, n), cand (q_size, C, n), cand_pos (q_size, C) int32,
+    valid (q_size, C) bool, q_pos (q_size,) int32, visited (q_size,) bool):
+    sorted positions clamped to the points, and whether a real row's
+    neighbour cell exists."""
+    npts = index.num_points
+    dev = index.device
+    q_pos = q_start + torch.arange(q_size, dtype=torch.int32, device=dev)
+    q_ok = q_pos < npts
+    q_pos_c = torch.clamp(q_pos, max=npts - 1)
+    q = _gather_rows(index.points_sorted, q_pos_c)
+    nbr = nbr_rank_cells[index.point_cell_rank[q_pos_c.long()].long()]
+    nbr_c = torch.clamp(nbr, min=0).long()
+    start = index.cell_start[nbr_c]
+    count = torch.where(nbr >= 0, index.cell_count[nbr_c], 0)
+    slots = torch.arange(max_per_cell, dtype=torch.int32, device=dev)
+    valid = (slots[None, :] < count[:, None]) & q_ok[:, None]
+    cand_pos = torch.clamp(start[:, None] + slots[None, :], max=npts - 1)
+    cand = _gather_rows(index.points_sorted, cand_pos)
+    return q, cand, cand_pos, valid, q_pos_c, (nbr >= 0) & q_ok
+
+
+def _sweep_hits(index: GridIndex, delta, zero, q_start: int, *, q_size: int,
+                max_per_cell: int, unicomp: bool, hits_fn):
+    """One offset of the unfused sweep: masked hits (UNICOMP triangle on
+    the zero offset, else the self pair), with the gather's outputs."""
+    with record_function("self_join.plan"):
+        nbr_cells = _neighbor_ranks_for_delta(index, delta)
+        q, cand, cand_pos, valid, q_pos, visited = _gather_batch(
+            index, nbr_cells, q_start, q_size, max_per_cell)
+    with record_function("self_join.kernel"):
+        hits = hits_fn(q, cand, valid, index.eps)
+        if unicomp:
+            hits = hits & ((cand_pos > q_pos[:, None]) | (zero == 0))
+        else:
+            hits = hits & (cand_pos != q_pos[:, None])
+    return hits, cand_pos, valid, q_pos, visited
+
+
+def _count_batch(index: GridIndex, deltas, is_zero, q_start: int, *,
+                 q_size: int, max_per_cell: int, unicomp: bool, hits_fn):
+    """Count phase of one query batch: (ordered pairs, cells visited,
+    candidate slots) as int64 tensors on the index's device."""
+    total, cells, cands = (torch.zeros((), dtype=torch.int64,
+                                       device=index.device)
+                           for _ in range(3))
+    for o in range(deltas.shape[0]):
+        hits, _, valid, _, visited = _sweep_hits(
+            index, deltas[o], is_zero[o], q_start, q_size=q_size,
+            max_per_cell=max_per_cell, unicomp=unicomp, hits_fn=hits_fn)
+        # UNICOMP: every hit is an unordered pair, two ordered ones
+        total += (2 if unicomp else 1) * hits.sum(dtype=torch.int64)
+        cells += visited.sum(dtype=torch.int64)
+        cands += valid.sum(dtype=torch.int64)
+    return total, cells, cands
+
+
+def _fill_batch(index: GridIndex, deltas, is_zero, q_start: int, *,
+                q_size: int, max_per_cell: int, unicomp: bool,
+                capacity: int, hits_fn):
+    """Fill phase of one query batch: ordered pairs of original point ids,
+    offset-major, then row-major over (query row, slot); under UNICOMP each
+    hit writes (q, c) at 2 * rank and (c, q) at 2 * rank + 1. Each hit's
+    slot is a cursor plus its rank (a global int64 cumsum), and misses and
+    overflow write the spare slot ``capacity``, which is cut off (JAX's
+    ``mode="drop"``). Returns (keys, vals, count) with ``capacity`` slots."""
+    dev = index.device
+    keys = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
+    vals = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
+    cursor = torch.zeros((), dtype=torch.int64, device=dev)
+    mult = 2 if unicomp else 1
+
+    def put(pos, flat, k, v):
+        idx = torch.clamp(torch.where(flat, pos, capacity), max=capacity)
+        keys.scatter_(0, idx, k)
+        vals.scatter_(0, idx, v)
+
+    for o in range(deltas.shape[0]):
+        hits, cand_pos, _, q_pos, _ = _sweep_hits(
+            index, deltas[o], is_zero[o], q_start, q_size=q_size,
+            max_per_cell=max_per_cell, unicomp=unicomp, hits_fn=hits_fn)
+        with record_function("self_join.emit"):
+            flat = hits.reshape(-1)
+            rel = torch.cumsum(flat, 0, dtype=torch.int64) - 1
+            qid = index.order[q_pos.long()][:, None].expand(hits.shape)
+            qid = qid.reshape(-1)
+            cid = index.order[cand_pos.long()].reshape(-1)
+            pos = cursor + mult * rel
+            put(pos, flat, qid, cid)
+            if unicomp:
+                put(pos + 1, flat, cid, qid)
+            cursor = cursor + mult * flat.sum(dtype=torch.int64)
+    return keys[:capacity], vals[:capacity], cursor
+
+
+def _self_join_unfused(index: GridIndex, *, unicomp: bool, sort_result: bool,
+                       distance_impl: str, n_batches: int = 1,
+                       to_host: bool = False) -> torch.Tensor:
+    """Two-phase driver of the unfused sweep (``distance_impl`` "jnp" or
+    "pallas"): exact counts of every query batch, then each batch's fill
+    into exactly that many slots, then a check that fill and count agree.
+    ``n_batches`` (clamped to [1, npts]) cuts the rows into batches of
+    ``ceil(npts / n_batches)``; ``to_host`` copies each batch's pairs to
+    the host while the next batch runs (``_HostCopies``) and returns a CPU
+    tensor."""
+    hits_fn = _get_distance_impl(distance_impl)
+    npts = index.num_points
+    n_batches = max(min(int(n_batches), max(npts, 1)), 1)
+    q_size = -(-max(npts, 1) // n_batches)
+    with record_function("self_join.plan"):
+        deltas, is_zero = _offset_tables(index, unicomp)
+    kw = dict(q_size=q_size, max_per_cell=_unfused_cap(index),
+              unicomp=unicomp, hits_fn=hits_fn)
+    counts = [_count_batch(index, deltas, is_zero, b * q_size, **kw)[0]
+              for b in range(n_batches)]
+    counts = torch.stack(counts).tolist()       # one host sync
+    host = _HostCopies(index.device) if to_host else None
+    chunks, filled = [], []
+    for b, want in enumerate(counts):
+        keys, vals, got = _fill_batch(index, deltas, is_zero, b * q_size,
+                                      capacity=max(want, 1), **kw)
+        filled.append(got)
+        with record_function("self_join.emit"):
+            chunk = torch.stack([keys[:want], vals[:want]], dim=1)
+            if host is None:
+                chunks.append(chunk)
+            else:
+                host.put(chunk)
+    filled = torch.stack(filled).tolist()
+    if filled != counts:
+        raise RuntimeError(f"the unfused fill wrote {filled} pairs a batch, "
+                           f"the count found {counts}")
+    with record_function("self_join.emit"):
+        out = host.result() if host is not None else torch.cat(chunks, dim=0)
+        if sort_result:     # the paper sorts the key/value result
+            out = sort_pairs(out, max(npts, 1))
+    return out
+
+
+def _self_join_count_unfused(index: GridIndex, *, unicomp: bool,
+                             distance_impl: str,
+                             query_batch: Optional[int] = None,
+                             route: str = "dense") -> JoinStats:
+    """Count-only unfused sweep over contiguous batches of ``query_batch``
+    rows (all rows by default), labelled ``route``."""
+    hits_fn = _get_distance_impl(distance_impl)
+    npts = index.num_points
+    deltas, is_zero = _offset_tables(index, unicomp)
+    q_size = int(query_batch) if query_batch else npts
+    sums = torch.zeros(3, dtype=torch.int64, device=index.device)
+    for q_start in range(0, npts, q_size):
+        sums += torch.stack(_count_batch(
+            index, deltas, is_zero, q_start, q_size=q_size,
+            max_per_cell=_unfused_cap(index), unicomp=unicomp,
+            hits_fn=hits_fn))
+    total, cells, cands = sums.tolist()
+    return JoinStats(total_pairs=total, cells_visited=cells,
+                     candidates_checked=cands, offsets=int(deltas.shape[0]),
+                     route=route)
+
+
+# ---------------------------------------------------------------------------
+# Compact count route: per non-zero offset, the rows whose neighbour cell
+# exists are packed into ``cap_q`` rows before the gather, so the gather's
+# traffic follows the live candidates; the zero offset runs dense.
+# ---------------------------------------------------------------------------
+
+def compact_cap(index: GridIndex, unicomp: bool) -> int:
+    """Exact max live-query count over the non-zero offsets (host numpy)."""
+    ncells = int(index.num_cells)
+    keys = index.cell_keys[:ncells].cpu().numpy().astype(np.int64)
+    counts = index.cell_count[:ncells].cpu().numpy().astype(np.int64)
+    deltas = _offset_tables(index, unicomp)[0][1:].cpu().numpy()  # o != 0
+    cap = 1
+    for delta in deltas:
+        pos = np.minimum(np.searchsorted(keys, keys + delta), ncells - 1)
+        live = keys[pos] == keys + delta
+        cap = max(cap, int(counts[live].sum()))
+    return cap
+
+
+def _count_compact(index: GridIndex, deltas, *, cap_q: int,
+                   max_per_cell: int, unicomp: bool, distance_impl: str):
+    """Compacted sweep over the non-zero offsets ``deltas``: per offset the
+    live rows first (a stable sort of ~live), cut to ``cap_q`` rows, each
+    against its neighbour cell's window. Returns (ordered pairs, candidate
+    slots) as int64 tensors. ``"fused"`` refines by column gathers
+    (``fused_window_hits``), without the (B, C, n) candidate tensor."""
+    fused = distance_impl == "fused"
+    hits_fn = None if fused else _get_distance_impl(distance_impl)
+    npts = index.num_points
+    dev = index.device
+    rank = index.point_cell_rank.long()
+    sl = torch.arange(max_per_cell, dtype=torch.int32, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    slots = torch.zeros((), dtype=torch.int64, device=dev)
+    for o in range(deltas.shape[0]):
+        nbr_all = _neighbor_ranks_for_delta(index, deltas[o])[rank]
+        live = nbr_all >= 0
+        packed = torch.argsort((~live).to(torch.uint8), stable=True)[:cap_q]
+        nbr = nbr_all[packed]
+        nbr_c = torch.clamp(nbr, min=0).long()
+        count = torch.where(live[packed], index.cell_count[nbr_c], 0)
+        cand_pos = torch.clamp(index.cell_start[nbr_c][:, None] + sl[None, :],
+                               max=npts - 1)
+        valid = sl[None, :] < count[:, None]
+        q = _gather_rows(index.points_sorted, packed)
+        if fused:
+            hits = fused_window_hits(index.points_sorted, q, cand_pos, valid,
+                                     index.eps)
+        else:
+            hits = hits_fn(q, _gather_rows(index.points_sorted, cand_pos),
+                           valid, index.eps)
+        if unicomp:
+            total += 2 * hits.sum(dtype=torch.int64)
+        else:
+            hits = hits & (cand_pos != packed[:, None])
+            total += hits.sum(dtype=torch.int64)
+        slots += valid.sum(dtype=torch.int64)
+    return total, slots
+
+
+def self_join_count_compact(points, eps, *, unicomp: bool = True,
+                            index: Optional[GridIndex] = None,
+                            distance_impl: str = "fused",
+                            device=None) -> JoinStats:
+    """``self_join_count`` with empty-neighbour compaction (the JAX
+    package's ``route="compact"``): the zero offset counts dense, through
+    kernel B1 for ``"fused"`` (per-cell sweep, one launch at the rounded
+    max_per_cell, no hit plane) or the unfused sweep otherwise; every other
+    offset packs its live rows first (``_count_compact``). Same total as
+    the dense routes; ``cells_visited`` is 0 and ``candidates_checked``
+    counts the slots the compacted sweep read. ``device`` as in
+    ``self_join``."""
+    _check_impl(distance_impl)
+    index = _resolve_index(points, eps, index, resolve_device(device))
+    npts = index.num_points
+    cap = _unfused_cap(index)
+    deltas, is_zero = _offset_tables(index, unicomp)
+    cap_q = round_up(compact_cap(index, unicomp), 128)
+    if distance_impl == "fused":
+        points_pad, qp = _fused_pad(index, q_size=npts, c=cap)
+        _, wc0, _, _, counts0, _, _, _ = _fused_launch(
+            index, points_pad, deltas[:1], is_zero[:1],
+            (None, 0, npts, qp, cap, TQ_DEFAULT), unicomp=unicomp,
+            keep_hits=False, merged=False)
+        t0 = (2 if unicomp else 1) * counts0.sum(dtype=torch.int64)
+        k0 = wc0.sum(dtype=torch.int64)
+    else:
+        t0, _, k0 = _count_batch(
+            index, deltas[:1], is_zero[:1], 0, q_size=npts, max_per_cell=cap,
+            unicomp=unicomp, hits_fn=_get_distance_impl(distance_impl))
+    tn, slots = _count_compact(index, deltas[1:], cap_q=min(cap_q, npts),
+                               max_per_cell=cap, unicomp=unicomp,
+                               distance_impl=distance_impl)
+    return JoinStats(total_pairs=int(t0 + tn), cells_visited=0,
+                     candidates_checked=int(k0 + slots),
+                     offsets=int(deltas.shape[0]), route="compact")
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
+_IMPLS = ("fused", "jnp", "pallas")
+
+
 def _check_impl(distance_impl: str) -> None:
-    if distance_impl != "fused":
-        raise NotImplementedError(
-            f"distance_impl={distance_impl!r} is not ported yet (ROADMAP "
-            f"A12); the PyTorch port has 'fused' only")
+    if distance_impl not in _IMPLS:
+        raise ValueError(f"unknown distance_impl {distance_impl!r}; "
+                         f"expected one of {_IMPLS}")
 
 
 def _metric_canonical(points, eps, metric: str,
@@ -654,12 +977,17 @@ def self_join(points, eps, *, unicomp: bool = True,
     """Epsilon self-join: every ordered pair (i, j), i != j, with
     ||p_i - p_j|| <= eps, as a (K, 2) int32 tensor of point ids.
 
-    ``distance_impl`` defaults to ``"fused"``, the only implementation the
-    port has (the JAX package defaults to "jnp"). The sweep is
-    occupancy-bucketed (``bucketed=False`` forces one launch) over the
+    ``distance_impl`` "fused" (the port's default; the JAX package defaults
+    to "jnp") is the single-pass count -> fill through kernel B1: the sweep
+    is occupancy-bucketed (``bucketed=False`` forces one launch) over the
     merged-range stencil (``merge_last_dim=False`` sweeps per cell); every
-    choice gives the same pair set. ``sort_result`` orders the pairs
-    lexicographically, as the paper sorts its result.
+    choice gives the same pair set. "jnp" and "pallas" run the unfused
+    per-cell sweep, two-phase (an exact count, then a fill sized to it):
+    per offset a (B, C, n) candidate tensor, refined in plain torch or by
+    kernel B4 (bit-equal pairs); ``bucketed`` and ``merge_last_dim`` do not
+    apply to them. ``sort_result`` orders the pairs lexicographically, as
+    the paper sorts its result; unsorted, "fused" pairs come query-major
+    and unfused ones offset-major, as in the JAX package.
 
     ``metric``: "l2" (``eps`` is the radius), "cosine" (``points`` are raw
     embeddings, ``eps`` the minimum cosine similarity in [-1, 1)) or
@@ -687,6 +1015,10 @@ def self_join(points, eps, *, unicomp: bool = True,
     _check_impl(distance_impl)
     with record_function("self_join.grid"):
         index = _resolve_index(points, eps, index, dev)
+    if distance_impl != "fused":
+        return _self_join_unfused(index, unicomp=unicomp,
+                                  sort_result=sort_result,
+                                  distance_impl=distance_impl)
     return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
                             bucketed=bucketed,
                             merged=_resolve_merge(index, merge_last_dim))
@@ -703,12 +1035,15 @@ def self_join_count(points, eps, *, unicomp: bool = True,
                     device=None) -> JoinStats:
     """Total ordered-pair count and work counters, without the pairs.
 
-    Runs the ``"dense"`` route (``route=None`` means it): the
-    occupancy-bucketed fused sweep, with no hit plane; ``"dense-run"`` is
-    the same sweep through the cell-run loop, with the same totals and
-    counters and its window-read accounting. The JAX package's other
-    routes are not ported yet (ROADMAP A11). ``distance_impl`` defaults to
-    ``"fused"``, the only implementation the port has.
+    With ``distance_impl="fused"`` (the default) ``route`` picks the sweep:
+    ``"dense"`` (``route=None`` means it), the occupancy-bucketed fused
+    sweep with no hit plane; ``"dense-run"``, the same sweep through the
+    cell-run loop, with the same totals and counters and its window-read
+    accounting; ``"compact"`` (``self_join_count_compact``); ``"jnp"``, the
+    unfused plain sweep, labelled "jnp". The JAX package's sparse and flat
+    routes and its measured route choice are not ported yet (ROADMAP A11).
+    With "jnp" or "pallas" ``route`` is ignored: the unfused sweep runs,
+    labelled "dense", over batches of ``query_batch`` rows.
 
     ``metric`` / ``vocab`` as in ``self_join``: cosine counts over the unit
     rows with the L2 routes; jaccard runs the dense per-cell sweep of the
@@ -737,12 +1072,23 @@ def self_join_count(points, eps, *, unicomp: bool = True,
         if canon.metric == "cosine":
             index = _metric_grid(canon, dev)
         points, eps = canon.geom, canon.eps_geom
+    _check_impl(distance_impl)
+    index = _resolve_index(points, eps, index, dev)
+    if distance_impl != "fused":
+        return _self_join_count_unfused(
+            index, unicomp=unicomp, query_batch=query_batch,
+            distance_impl=distance_impl)
+    if route == "jnp":
+        return _self_join_count_unfused(
+            index, unicomp=unicomp, query_batch=query_batch,
+            distance_impl="jnp", route="jnp")
+    if route == "compact":
+        return self_join_count_compact(points, eps, unicomp=unicomp,
+                                       index=index, device=dev)
     if route not in (None, "dense", "dense-run"):
         raise NotImplementedError(
             f"route {route!r} is not ported yet (ROADMAP A11); the PyTorch "
-            f"port has 'dense' and 'dense-run'")
-    _check_impl(distance_impl)
-    index = _resolve_index(points, eps, index, dev)
+            f"port has 'dense', 'dense-run', 'compact' and 'jnp'")
     return _self_join_count_fused(index, unicomp=unicomp,
                                   query_batch=query_batch, bucketed=bucketed,
                                   merged=_resolve_merge(index, merge_last_dim),
@@ -763,13 +1109,19 @@ def self_join_batched(points, eps, *, unicomp: bool = True,
 
     Returns the (K, 2) int32 pairs as a CPU tensor (the JAX package returns
     numpy), the pair set of ``self_join``; ``sort_result`` sorts them on
-    the host. ``distance_impl`` "jnp" and "pallas" are not ported yet
-    (ROADMAP A12). ``device`` as in ``self_join``.
+    the host. With ``distance_impl`` "jnp" or "pallas" every batch is
+    counted first, then filled, as in the JAX package. ``device`` as in
+    ``self_join``.
     """
     _check_impl(distance_impl)
     dev = resolve_device(device)
     with record_function("self_join.grid"):
         index = _resolve_index(points, eps, index, dev)
+    if distance_impl != "fused":
+        return _self_join_unfused(index, unicomp=unicomp,
+                                  sort_result=sort_result,
+                                  distance_impl=distance_impl,
+                                  n_batches=n_batches, to_host=True)
     return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
                             n_batches=n_batches, bucketed=bucketed,
                             merged=_resolve_merge(index, merge_last_dim),
@@ -792,3 +1144,50 @@ def range_query(queries, points, eps, *, index: Optional[GridIndex] = None,
     if return_pairs:
         return res.counts, res.pairs
     return res.counts
+
+
+def per_point_neighbor_counts(points, eps, *,
+                              index: Optional[GridIndex] = None,
+                              merge_last_dim: Optional[bool] = None,
+                              device=None) -> np.ndarray:
+    """|epsilon-neighbourhood| of each point, excluding itself, as (N,) int32
+    numpy in the original point order: the range-query building block the
+    paper cites for DBSCAN. Sweeps the merged 3^(n-1) range stencil by
+    default, and the per-cell 3^n stencil with ``merge_last_dim=False``;
+    per offset a (N, C, n) candidate tensor refined in plain torch
+    (``_distance_hits_jnp``, as in the JAX package) and a scatter-add on the
+    query's id. ``device`` as in ``self_join``."""
+    index = _resolve_index(points, eps, index, resolve_device(device))
+    npts = index.num_points
+    dev = index.device
+    deg = torch.zeros(npts, dtype=torch.int32, device=dev)
+    if _resolve_merge(index, merge_last_dim):
+        dtab, _ = _merged_offset_tables(index, unicomp=False)
+        q_pos = torch.arange(npts, dtype=torch.int32, device=dev)
+        ws, wc, _ = range_window_descriptors_at(index, dtab[0], dtab[1],
+                                                dtab[2], q_pos)
+        slots = torch.arange(global_window_cap(index, merged=True),
+                             dtype=torch.int32, device=dev)
+        for o in range(ws.shape[0]):
+            cand_pos = torch.clamp(ws[o][:, None] + slots[None, :],
+                                   max=npts - 1)
+            valid = slots[None, :] < wc[o][:, None]
+            hits = _distance_hits_jnp(
+                index.points_sorted,
+                _gather_rows(index.points_sorted, cand_pos), valid,
+                index.eps)
+            hits = hits & (cand_pos != q_pos[:, None])
+            deg.index_add_(0, index.order.long(),
+                           hits.sum(dim=1, dtype=torch.int32))
+    else:
+        deltas, _ = _offset_tables(index, unicomp=False)
+        cap = _unfused_cap(index)
+        for o in range(deltas.shape[0]):
+            q, cand, cand_pos, valid, q_pos, _ = _gather_batch(
+                index, _neighbor_ranks_for_delta(index, deltas[o]), 0, npts,
+                cap)
+            hits = _distance_hits_jnp(q, cand, valid, index.eps)
+            hits = hits & (cand_pos != q_pos[:, None])
+            deg.index_add_(0, index.order[q_pos.long()].long(),
+                           hits.sum(dim=1, dtype=torch.int32))
+    return deg.cpu().numpy()

@@ -421,3 +421,14 @@ def emit_steps(hits, counts, slot_base, win_start, *, c: int, tq: int,
                            max=npts - 1)
         rank = torch.cumsum(h, dim=1) - 1        # hit rank within its row
         yield a, b, h, cand.long(), qbase[a:b, None] + rank
+
+
+def fused_window_hits(points_sorted, q, cand_pos, valid, eps):
+    """(B, n) queries x (B, C) candidate positions into ``points_sorted`` ->
+    (B, C) bool hits, ``sum((q - p)^2) <= eps^2`` and valid: the compact
+    count route's refine for ``distance_impl="fused"``, by column gathers
+    lane by lane, with no (B, C, n) candidate tensor. Plain torch code, as
+    the JAX package's ``fused_window_hits`` is plain array code."""
+    idx = cand_pos.long()
+    d2 = metric_lib.lane_d2(q, lambda k: points_sorted[:, k][idx], q.shape[1])
+    return metric_lib.l2_sq_hits(d2, eps) & valid

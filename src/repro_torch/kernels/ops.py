@@ -7,6 +7,7 @@ The sanitized mode of the JAX package waits for ROADMAP item A13.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import cell_join as _cell_join
 from repro_torch.kernels import distance_tile as _distance_tile
 from repro_torch.kernels import fused_join as _fused_join
 
@@ -21,6 +22,12 @@ def distance_tile_counts(pts, eps, *, tq: int = 256, tc: int = 256):
     """Brute-force per-point neighbour counts (excluding self); see
     ``kernels.distance_tile.distance_tile_counts``."""
     return _distance_tile.distance_tile_counts(pts, eps, tq=tq, tc=tc)
+
+
+def cell_join_hits(q, cand, valid, eps):
+    """Grid-cell refine of the unfused sweep: (B, n) x (B, C, n) x (B, C)
+    -> (B, C) bool; see ``kernels.cell_join.cell_join_hits``."""
+    return _cell_join.cell_join_hits(q, cand, valid, eps)
 
 
 def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,

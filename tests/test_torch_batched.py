@@ -91,10 +91,3 @@ def test_batched_tiny_sets_clamp(jax_tables, npts, n_batches):
                                          merged=True)
     assert len(launches) == min(n_batches, npts)
 
-
-@pytest.mark.parametrize("impl", ["jnp", "pallas"])
-def test_batched_unported_impls_raise(impl):
-    pts, eps = WORKLOADS["uniform-2d"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        repro_torch.self_join_batched(pts[:100], eps, distance_impl=impl,
-                                      device="cpu")

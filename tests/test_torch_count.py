@@ -2,14 +2,13 @@
 
 The count's work counters must equal JAX's ``self_join_count(route="dense")``,
 including ``dma_windows_issued``, which both packages compute from the
-default 128-row tile. Options the port does not have yet must raise
-``NotImplementedError`` naming their ROADMAP item.
+default 128-row tile. Options the port does not have yet (the sparse count
+routes) must raise ``NotImplementedError`` naming their ROADMAP item.
 """
 import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import selfjoin as tsj
 from torch_workloads import WORKLOADS, jax_runner
 from torch_workloads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -41,7 +40,8 @@ def test_self_join_count_matches_jax(jax_results, workload, kw):
 
 
 @pytest.mark.parametrize("entry", ["self_join", "self_join_count",
-                                   "build_grid"])
+                                   "build_grid", "self_join_count_compact",
+                                   "per_point_neighbor_counts"])
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts, eps = WORKLOADS["uniform-2d"]
@@ -54,22 +54,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: repro_torch.self_join(p, 0.4, distance_impl="jnp",
-                                     device="cpu"), "A12"),
-    (lambda p: repro_torch.self_join(p, 0.4, distance_impl="pallas",
-                                     device="cpu"), "A12"),
     (lambda p: repro_torch.self_join_count(p, 0.9, metric="cosine",
                                            route="sparse", device="cpu"),
      "A11"),
-    (lambda p: repro_torch.self_join_count(p, 0.9, metric="cosine",
-                                           route="compact", device="cpu"),
-     "A11"),
     (lambda p: repro_torch.self_join_count(p, 0.4, route="sparse",
                                            device="cpu"), "A11"),
-    (lambda p: repro_torch.self_join_count(p, 0.4, route="compact",
-                                           device="cpu"), "A11"),
-    (lambda p: tsj.self_join_batched(p, 0.4, distance_impl="jnp",
-                                     device="cpu"), "A12"),
 ])
 def test_unported_options_raise(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -1,10 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on a card.
 
 The fused join (B1: the row loop, the cell-run loop, and the external-query
-mask in both; the Jaccard popcount refine, B1 (e), in all of them) and the
-brute-force tiles (B2 hits, B3 counts) must equal their plain versions bit
-for bit, and the entry points on the card (the joins, the external-query
-join and the services, for every metric) the same entry points on the CPU.
+mask in both; the Jaccard popcount refine, B1 (e), in all of them), the
+brute-force tiles (B2 hits, B3 counts) and the unfused sweep's refine (B4)
+must equal their plain versions bit for bit, and the entry points on the
+card (the joins, fused and unfused, the counts, the external-query join and
+the services, for every metric) the same entry points on the CPU.
 
 The kernels have no CPU mode, so these tests skip without a CUDA device. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -23,6 +24,7 @@ from repro_torch.core import grid as tgrid
 from repro_torch.core import metric as tmetric
 from repro_torch.core import query_join as tqj
 from repro_torch.core import selfjoin as tsj
+from repro_torch.kernels import cell_join as tcj
 from repro_torch.kernels import distance_tile as tdt
 from repro_torch.kernels import fused_join as tfj
 
@@ -174,6 +176,85 @@ def test_distance_tile_kernels_match_plain_version(cuda_device, dtype, n):
                                          method="kernel")
             b = tdt.distance_tile_counts(p, eps, method="reference")
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 8])
+@pytest.mark.parametrize("b,c", [(1, 8), (57, 24), (600, 40), (70000, 32)])
+def test_cell_join_kernel_matches_plain_version(cuda_device, dtype, n, b, c):
+    """B4 against its plain version, at eps where about half the slots
+    hit, with a random valid mask."""
+    rng = np.random.default_rng(b + c + n)
+    q = torch.as_tensor(rng.uniform(0, 10, (b, n))).to(cuda_device, dtype)
+    cand = torch.as_tensor(rng.uniform(0, 10, (b, c, n))).to(cuda_device,
+                                                             dtype)
+    valid = torch.as_tensor(rng.random((b, c)) < 0.7).to(cuda_device)
+    eps = 4.1 * np.sqrt(n)
+    before = tcj.KERNEL_LAUNCHES
+    got = tcj.cell_join_hits(q, cand, valid, eps)
+    assert tcj.KERNEL_LAUNCHES == before + 1
+    want = tcj.cell_join_hits(q, cand, valid, eps, method="reference")
+    assert torch.equal(got, want)
+    assert tcj.KERNEL_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cell_join_kernel_on_a_lattice(cuda_device, dtype):
+    """Integer data at eps = 2: many d^2 exactly on eps^2 = 4. The kernel
+    equals its plain version and an integer brute force; an empty batch
+    launches nothing."""
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 5, (3000, 3))
+    cand = rng.integers(0, 5, (3000, 16, 3))
+    valid = rng.random((3000, 16)) < 0.8
+    want = (((q[:, None, :] - cand) ** 2).sum(-1) <= 4) & valid
+    args = [torch.as_tensor(a).to(cuda_device) for a in (q, cand, valid)]
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+    got = tcj.cell_join_hits(*args, 2.0)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, tcj.cell_join_hits(*args, 2.0,
+                                               method="reference"))
+    before = tcj.KERNEL_LAUNCHES
+    empty = tcj.cell_join_hits(args[0][:0], args[1][:0], args[2][:0], 2.0)
+    assert empty.shape == (0, 16) and tcj.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+def test_unfused_paths_on_card_match_cpu(cuda_device, impl):
+    """The unfused join, batched join, counts (routes "jnp" and "compact"
+    too) and per-point counts on the card equal the CPU's; "pallas"
+    launches B4 once per offset and phase, "jnp" never."""
+    pts = np.random.default_rng(0).uniform(0, 100, (20000, 2))
+    eps = 0.4
+    n_off = 5                              # 2-D UNICOMP stencil
+    before = tcj.KERNEL_LAUNCHES
+    gpu = tsj.self_join(pts, eps, distance_impl=impl, sort_result=False,
+                        device=cuda_device)
+    assert tcj.KERNEL_LAUNCHES - before == (2 * n_off if impl == "pallas"
+                                            else 0)
+    cpu = tsj.self_join(pts, eps, distance_impl=impl, sort_result=False,
+                        device="cpu")
+    assert torch.equal(gpu.cpu(), cpu)
+    fused = tsj.self_join(pts, eps, device=cuda_device)
+    assert torch.equal(tsj.sort_pairs(gpu, len(pts)), fused)
+    got = tsj.self_join_batched(pts, eps, n_batches=3, distance_impl=impl,
+                                sort_result=False, device=cuda_device)
+    assert torch.equal(got, tsj.self_join_batched(
+        pts, eps, n_batches=3, distance_impl=impl, sort_result=False,
+        device="cpu"))
+    for kw in ({"distance_impl": impl}, {"route": "jnp"},
+               {"route": "compact"}):
+        assert (tsj.self_join_count(pts, eps, device=cuda_device, **kw)
+                == tsj.self_join_count(pts, eps, device="cpu", **kw))
+    assert (tsj.self_join_count_compact(pts, eps, distance_impl=impl,
+                                        device=cuda_device)
+            == tsj.self_join_count_compact(pts, eps, distance_impl=impl,
+                                           device="cpu"))
+    for merged in (True, False):
+        counts = tsj.per_point_neighbor_counts(pts, eps, merge_last_dim=merged,
+                                               device=cuda_device)
+        assert np.array_equal(counts, np.bincount(fused[:, 0].cpu().numpy(),
+                                                  minlength=len(pts)))
 
 
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
