@@ -125,6 +125,10 @@ BRUTE_WORKLOADS = ("uniform-2d", "expo-3d", "clustered-4d")
 # FMA as two), so half of 34e12.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "int32": 17e12}
+# the unit a row dtype's refine runs on: the half kernels compute in float32
+# (each operation rounded to the half dtype), outside the tensor cores
+OPS_DTYPE = {"float64": "float64", "float32": "float32",
+             "float16": "float32", "bfloat16": "float32"}
 # the f64 band of the expanded form (tests/test_torch_brute.py::_band)
 BAND_SCALE = 2.0 ** -50
 # the serve phase: index A is the main path's dataset; index B the expo
@@ -144,6 +148,46 @@ JACCARD_POINTS, JACCARD_VOCAB, JACCARD_T = 100_000, 1024, 0.8
 METRIC_REQUESTS = 4
 # rows of one plain-version call when a launch is held to it in slices
 PLAIN_ROWS = 2048
+# Half-precision points (ROADMAP C1): the main path's points cast to float16
+# (not bfloat16: eps 0.2 is below bfloat16's spacing above 32, 0.25, so the
+# points collapse onto lattice sites), the bench workloads at both half
+# dtypes through the fused join and through "pallas", cosine from half
+# embeddings, and brute force on uniform-2d at both. The totals are the
+# port's plain versions on the CPU (``python3 chip_smoke.py
+# --record-half-totals``). The JAX package on the CPU
+# (tests/torch_workloads.py::jax_half_totals) gives the same totals, except
+# the fused float16 ones, where XLA's jitted float16 code departs from
+# per-operation rounding (the band of repro_torch/core/metric.py's note):
+# there the port's total minus JAX's is +4, +2, -20, +8, +136, 0 and +138
+# on the seven workloads in order, +40 on the main path and +3,684 for
+# cosine.
+HALF_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+HALF_MAIN_TOTAL = 51_836_204
+HALF_TOTALS = {
+    "float16": {
+        "fused": {"uniform-2d": 500888, "clustered-2d": 834220,
+                  "expo-3d": 722598, "uniform-4d": 23932,
+                  "clustered-4d": 1057160, "uniform-6d": 3176,
+                  "clustered-6d": 532540},
+        "pallas": {"uniform-2d": 500888, "clustered-2d": 834220,
+                   "expo-3d": 722638, "uniform-4d": 23926,
+                   "clustered-4d": 1056892, "uniform-6d": 3178,
+                   "clustered-6d": 532390}},
+    "bfloat16": {
+        "fused": {"uniform-2d": 438664, "clustered-2d": 730828,
+                  "expo-3d": 728540, "uniform-4d": 24138,
+                  "clustered-4d": 1054956, "uniform-6d": 3204,
+                  "clustered-6d": 533704},
+        "pallas": {"uniform-2d": 438662, "clustered-2d": 730826,
+                   "expo-3d": 728454, "uniform-4d": 24092,
+                   "clustered-4d": 1054044, "uniform-6d": 3186,
+                   "clustered-6d": 532002}},
+}
+HALF_COSINE_TOTALS = {"float16": 19_021_066, "bfloat16": 19_018_304}
+HALF_BRUTE_WORKLOAD = "uniform-2d"
+# unit roundoff of the half dtypes: rule P's d^2 lies within (n + 3) u d^2
+# of the exact one, the band where it and B3's float32 form may disagree
+HALF_UNIT = {torch.float16: 2.0 ** -11, torch.bfloat16: 2.0 ** -8}
 
 
 class SmokeFailure(RuntimeError):
@@ -357,7 +401,7 @@ def kernel_bound(prepared):
         jaccard = p["kw"].get("metric", "l2") == "jaccard"
         item = points_pad.element_size()
         dtype = ("int32" if jaccard
-                 else str(points_pad.dtype).replace("torch.", ""))
+                 else OPS_DTYPE[str(points_pad.dtype).replace("torch.", "")])
         used_lanes = n_real + n_feat + (1 if merged else 0)
         # distinct candidate rows over all windows of the launch
         rows = points_pad.shape[0]
@@ -597,7 +641,8 @@ def check_pairs(pairs, pts_gpu, eps: float, n: int):
     from repro_torch.core.selfjoin import sort_pairs
     check(torch.equal(sort_pairs(pairs.flip(1), n), pairs),
           "pair set is not symmetric")
-    eps2 = torch.tensor(eps, dtype=pts_gpu.dtype, device=pts_gpu.device)
+    from repro_torch.core import metric
+    eps2 = metric.scalar_as(eps, pts_gpu.dtype, pts_gpu.device)
     eps2 = eps2 * eps2
     gen = torch.Generator(device="cpu").manual_seed(0)
     sample = torch.randperm(n, generator=gen)[:SAMPLED_QUERIES].to(
@@ -2078,7 +2123,526 @@ def phase_metrics():
                 external_launches=services["jaccard"]["launches"])
 
 
+# --- half-precision points --------------------------------------------------
+
+def as_half(pts, dtype):
+    """``pts`` (float64 numpy) as a CPU tensor of the half ``dtype``: float16
+    as numpy casts it (one rounding), bfloat16 as torch and ml_dtypes cast
+    it (through float32)."""
+    if dtype == torch.float16:
+        return torch.from_numpy(np.asarray(pts).astype(np.float16))
+    return torch.from_numpy(np.asarray(pts)).to(dtype)
+
+
+def merged_lane_ok(index) -> bool:
+    """Whether the merged sweep's lane holds ``index``'s last-dimension cell
+    coordinates exactly (``grid.check_merged_lane`` refuses it otherwise)."""
+    from repro_torch.core import grid
+    limit = grid.MERGED_LANE_LIMIT.get(index.points_sorted.dtype)
+    return limit is None or int(grid.host_dims(index)[-1]) - 1 <= limit
+
+
+def half_band_points(pts_gpu, ids, eps: float) -> int:
+    """How many of the points ``ids`` have a neighbour whose exact d^2 lies
+    within the half dtype's band of eps^2 (rounded to the dtype, squared
+    there): (n + 3) u eps^2 for rule P's roundings, plus B3's float32
+    expanded form's (|q|^2 + |p|^2) 2^-22."""
+    from repro_torch.core import metric
+    e = float(metric.scalar_as(eps, pts_gpu.dtype))
+    e2 = float(metric.scalar_as(e * e, pts_gpu.dtype))
+    u = HALF_UNIT[pts_gpu.dtype]
+    x = pts_gpu.double()
+    n = x.shape[1]
+    sq = (x * x).sum(dim=1)
+    found = 0
+    for chunk in range(0, ids.shape[0], 64):
+        q = ids[chunk:chunk + 64]
+        d2 = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float64,
+                         device=x.device)
+        for k in range(n):
+            t = x[q, k][:, None] - x[:, k][None, :]
+            d2 = d2 + t * t
+        band = (n + 3) * u * e2 + (sq[q][:, None] + sq[None, :]) * 2.0 ** -22
+        near = (d2 - e2).abs() <= band
+        near[torch.arange(q.shape[0], device=q.device), q] = False
+        found += int(near.any(dim=1).sum())
+    return found
+
+
+def half_oracle_counts(pts_gpu, pairs_first, eps: float, where: str):
+    """B3's per-point counts (rule U) against a join's (rule P) on half
+    rows: the points where they differ, all of which must have a neighbour
+    in ``half_band_points``'s band. Returns (differing points, counts)."""
+    from repro_torch.kernels import distance_tile as dt
+    counts = dt.distance_tile_counts(pts_gpu, eps)
+    joined = torch.bincount(pairs_first.long(), minlength=pts_gpu.shape[0])
+    differ = torch.nonzero(counts.long() != joined).flatten()
+    if differ.numel():
+        explained = half_band_points(pts_gpu, differ, eps)
+        check(explained == differ.numel(),
+              f"{where}: {differ.numel() - explained} points differ between "
+              f"B3's counts and the join's with no neighbour in the band")
+    return int(differ.numel()), counts
+
+
+def direct_counts(q, pts_gpu, eps: float):
+    """(Q,) int32 neighbour counts of query rows ``q`` by rule P on the card
+    (one rounding per subtract, square and add, in lane order, at the rows'
+    dtype): what B1 (b) computes, slot for slot."""
+    from repro_torch.core import metric
+    scal = metric.device_refine_scalar("l2", eps, pts_gpu.dtype, DEVICE)
+    out = []
+    for a in range(0, q.shape[0], 64):
+        d2 = metric.lane_d2(q[a:a + 64], lambda k: pts_gpu[:, k][None, :],
+                            q.shape[1])
+        out.append((d2 <= scal).sum(dim=1, dtype=torch.int32))
+    return torch.cat(out)
+
+
+def sliced_launches_vs_plain(prepared, run_loop: bool) -> tuple[int, int]:
+    """B1 against its plain version on every launch of ``prepared``, the
+    plain one in PLAIN_ROWS slices. Returns (max |kernel - plain|, rows)."""
+    worst = rows = 0
+    for p in prepared:
+        w, r = sliced_vs_plain(
+            p["args"], dict(keep_hits=True, **p["kw"]),
+            run_ord=p["plan"].run_ord if run_loop else None)
+        worst, rows = max(worst, w), rows + r
+    return worst, rows
+
+
+def half_main_path() -> dict:
+    """The main path's 2,000,000 points at float16 through the fused join:
+    B1 counted on the run, the total against HALF_MAIN_TOTAL, sampled
+    neighbour lists against a direct evaluation, B1's float16 instances
+    against their plain version on every launch, times, bound and peak."""
+    import repro_torch
+    from repro_torch.core import selfjoin as sj
+    pts = as_half(syn(MAIN_POINTS, MAIN_DIMS), torch.float16)
+    eps = MAIN_EPS
+    index = repro_torch.build_grid(pts, eps, device=DEVICE)
+    merged = sj._resolve_merge(index, None)
+    run_loop = sj._join_run_loop(index)
+    expected = len(sj._fused_launches(index, merged=merged)[0])
+
+    def join():
+        return repro_torch.self_join(pts, eps, device=DEVICE)
+
+    join()                                                  # warm-up
+    launches = counted_join(join, expected, run_loop, False)
+    e2e, runs, peak, pairs = timed_join(join)
+    total = int(pairs.shape[0])
+    check(total == HALF_MAIN_TOTAL, f"float16 main path: {total} pairs, "
+          f"recorded {HALF_MAIN_TOTAL}")
+    stats = repro_torch.self_join_count(pts, eps, device=DEVICE)
+    check(stats.total_pairs == total, f"float16 main path: count "
+          f"{stats.total_pairs} != emitted {total}")
+    pts_gpu = pts.to(DEVICE)
+    check_pairs(pairs, pts_gpu, eps, MAIN_POINTS)
+    del pairs
+    prepared = prepared_launches(index, merged=merged, unicomp=True,
+                                 run_loop=run_loop)
+    worst, rows = sliced_launches_vs_plain(prepared, run_loop)
+    check(worst == 0, f"float16 main path: B1 differs from its plain "
+          f"version by {worst}")
+    variants = (("run", "kernel", run_loop), ("plain", "reference", False))
+    rounds = [{key: timed_launches(prepared, method, loop)
+               for key, method, loop in variants} for _ in range(3)]
+    timed = {key: statistics.median(r[key] for r in rounds)
+             for key, _, _ in variants}
+    bound_ms, bound_by, nbytes, flops = kernel_bound(prepared)
+    # B4 at float16 on the main path's unfused launches (one per offset)
+    b4 = half_b4(unfused_launches(index), index.eps)
+    return dict(points=MAIN_POINTS, dims=MAIN_DIMS, eps=eps, dtype="float16",
+                total_pairs=total, run_loop=run_loop, merged=merged,
+                launches=launches, e2e_s=e2e, e2e_runs_s=runs,
+                peak_mem_bytes=peak, sampled_queries_checked=SAMPLED_QUERIES,
+                b1_rows_vs_plain=rows, b1_max_abs_err=worst,
+                b1_ms=timed["run"], b1_plain_ms=timed["plain"],
+                b1_timed_rounds_ms=rounds, b1_bound_ms=bound_ms,
+                b1_bound_by=bound_by, b1_bound_bytes=nbytes,
+                b1_bound_flops=flops, b4=b4)
+
+
+def b4_index_vs_plain(index) -> int:
+    """Max |kernel - plain| of B4 on every launch of the unfused count over
+    ``index`` (UNICOMP), one offset's inputs at a time."""
+    from repro_torch.core import selfjoin as sj
+    deltas, _ = sj._offset_tables(index, True)
+    cap = sj._unfused_cap(index)
+    worst = 0
+    for o in range(deltas.shape[0]):
+        q, cand, _, valid, _, _ = sj._gather_batch(
+            index, sj._neighbor_ranks_for_delta(index, deltas[o]), 0,
+            index.num_points, cap)
+        worst = max(worst, b4_vs_plain([(q, cand, valid)], index.eps))
+    return worst
+
+
+def half_b4(launches, eps) -> dict:
+    """B4 at a half dtype on ``launches``: against its plain version on
+    every launch, its time per launch, its plain version's and its bound."""
+    worst = b4_vs_plain(launches, eps)
+    check(worst == 0, f"B4 at {launches[0][0].dtype} differs from its plain "
+          f"version by {worst}")
+    ms = statistics.median(b4_ms(launches, eps, "kernel") for _ in range(3))
+    plain_ms = b4_ms(launches, eps, "reference", reps=1)
+    nbytes, flops = b4_work(launches)
+    b, c, n = launches[0][1].shape
+    bound_ms, bound_by = bound(nbytes // len(launches), flops // len(launches),
+                               "float32")
+    return dict(launches_compared=len(launches), max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                shape=[b, c, n])
+
+
+def half_bench(workloads) -> dict:
+    """The seven bench workloads at float16 and bfloat16: the fused count
+    and join against HALF_TOTALS (per cell at bfloat16 where the merged
+    lane would not hold the cell coordinates), B1 against its plain
+    version on every launch of the join, the "pallas" count (B4) against
+    HALF_TOTALS with B4 against its plain version on every launch; B1's
+    and B4's launches counted per dtype around the joins and counts."""
+    import repro_torch
+    from repro_torch.kernels import cell_join as cj
+    from repro_torch.kernels import fused_join as fj
+    out = {}
+    for dname, dtype in HALF_DTYPES.items():
+        rows = {}
+        b1 = b4 = worst = 0
+        for name, (raw, eps) in workloads.items():
+            pts = as_half(raw, dtype)
+            index = repro_torch.build_grid(pts, eps, device=DEVICE)
+            merge = merged_lane_ok(index)
+            fj.KERNEL_LAUNCHES = 0
+            stats = repro_torch.self_join_count(pts, eps, index=index,
+                                                merge_last_dim=merge,
+                                                device=DEVICE)
+            pairs = repro_torch.self_join(pts, eps, index=index,
+                                          merge_last_dim=merge, device=DEVICE)
+            sync()
+            b1 += fj.KERNEL_LAUNCHES
+            want = HALF_TOTALS[dname]["fused"][name]
+            check(stats.total_pairs == pairs.shape[0] == want,
+                  f"{name} {dname}: fused count {stats.total_pairs} / join "
+                  f"{pairs.shape[0]} != recorded {want}")
+            err = compare_kernel_and_plain(prepared_launches(
+                index, merged=merge, unicomp=True), keep_hits=True)
+            check(err == 0, f"{name} {dname}: B1 differs from its plain "
+                  f"version by {err}")
+            cj.KERNEL_LAUNCHES = 0
+            pal = repro_torch.self_join_count(pts, eps, index=index,
+                                              distance_impl="pallas",
+                                              device=DEVICE)
+            sync()
+            b4 += cj.KERNEL_LAUNCHES
+            want = HALF_TOTALS[dname]["pallas"][name]
+            check(pal.total_pairs == want, f"{name} {dname}: pallas count "
+                  f"{pal.total_pairs} != recorded {want}")
+            err4 = b4_index_vs_plain(index)
+            check(err4 == 0, f"{name} {dname}: B4 differs from its plain "
+                  f"version by {err4}")
+            worst = max(worst, err, err4)
+            rows[name] = dict(fused=stats.total_pairs, pallas=pal.total_pairs,
+                              merged=merge)
+        check(b1 > 0 and b4 > 0, f"{dname}: the bench joins launched B1 "
+              f"{b1} and B4 {b4} times")
+        out[dname] = dict(totals=rows, b1_launches=b1, b4_launches=b4,
+                          max_abs_err=worst)
+    # B1 and B4 at bfloat16 timed on uniform-2d's launches
+    raw, eps = workloads["uniform-2d"]
+    index = repro_torch.build_grid(as_half(raw, torch.bfloat16), eps,
+                                   device=DEVICE)
+    prepared = prepared_launches(index, merged=merged_lane_ok(index),
+                                 unicomp=True)
+    b1_ms = statistics.median(timed_launches(prepared, "kernel")
+                              for _ in range(3))
+    b1_plain = timed_launches(prepared, "reference", reps=1)
+    b1_bound = kernel_bound(prepared)
+    out["bfloat16"].update(
+        b1_ms=b1_ms, b1_plain_ms=b1_plain, b1_bound_ms=b1_bound[0],
+        b1_bound_by=b1_bound[1], b1_timed_on="uniform-2d",
+        b4=half_b4(unfused_launches(index), index.eps))
+    return out
+
+
+def half_cosine() -> dict:
+    """COSINE_POINTS embeddings from float16 and from bfloat16 input: the
+    join's total against HALF_COSINE_TOTALS, B3 at the unit rows' dtype
+    (float16; bfloat16 input gives float64 unit rows, as in the JAX
+    package) against the join's per-point counts, and a JoinService
+    answering METRIC_REQUESTS requests of SERVE_BATCH queries, each count
+    against a direct evaluation (B1 (b) at float16)."""
+    import repro_torch
+    from repro_torch.core import metric
+    from repro_torch.kernels import distance_tile as dt
+    from repro_torch.kernels import fused_join as fj
+    from repro_torch.launch import serve
+    emb = cosine_data(COSINE_POINTS)
+    rng = np.random.default_rng(41)
+    out = {}
+    for dname, dtype in HALF_DTYPES.items():
+        x = as_half(emb, dtype)
+        canon = metric.canonicalize(x, COSINE_T, metric="cosine")
+
+        def join():
+            return repro_torch.self_join(x, COSINE_T, metric="cosine",
+                                         device=DEVICE)
+
+        join()                                              # warm-up
+        fj.KERNEL_LAUNCHES = 0
+        e2e, runs, peak, pairs = timed_join(join)
+        launches = fj.KERNEL_LAUNCHES // len(runs)
+        check(launches > 0, f"cosine {dname}: the join launched no B1")
+        total = int(pairs.shape[0])
+        check(total == HALF_COSINE_TOTALS[dname], f"cosine {dname}: {total} "
+              f"pairs, recorded {HALF_COSINE_TOTALS[dname]}")
+        unit = torch.as_tensor(canon.geom).to(DEVICE)
+        dt.COUNTS_LAUNCHES = 0
+        if unit.dtype in HALF_UNIT:
+            n_differ, _ = half_oracle_counts(unit, pairs[:, 0],
+                                             canon.eps_geom, f"cosine {dname}")
+        else:
+            n_differ, _ = oracle_counts(unit, pairs[:, 0], canon.eps_geom,
+                                        f"cosine {dname}")
+        sync()
+        b3 = dt.COUNTS_LAUNCHES
+        del pairs
+        svc = serve.JoinService(x, COSINE_T, metric="cosine",
+                                return_pairs=True, device=DEVICE)
+        requests = []
+        for _ in range(METRIC_REQUESTS):
+            near = emb[rng.integers(0, COSINE_POINTS, SERVE_BATCH // 2)]
+            near = near * rng.uniform(0.5, 3.0, (SERVE_BATCH // 2, 1)) + \
+                rng.normal(0, 0.005, near.shape)
+            q = np.concatenate([near, rng.normal(
+                size=(SERVE_BATCH - SERVE_BATCH // 2, COSINE_DIMS))])
+            requests.append(as_half(q, dtype))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # warmup() marks steady
+            svc.warmup(SERVE_BATCH)
+        sync()
+        fj.EXTERNAL_LAUNCHES = 0
+        results = [svc.query(q) for q in requests]
+        external = fj.EXTERNAL_LAUNCHES
+        check(external > 0, f"cosine {dname} service launched no B1 (b)")
+        for q, res in zip(requests, results):
+            qu = torch.as_tensor(
+                metric.canonicalize_queries(canon, q)[0]).to(DEVICE)
+            want = direct_counts(qu, unit, canon.eps_geom).cpu().numpy()
+            check(np.array_equal(want, res.counts), f"cosine {dname} "
+                  f"service: counts differ from the direct evaluation")
+            check(np.array_equal(np.bincount(res.pairs[:, 0],
+                                             minlength=len(q)), res.counts),
+                  f"cosine {dname} service: pairs and counts disagree")
+        ext_err = compare_external(external_launches(
+            svc.prepared, requests[0]))
+        check(ext_err == 0, f"cosine {dname}: B1 (b) differs from its plain "
+              f"version by {ext_err}")
+        p50, p99 = svc.percentiles()
+        out[dname] = dict(unit_dtype=str(unit.dtype).replace("torch.", ""),
+                          total_pairs=total, join_s=e2e, join_runs_s=runs,
+                          join_peak_bytes=peak, b1_launches=launches,
+                          b3_launches=b3, oracle_differing_points=n_differ,
+                          requests=METRIC_REQUESTS,
+                          request_queries=SERVE_BATCH,
+                          external_launches=external,
+                          external_max_abs_err=ext_err,
+                          p50_ms=p50, p99_ms=p99)
+        del svc, unit
+    return out
+
+
+def half_brute(workloads) -> dict:
+    """Kernel B2-bf16: brute force on HALF_BRUTE_WORKLOAD at bfloat16 and
+    float16. B2 and B3 against their plain versions, bit for bit, on every
+    launch of the sweep; B3's per-point counts against B2's row sums; the
+    brute path (brute_force_count, "pallas") counted; each kernel timed by
+    CUDA events over back-to-back passes beside its plain version and its
+    bound at 2 bytes an element."""
+    import repro_torch
+    from repro_torch.kernels import distance_tile as dt
+    raw, eps = workloads[HALF_BRUTE_WORKLOAD]
+    out = {}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float16", torch.float16)):
+        p = as_half(raw, dtype).to(DEVICE)
+        npts, n = p.shape
+        row_sums = torch.empty(npts, dtype=torch.int32, device=DEVICE)
+        ids = torch.arange(npts, device=DEVICE)
+        for r0 in range(0, npts, 256):
+            a = dt.distance_tile_hits(p[r0:r0 + 256], p, eps, method="kernel")
+            b = dt.distance_tile_hits(p[r0:r0 + 256], p, eps,
+                                      method="reference")
+            check(torch.equal(a, b), f"{dname}: B2 differs from its plain "
+                  f"version on rows {r0}..")
+            a[torch.arange(a.shape[0], device=DEVICE), ids[r0:r0 + 256]] = \
+                False
+            row_sums[r0:r0 + 256] = a.sum(dim=1, dtype=torch.int32)
+        dt.COUNTS_LAUNCHES = 0
+        counts = dt.distance_tile_counts(p, eps, method="kernel")
+        sync()
+        b3_launches = dt.COUNTS_LAUNCHES
+        check(torch.equal(counts, dt.distance_tile_counts(
+            p, eps, method="reference")), f"{dname}: B3 differs from its "
+            f"plain version")
+        check(torch.equal(counts, row_sums), f"{dname}: B3's counts differ "
+              f"from B2's row sums")
+        dt.HITS_LAUNCHES = 0
+        total = repro_torch.brute_force_count(p, eps, distance_impl="pallas",
+                                              device=DEVICE)
+        b2_launches = dt.HITS_LAUNCHES
+        check(b2_launches == -(-npts // 256), f"{dname}: the brute path "
+              f"launched B2 {b2_launches} times")
+        check(total == int(counts.sum(dtype=torch.int64)), f"{dname}: "
+              f"brute_force_count {total} != B3's total")
+
+        def sweep(method):
+            for r0 in range(0, npts, 256):
+                dt.distance_tile_hits(p[r0:r0 + 256], p, eps, method=method)
+
+        timed = {}
+        for key, fn in (("b2", lambda: sweep("kernel")),
+                        ("b2_plain", lambda: sweep("reference")),
+                        ("b3", lambda: dt.distance_tile_counts(
+                            p, eps, method="kernel")),
+                        ("b3_plain", lambda: dt.distance_tile_counts(
+                            p, eps, method="reference"))):
+            fn()                                          # warm-up
+            timed[key] = statistics.median(event_ms(fn) for _ in range(3))
+        b2_bytes = b2_flops = 0
+        for r0 in range(0, npts, 256):
+            nb, nf = hits_tile_work(min(256, npts - r0), npts, n, 2)
+            b2_bytes += nb
+            b2_flops += nf
+        b2_bound = bound(b2_bytes, b2_flops, "float32")
+        b3_bound = bound(*counts_tile_work(npts, n, 2), "float32")
+        out[dname] = dict(points=npts, eps=eps, total_pairs=total,
+                          b2_launches=b2_launches, b3_launches=b3_launches,
+                          b2_ms=timed["b2"], b2_plain_ms=timed["b2_plain"],
+                          b2_bound_ms=b2_bound[0], b2_bound_by=b2_bound[1],
+                          b3_ms=timed["b3"], b3_plain_ms=timed["b3_plain"],
+                          b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
+                          b3_equals_b2_row_sums=True)
+        del p
+    return out
+
+
+def phase_half(workloads) -> dict:
+    t0 = time.perf_counter()
+    main = half_main_path()
+    emit("half", part="main_path", **main)
+    bench = half_bench(workloads)
+    emit("half", part="bench", **bench)
+    cosine = half_cosine()
+    emit("half", part="cosine", **cosine)
+    brute = half_brute(workloads)
+    emit("half", part="brute", **brute, phase_s=time.perf_counter() - t0)
+    return dict(main=main, bench=bench, cosine=cosine, brute=brute)
+
+
+def half_kernels(half) -> list:
+    """The kernels line's entries of the half instances."""
+    csrc = "src/repro_torch/kernels/csrc"
+    main, bench, brute = half["main"], half["bench"], half["brute"]
+    bf = bench["bfloat16"]
+    out = [{
+        "name": "fused_join_float16", "route": "cuda",
+        "source": f"{csrc}/fused_join.cu",
+        "replaces": "src/repro/kernels/fused_join.py:215",
+        "launches": main["launches"],
+        "launches_by_variant": {
+            "bench": bench["float16"]["b1_launches"],
+            "cosine_external": half["cosine"]["float16"]["external_launches"]},
+        "max_abs_err": max(main["b1_max_abs_err"],
+                           bench["float16"]["max_abs_err"],
+                           half["cosine"]["float16"]["external_max_abs_err"]),
+        "ms": main["b1_ms"], "plain_ms": main["b1_plain_ms"],
+        "bound_ms": main["b1_bound_ms"], "bound_by": main["b1_bound_by"],
+        "library_ms": None, "matched_plain": True,
+        "timed_on": "the float16 main path's launches",
+    }, {
+        "name": "fused_join_bfloat16", "route": "cuda",
+        "source": f"{csrc}/fused_join.cu",
+        "replaces": "src/repro/kernels/fused_join.py:215",
+        "launches": bf["b1_launches"], "max_abs_err": bf["max_abs_err"],
+        "ms": bf["b1_ms"], "plain_ms": bf["b1_plain_ms"],
+        "bound_ms": bf["b1_bound_ms"], "bound_by": bf["b1_bound_by"],
+        "library_ms": None, "matched_plain": True,
+        "timed_on": "uniform-2d at bfloat16",
+    }]
+    for dname, b4, launches in (
+            ("float16", main["b4"], bench["float16"]["b4_launches"]),
+            ("bfloat16", bf["b4"], bf["b4_launches"])):
+        out.append({
+            "name": f"cell_join_hits_{dname}", "route": "cuda",
+            "source": f"{csrc}/cell_join.cu",
+            "replaces": "src/repro/kernels/cell_join.py:32",
+            "launches": launches, "max_abs_err": b4["max_abs_err"],
+            "ms": b4["ms"], "plain_ms": b4["plain_ms"],
+            "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+            "library_ms": None, "matched_plain": True,
+            "timed_on": f"{b4['shape']} per launch"})
+    for dname in ("bfloat16", "float16"):
+        b = brute[dname]
+        out.append({
+            "name": f"distance_tile_hits_{dname}", "route": "cuda",
+            "source": f"{csrc}/distance_tile.cu",
+            "replaces": "src/repro/kernels/distance_tile.py:45",
+            "launches": b["b2_launches"], "max_abs_err": 0,
+            "ms": b["b2_ms"], "plain_ms": b["b2_plain_ms"],
+            "bound_ms": b["b2_bound_ms"], "bound_by": b["b2_bound_by"],
+            "library_ms": None, "matched_plain": True,
+            "timed_on": f"{HALF_BRUTE_WORKLOAD} brute sweep at {dname}"})
+        out.append({
+            "name": f"distance_tile_counts_{dname}", "route": "cuda",
+            "source": f"{csrc}/distance_tile.cu",
+            "replaces": "src/repro/kernels/distance_tile.py:62",
+            "launches": b["b3_launches"]
+            + half["cosine"][dname]["b3_launches"] * (dname == "float16"),
+            "max_abs_err": 0, "ms": b["b3_ms"], "plain_ms": b["b3_plain_ms"],
+            "bound_ms": b["b3_bound_ms"], "bound_by": b["b3_bound_by"],
+            "library_ms": None, "matched_plain": True,
+            "timed_on": f"{HALF_BRUTE_WORKLOAD} at {dname}"})
+    return out
+
+
+def record_half_totals() -> dict:
+    """HALF_MAIN_TOTAL, HALF_TOTALS and HALF_COSINE_TOTALS from the port's
+    plain versions on the CPU (``--record-half-totals``): the fused count
+    (per cell at bfloat16 where the merged lane would not hold the cell
+    coordinates) and the "pallas" count of every bench workload at both
+    half dtypes, the float16 main path, and the cosine join of
+    COSINE_POINTS half embeddings."""
+    import repro_torch
+    cpu = torch.device("cpu")
+    main = repro_torch.self_join_count(
+        as_half(syn(MAIN_POINTS, MAIN_DIMS), torch.float16), MAIN_EPS,
+        device=cpu).total_pairs
+    totals = {}
+    for dname, dtype in HALF_DTYPES.items():
+        totals[dname] = {"fused": {}, "pallas": {}}
+        for name, (raw, eps) in bench_workloads().items():
+            pts = as_half(raw, dtype)
+            index = repro_torch.build_grid(pts, eps, device=cpu)
+            totals[dname]["fused"][name] = repro_torch.self_join_count(
+                pts, eps, index=index, merge_last_dim=merged_lane_ok(index),
+                device=cpu).total_pairs
+            totals[dname]["pallas"][name] = repro_torch.self_join_count(
+                pts, eps, index=index, distance_impl="pallas",
+                device=cpu).total_pairs
+    emb = cosine_data(COSINE_POINTS)
+    cosine = {dname: repro_torch.self_join_count(
+        as_half(emb, dtype), COSINE_T, metric="cosine",
+        device=cpu).total_pairs for dname, dtype in HALF_DTYPES.items()}
+    return dict(HALF_MAIN_TOTAL=main, HALF_TOTALS=totals,
+                HALF_COSINE_TOTALS=cosine)
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--record-half-totals"]:
+        print(json.dumps(record_half_totals()), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2097,6 +2661,7 @@ def main() -> int:
     phase_profile()
     served = phase_serve()
     metrics = phase_metrics()
+    half = phase_half(workloads)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -2161,7 +2726,7 @@ def main() -> int:
         "library_ms": None, "matched_plain": True,
         "timed_on": "one launch of the main path's unfused join, "
                     "2,000,000 x 32 x 2 f64",
-    }]
+    }] + half_kernels(half)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,10 @@ from repro_torch.core.selfjoin import sort_pairs
 
 
 def _block_hits_jnp(q, pts, eps):
-    """(T, n) x (N, n) -> (T, N) bool: ``sum((q - p)^2) <= eps^2``."""
-    d2 = ((q[:, None, :] - pts[None, :, :]) ** 2).sum(dim=-1)
+    """(T, n) x (N, n) -> (T, N) bool: ``sum((q - p)^2) <= eps^2``, summed
+    lane by lane as the JAX package's ``jnp.sum`` sums it
+    (``metric.lane_d2_sum``: in float32 at the half dtypes)."""
+    d2 = metric_lib.lane_d2_sum(q, lambda k: pts[None, :, k], q.shape[1])
     return metric_lib.l2_sq_hits(d2, eps)
 
 
@@ -43,7 +45,7 @@ def _points_and_eps(points, eps, device):
     pts = torch.as_tensor(points).to(dev)
     if pts.ndim != 2:
         raise ValueError(f"points must be (N, n), got {tuple(pts.shape)}")
-    return pts, torch.as_tensor(eps, dtype=pts.dtype, device=dev)
+    return pts, metric_lib.scalar_as(eps, pts.dtype, dev)
 
 
 def _tile_hits(pts, eps, t: int, tile: int, hits_fn):

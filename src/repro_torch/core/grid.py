@@ -32,6 +32,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.metric import FLOAT_DTYPES, scalar_as
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 
 _TORCH_DTYPES = {
@@ -145,8 +146,13 @@ def index_from_arrays(fields: Mapping[str, np.ndarray], *,
 
 
 def index_to_numpy(index: GridIndex) -> dict:
-    """The inverse of ``index_from_arrays``: every field as a numpy array."""
-    return {f: getattr(index, f).cpu().numpy() for f in FIELDS}
+    """The inverse of ``index_from_arrays``: every field as a numpy array
+    (bfloat16 fields as exact float32 copies: numpy has no bfloat16)."""
+    out = {}
+    for f in FIELDS:
+        t = getattr(index, f).cpu()
+        out[f] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out
 
 
 def cell_coords(points: torch.Tensor, grid_min: torch.Tensor,
@@ -177,12 +183,67 @@ def row_major_strides(dims) -> np.ndarray:
 def host_grid_geometry(points: np.ndarray,
                        eps) -> tuple[np.ndarray, np.ndarray]:
     """Exact numpy grid geometry (paper SIV-B), the same IEEE operations
-    as the JAX package's ``host_grid_geometry``."""
+    as the JAX package's ``host_grid_geometry``. float16 points compute in
+    numpy's float16, as the reference's do; there ``(gmax - gmin) / eps``
+    can pass float16's largest value (65,504) on a wide extent with a small
+    eps, and the build refuses what the reference would turn into a
+    garbage cell count."""
     points = np.asarray(points)
     gmin = points.min(axis=0) - eps
     gmax = points.max(axis=0) + eps
-    dims = (np.ceil((gmax - gmin) / eps)).astype(np.int64) + 1
+    cells = np.ceil((gmax - gmin) / eps)
+    if (points.dtype == np.float16 and np.isfinite(points).all()
+            and not np.isfinite(cells).all()):
+        raise ValueError(
+            f"float16 grid geometry overflows: (max - min + 2 eps) / eps "
+            f"passes 65,504 cells at eps {eps} over extents "
+            f"{(points.max(axis=0) - points.min(axis=0)).tolist()} "
+            f"(ROADMAP §C, C1); join these points at float32")
+    dims = cells.astype(np.int64) + 1
     return gmin, dims
+
+
+def host_points(x, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (an array, a sequence or a tensor) as a CPU tensor of
+    ``dtype``, cast as numpy casts it: float64 to float16 in one rounding
+    (``metric.scalar_as``), every other cast as torch makes it."""
+    t = (x.detach().cpu() if isinstance(x, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(np.asarray(x))))
+    if dtype == torch.float16 and t.dtype == torch.float64:
+        return torch.from_numpy(t.numpy().astype(np.float16))
+    return t.to(dtype)
+
+
+def geometry_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a grid's geometry (``grid_min`` and the cell division)
+    over points of ``dtype``: bfloat16 geometry is float32, as ml_dtypes
+    promotes bfloat16 against the JAX package's Python-float eps; every
+    other float computes in its own dtype."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+# The largest cell coordinate the merged sweep's lane holds exactly, by
+# points' dtype. float16 cell coordinates are floors of float16 quotients,
+# so always float16 integers; bfloat16 ones come from float32 geometry and
+# are exact only up to 256.
+MERGED_LANE_LIMIT = {torch.bfloat16: 256}
+
+
+def check_merged_lane(index: "GridIndex") -> None:
+    """Refuse a merged sweep whose last-dimension cell coordinates the
+    points' dtype cannot hold exactly. The JAX package rounds them into its
+    bfloat16 merged lane and its boundary mask then drops true pairs
+    (``tests/test_torch_half.py``'s 400-cell-deep set: 170,804 pairs
+    merged against 198,032 per cell); the port refuses instead (ROADMAP
+    §C, C1)."""
+    limit = MERGED_LANE_LIMIT.get(index.points_sorted.dtype)
+    if limit is not None and int(host_dims(index)[-1]) - 1 > limit:
+        raise ValueError(
+            f"the merged sweep's lane holds {index.points_sorted.dtype} "
+            f"cell coordinates exactly only up to {limit}, and this grid's "
+            f"last dimension has {int(host_dims(index)[-1])} cells "
+            f"(ROADMAP §C, C1); pass merge_last_dim=False for the per-cell "
+            f"sweep")
 
 
 def host_dims(index: GridIndex) -> np.ndarray:
@@ -194,21 +255,29 @@ def build_grid(points, eps: float, *, device=None) -> GridIndex:
     """Epsilon-grid build: host geometry, construction on ``device``
     (CUDA by default; ``device="cpu"`` runs it on the CPU).
 
-    ``points`` is an (N, n) float32/float64 numpy array or tensor. The
-    geometry needs only the per-dimension min and max, which are exact on
-    any device; they are brought to the host and the numpy arithmetic of
-    ``host_grid_geometry`` fixes ``grid_min``, ``dims`` and the key dtype.
+    ``points`` is an (N, n) float64, float32 or float16 numpy array or
+    tensor, or a bfloat16 tensor. The geometry needs only the per-dimension
+    min and max, which are exact on any device; they are brought to the
+    host and the numpy arithmetic of ``host_grid_geometry`` fixes
+    ``grid_min``, ``dims`` and the key dtype, in ``geometry_dtype``.
+    Integer points raise ``TypeError``: the JAX package casts eps to their
+    dtype and joins at a truncated radius (ROADMAP §C, C2).
     """
     if not isinstance(points, torch.Tensor):
         points = torch.from_numpy(np.ascontiguousarray(points))
     pts = points.to(resolve_device(device))
-    if pts.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"points must be float32 or float64, got {pts.dtype}")
+    if pts.dtype not in FLOAT_DTYPES:
+        raise TypeError(
+            f"points must be float64, float32, float16 or bfloat16, got "
+            f"{pts.dtype}; the JAX package casts eps to integer points' "
+            f"dtype and joins at a truncated radius, so the port refuses "
+            f"them (ROADMAP §C, C2): cast to a float dtype first")
     if pts.ndim != 2 or pts.shape[0] == 0:
         raise ValueError(f"points must be a non-empty (N, n) array, got "
                          f"shape {tuple(pts.shape)}")
     extremes = torch.stack([pts.min(dim=0).values, pts.max(dim=0).values])
-    gmin, dims = host_grid_geometry(extremes.cpu().numpy(), float(eps))
+    extremes = extremes.cpu().to(geometry_dtype(pts.dtype))
+    gmin, dims = host_grid_geometry(extremes.numpy(), float(eps))
     return build_grid_with_geometry(pts, float(eps), gmin, dims,
                                     key_dtype=key_dtype_for(dims))
 
@@ -222,8 +291,11 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     kd = _TORCH_DTYPES[np.dtype(key_dtype)]
     gmin_t = torch.as_tensor(gmin).to(dev)
     dims_t = torch.as_tensor(dims).to(dev)
-    eps_t = torch.tensor(eps, dtype=points.dtype, device=dev)
-    keys = linearize(cell_coords(points, gmin_t, eps_t), dims_t).to(kd)
+    eps_t = scalar_as(eps, points.dtype, dev)
+    # the cells divide by eps in the geometry's dtype, as the reference's
+    # weakly typed Python eps does (float32 for bfloat16 points)
+    eps_g = scalar_as(eps, gmin_t.dtype, dev)
+    keys = linearize(cell_coords(points, gmin_t, eps_g), dims_t).to(kd)
 
     order = torch.argsort(keys, stable=True)
     keys_sorted = keys[order]

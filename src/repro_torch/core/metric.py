@@ -22,6 +22,43 @@ package. The plain refine is an unfused IEEE sequence: one eager torch op
 per add, subtract and multiply, so no multiply-add is ever contracted and
 the CUDA kernel can reproduce it bit for bit. This module is the one place
 that squares epsilon.
+
+Half-precision points (float16, bfloat16; ROADMAP §C, C1). The JAX package
+computes them at the half dtype, and by three rules, one per path. The port
+applies the reference's rule on each path:
+
+  path (port module)                      rule
+  grid geometry, cell coordinates         f16: numpy float16 ops; bf16: the
+    (core/grid.py)                          float32 promotion (grid_min f32)
+  fused join, fused counts, the compact   P: one rounding to half per
+    route's "fused" refine, batched,        subtract, square and add, in
+    external queries (B1 (a) (b) (c))       lane order (``lane_d2``)
+  unfused "jnp" / "pallas" (B4), route    S: differences rounded to half,
+    "jnp", the compact route's "jnp" /      squares rounded to f16 (bf16
+    "pallas", per-point counts,             squares stay exact in float32),
+    brute force "jnp"                       summed in float32 in lane
+                                            order, rounded to half once
+                                            (``lane_d2_sum``): jnp.sum
+  brute force "pallas", distance_tile     U: rows upcast to float32, the
+    (B2, B3)                                expanded form in float32, eps
+                                            squared at half, then upcast
+  cosine (canonicalize, _unit_rows)       f16 unit rows stay f16; bf16 is
+                                            not a numpy floating type, so
+                                            its rows become float64
+  jaccard                                 unchanged: float32 words
+
+Every rule compares against eps rounded to the half dtype and squared
+there. A Python float becomes float16 in one rounding (numpy's and XLA's
+conversion; torch's own goes through float32) and bfloat16 through float32,
+as ml_dtypes does (``scalar_as``). Rules S, U and rule P at bfloat16 are
+what XLA computes on the CPU, slot for slot. Rule P at float16 is what
+eager JAX computes; jitted, XLA departs from it on a few slots in 10^5, at
+positions no rule of values reproduces, so the tests hold the port's
+float16 rule-P paths to a band: every pair that differs has d^2 within one
+float16 ulp of eps^2.
+The JAX Pallas kernel B1 refines by rule S, not by its own lowering's rule
+P, so at bfloat16 the two disagree (ROADMAP §C): the port follows the
+lowering, which is what ``self_join`` computes off the TPU.
 """
 from __future__ import annotations
 
@@ -77,6 +114,20 @@ def l2_sq_hits_presquared(d2, eps2):
     return d2 <= eps2
 
 
+HALF_DTYPES = (torch.float16, torch.bfloat16)
+FLOAT_DTYPES = (torch.float64, torch.float32) + HALF_DTYPES
+
+
+def scalar_as(x, dtype, device=None) -> torch.Tensor:
+    """A 0-d tensor of the scalar ``x`` in ``dtype``, rounded as numpy and
+    XLA round a Python float: float16 in one rounding from float64 (torch's
+    own cast goes through float32 and can round twice), everything else as
+    torch casts it (bfloat16 through float32, as ml_dtypes does)."""
+    if dtype == torch.float16:
+        x = float(np.float16(float(x)))     # exact in float16 from here
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def lane_d2(q: torch.Tensor, cand_lane, n: int) -> torch.Tensor:
     """Squared L2 distance of each query row of ``q`` (B, >= n) to its
     candidates, ``cand_lane(k)`` giving the candidates' lane k as (B, C):
@@ -91,6 +142,24 @@ def lane_d2(q: torch.Tensor, cand_lane, n: int) -> torch.Tensor:
     return d2
 
 
+def lane_d2_sum(q: torch.Tensor, cand_lane, n: int) -> torch.Tensor:
+    """``lane_d2`` as the JAX package's ``jnp.sum(d * d, axis=-1)`` computes
+    it on the CPU (rule S of the module note): each difference rounds to
+    the half dtype, the squares are summed in float32 in lane order and the
+    sum rounds to the half dtype once. A float16 square rounds to float16
+    first; a bfloat16 square stays float32 (exact), as XLA keeps the
+    product it promotes to float32 there. At float32 and float64 it is
+    ``lane_d2``. Kernel B4 sums in this order too."""
+    if q.dtype not in HALF_DTYPES:
+        return lane_d2(q, cand_lane, n)
+    d2 = torch.zeros((), dtype=torch.float32, device=q.device)
+    for k in range(n):
+        t = q[:, k, None] - cand_lane(k)
+        sq = t * t if q.dtype == torch.float16 else t.float() * t.float()
+        d2 = d2 + sq.float()
+    return d2.to(q.dtype)
+
+
 def device_refine_scalar(metric: str, eps, dtype,
                          device=None) -> torch.Tensor:
     """The (1, 1) scalar the refine compares against, in the points' dtype:
@@ -99,7 +168,7 @@ def device_refine_scalar(metric: str, eps, dtype,
     check_metric(metric)
     # straight to ``dtype``: a Python float through torch's default float32
     # dtype would round twice
-    s = torch.as_tensor(eps, dtype=dtype, device=device)
+    s = scalar_as(eps, dtype, device)
     if metric != "jaccard":
         s = eps_squared(s)
     return torch.reshape(s, (1, 1))
@@ -185,8 +254,21 @@ def cosine_eps_geom(eps: float) -> float:
     return float(np.sqrt(max(2.0 - 2.0 * float(eps), 0.0)))
 
 
+def host_rows(points) -> np.ndarray:
+    """``points`` as a host numpy array. A bfloat16 tensor becomes float64,
+    exactly: numpy has no bfloat16, and the JAX package casts bfloat16
+    input, which numpy does not count as floating, to float64 where it
+    canonicalizes."""
+    if isinstance(points, torch.Tensor):
+        points = points.detach().cpu()
+        if points.dtype == torch.bfloat16:
+            points = points.double()
+        return points.numpy()
+    return np.asarray(points)
+
+
 def _unit_rows(points, *, what: str) -> np.ndarray:
-    pts = np.asarray(points)
+    pts = host_rows(points)
     if pts.ndim != 2:
         raise ValueError(f"{what} must be 2-D (N, d), got shape {pts.shape}")
     if not np.issubdtype(pts.dtype, np.floating):
@@ -253,7 +335,9 @@ def canonicalize(points, eps, *, metric: str = "l2",
     """Canonicalize a dataset for one metric (the index-build side)."""
     check_metric(metric)
     if metric == "l2":
-        geom = np.asarray(points)
+        # a tensor stays one: bfloat16 points have no numpy form
+        geom = (points if isinstance(points, torch.Tensor)
+                else np.asarray(points))
         if geom.ndim != 2:
             raise ValueError(f"points must be 2-D, got shape {geom.shape}")
         e = float(eps)

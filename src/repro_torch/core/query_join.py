@@ -114,10 +114,12 @@ def bucket_rows(n_queries: int, tile: int = TQ_DEFAULT) -> int:
     return tile * _next_pow2(-(-n // tile))
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``; to a card through pinned memory, so the
-    copy is queued on the stream and the host does not wait for it."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+def _to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host array or CPU tensor on ``device``; to a card through pinned
+    memory, so the copy is queued on the stream and the host does not wait
+    for it."""
+    t = (arr.contiguous() if isinstance(arr, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(arr)))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
@@ -210,12 +212,15 @@ class QueryJoinResult:
 def coalesce_requests(batches) -> tuple[np.ndarray, np.ndarray]:
     """Concatenate request query batches into one joint batch.
 
-    Returns (queries (sum Q_i, n), bounds (k+1,) int64) with request i
+    Returns (queries (sum Q_i, n), a tensor if the first batch is one,
+    else numpy; bounds (k+1,) int64) with request i
     owning joint rows [bounds[i], bounds[i+1]); empty requests are legal.
     """
     if not batches:
         raise ValueError("coalesce_requests needs at least one request")
-    arrs = [np.asarray(b) for b in batches]
+    # tensors stay tensors: bfloat16 queries have no numpy form
+    arrs = [b if isinstance(b, torch.Tensor) else np.asarray(b)
+            for b in batches]
     n = arrs[0].shape[1] if arrs[0].ndim == 2 else -1
     for a in arrs:
         if a.ndim != 2 or a.shape[1] != n:
@@ -224,6 +229,8 @@ def coalesce_requests(batches) -> tuple[np.ndarray, np.ndarray]:
                 f"{[tuple(x.shape) for x in arrs]}")
     sizes = np.asarray([a.shape[0] for a in arrs], np.int64)
     bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    if isinstance(arrs[0], torch.Tensor):
+        return torch.cat([torch.as_tensor(a) for a in arrs]), bounds
     return np.concatenate(arrs, axis=0), bounds
 
 
@@ -401,9 +408,14 @@ class PreparedJoin:
         if canon is not None:
             metric_lib.check_metric(canon.metric)
             # index.eps went through the geometry's dtype (float32 set
-            # sizes for jaccard), so compare at float32 resolution
-            if abs(self.eps - float(canon.eps_geom)) > 1e-5 * max(1.0,
-                                                                  self.eps):
+            # sizes for jaccard), so compare at float32 resolution, or
+            # exactly at the index's dtype: float16 unit rows carry the
+            # chord rounded to float16, which the JAX package refuses here
+            # (ROADMAP §C)
+            if (abs(self.eps - float(canon.eps_geom))
+                    > 1e-5 * max(1.0, self.eps)
+                    and self.eps != float(metric_lib.scalar_as(
+                        canon.eps_geom, index.eps.dtype))):
                 raise ValueError(
                     f"index eps {self.eps} does not match the canonical "
                     f"geometry radius {canon.eps_geom}; build the grid "
@@ -422,6 +434,7 @@ class PreparedJoin:
             offs = reduced
             self.lo_off = torch.as_tensor(lo).to(self.device)
             self.hi_off = torch.as_tensor(hi).to(self.device)
+            grid_lib.check_merged_lane(index)
             last = grid_lib.point_last_coords(index)
         else:
             self.c = round_up(max(int(index.max_per_cell), 1), CAP_ALIGN)
@@ -437,24 +450,26 @@ class PreparedJoin:
         self.points_pad = pad_points(index.points_sorted, self.c,
                                      last_coord=last, feats=feats)
         self.order = index.order
-        self.dtype = grid_lib._NUMPY_DTYPES[index.points_sorted.dtype]
-        self.gmin_np = index.grid_min.cpu().numpy()
-        # eps as an array of the points' dtype: host cell coordinates then
+        self.dtype = index.points_sorted.dtype
+        self.gmin_host = index.grid_min.cpu()
+        # eps as a tensor of the points' dtype: host cell coordinates then
         # round as the descriptors' device division does
-        self.eps_np = index.eps.cpu().numpy()
+        self.eps_host = index.eps.cpu()
         PREPARE_EVENTS["class_set"] += 1
         self.classes = capacity_classes(self.c, CAP_ALIGN)
         self.bucketed = len(self.classes) > 1
         self.run_loop = bool(run_loop)
         self.q_pos0: dict = {}   # zeros (qp,) per launch shape
 
-    def _cell_coords(self, q: np.ndarray) -> np.ndarray:
+    def _cell_coords(self, q: torch.Tensor) -> np.ndarray:
         """Clipped int64 cell coordinates of host query rows: the same true
         division by eps in the points' dtype as ``grid.cell_coords``."""
-        qc = np.floor((q - self.gmin_np[None, :]) / self.eps_np)
-        return np.clip(qc, -_COORD_CLIP, _COORD_CLIP).astype(np.int64)
+        qc = torch.floor((q - self.gmin_host[None, :]) / self.eps_host)
+        # clipped in float64: the bound is not a float16 value
+        return np.clip(qc.double().numpy(), -_COORD_CLIP,
+                       _COORD_CLIP).astype(np.int64)
 
-    def _pad_queries(self, q: np.ndarray, qc: np.ndarray,
+    def _pad_queries(self, q: torch.Tensor, qc: np.ndarray,
                      feats: Optional[np.ndarray] = None
                      ) -> tuple[torch.Tensor, int]:
         """(Q, n) host queries -> (qp, L) rows on the device, laid out as
@@ -463,12 +478,15 @@ class PreparedJoin:
         cell coordinate (of ``qc``, the rows' ``_cell_coords``) after
         them."""
         qp = bucket_rows(q.shape[0])
-        q_pad = np.zeros((qp, int(self.points_pad.shape[1])), self.dtype)
+        q_pad = torch.zeros((qp, int(self.points_pad.shape[1])),
+                            dtype=self.dtype)
         q_pad[: q.shape[0], : self.n_dims] = q
         if feats is not None:
-            q_pad[: q.shape[0], self.n_dims:self.n_dims + self.n_feat] = feats
+            q_pad[: q.shape[0], self.n_dims:self.n_dims + self.n_feat] = \
+                torch.from_numpy(np.asarray(feats)).to(self.dtype)
         if self.merged:
-            q_pad[: q.shape[0], self.n_dims + self.n_feat] = qc[:, -1]
+            q_pad[: q.shape[0], self.n_dims + self.n_feat] = \
+                torch.from_numpy(qc[:, -1]).to(self.dtype)
         return _to_device(q_pad, self.device), qp
 
     def _q_pos(self, qp: int) -> torch.Tensor:
@@ -493,7 +511,7 @@ class PreparedJoin:
         return _to_device(plan.run_ord.numpy(), self.device)
 
     def _check_queries(self, queries
-                       ) -> tuple[np.ndarray, Optional[np.ndarray]]:
+                       ) -> tuple[torch.Tensor, Optional[np.ndarray]]:
         """(geometry rows, feature rows or None) of a request: l2 rows as
         they are; a (geometry, features) pair as it is (the batching
         service canonicalizes once, at admission); raw metric input
@@ -502,17 +520,17 @@ class PreparedJoin:
         jaccard)."""
         qf = None
         if self.metric == "l2":
-            q = np.asarray(queries, self.dtype)
+            q = grid_lib.host_points(queries, self.dtype)
         elif isinstance(queries, tuple) and len(queries) == 2:
             qg, qf = queries
-            q = np.asarray(qg, self.dtype)
+            q = grid_lib.host_points(qg, self.dtype)
             qf = None if qf is None else np.asarray(qf)
         else:
             qg, qf = metric_lib.canonicalize_queries(self.canon, queries)
-            q = np.asarray(qg, self.dtype)
+            q = grid_lib.host_points(qg, self.dtype)
         if q.ndim != 2 or q.shape[1] != self.n_dims:
             raise ValueError(f"queries must be (Q, {self.n_dims}), "
-                             f"got {q.shape}")
+                             f"got {tuple(q.shape)}")
         return q, qf
 
     def launch_inputs(self, queries, *, eps: Optional[float] = None,
@@ -538,7 +556,7 @@ class PreparedJoin:
             # stable sort by the clipped cell-coordinate tuple: exact cell
             # identity (a linearized key could alias out-of-grid cells)
             perm = np.lexsort(qc.T)
-            q, qc = q[perm], qc[perm]
+            q, qc = q[torch.from_numpy(perm)], qc[perm]
             if qf is not None:
                 qf = qf[perm]
             head = np.ones(n_queries, bool)
@@ -648,12 +666,12 @@ class PreparedJoin:
         request's canonicalization, which refuses zero vectors under cosine
         and expects token sets under jaccard."""
         if self.metric == "cosine":
-            raw = np.zeros((n, self.n_dims), self.dtype)
+            raw = torch.zeros((n, self.n_dims), dtype=self.dtype)
             raw[:, 0] = 1.0
             return raw
         if self.metric == "jaccard":
             return [() for _ in range(n)]   # empty token sets (size 0)
-        return np.zeros((n, self.n_dims), self.dtype)
+        return torch.zeros((n, self.n_dims), dtype=self.dtype)
 
     def warm(self, batch_size: int, *, return_pairs: Optional[bool] = None
              ) -> int:
@@ -742,7 +760,7 @@ def epsilon_join(queries, points, eps: Optional[float] = None, *,
             queries, eps=None, return_pairs=return_pairs,
             sort_pairs=sort_pairs, emit=emit, with_stats=with_stats)
     if index is None:
-        index = build_grid(np.asarray(points), float(eps), device=device)
+        index = build_grid(points, float(eps), device=device)
     elif device is not None and (
             grid_lib.resolve_device(device).type != index.device.type):
         raise ValueError(f"index lies on {index.device}, the join was asked "

@@ -50,6 +50,7 @@ from repro_torch.core import metric as metric_lib
 from repro_torch.core.grid import (_NUMPY_DTYPES, GridIndex, RunPlan,
                                    _keys64, _pad_probe, build_grid,
                                    cell_run_plan, cell_window_tables,
+                                   check_merged_lane,
                                    global_window_cap, host_dims,
                                    neighbor_rank, occupancy_plan,
                                    point_last_coords,
@@ -226,6 +227,8 @@ def _fused_pad(index: GridIndex, *, q_size: int, c: int,
     last-dimension cell coordinate after that."""
     qp = round_up(max(q_size, 1), tq)
     tail = max(c, q_start_max + qp - index.num_points)
+    if merged:
+        check_merged_lane(index)
     lc = point_last_coords(index) if merged else None
     return pad_points(index.points_sorted, tail, last_coord=lc,
                       feats=feats), qp
@@ -611,9 +614,10 @@ def _neighbor_ranks_for_delta(index: GridIndex, delta) -> torch.Tensor:
 
 def _distance_hits_jnp(q, cand, valid, eps):
     """Plain candidate refine: (B, n) x (B, C, n) -> (B, C) bool hits, d^2
-    summed lane by lane in lane order (``metric.lane_d2``), as kernel B4
-    sums it, so "jnp" and "pallas" give the same pairs bit for bit."""
-    d2 = metric_lib.lane_d2(q, lambda k: cand[:, :, k], q.shape[1])
+    summed lane by lane in lane order as the JAX package's ``jnp.sum``
+    sums it (``metric.lane_d2_sum``), as kernel B4 sums it, so "jnp" and
+    "pallas" give the same pairs bit for bit."""
+    d2 = metric_lib.lane_d2_sum(q, lambda k: cand[:, :, k], q.shape[1])
     return metric_lib.l2_sq_hits(d2, eps) & valid
 
 

@@ -9,7 +9,10 @@ sweep gathers for one stencil offset,
 
 a hit where ``sum((q - c)^2) <= eps^2`` and the slot is valid. ``cand`` is
 cast to ``q``'s dtype, and eps to it before it is squared
-(``metric.device_refine_scalar``), as in the JAX package.
+(``metric.device_refine_scalar``), as in the JAX package. The sum is the
+Pallas kernel's ``jnp.sum(d * d, axis=-1)`` as XLA computes it: at float16
+and bfloat16 the differences round to the half dtype (float16 squares too),
+the squares add in float32 and the sum rounds once (``metric.lane_d2_sum``).
 
 Two implementations of the same function live here:
 
@@ -17,8 +20,8 @@ Two implementations of the same function live here:
     Pallas kernel ``_cell_join_kernel``) on CUDA tensors;
   * ``_cell_join_hits_reference`` is the plain PyTorch version: d^2 summed
     lane by lane in lane order, one eager op per subtract, multiply and add
-    (``metric.lane_d2``, as in ``metric.plane_refine_hits``). The CPU runs
-    it, and the kernel is held to it bit for bit on the card.
+    (``metric.lane_d2_sum``). The CPU runs it, and the kernel is held to it
+    bit for bit on the card.
 
 ``cell_join_hits`` picks by where the tensors lie: the kernel for CUDA
 tensors, the plain version for CPU tensors. There is no fallback: a kernel
@@ -31,6 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.core import metric as metric_lib
+from repro_torch.kernels.fused_join import DTYPE_CODES
 
 # Launches of the CUDA kernel since import (or since a caller reset it): one
 # per call that reaches the kernel, and nowhere else.
@@ -39,7 +43,7 @@ KERNEL_LAUNCHES = 0
 
 def _cell_join_hits_reference(q, cand, valid, scal):
     """The plain version of the kernel: (B, C) bool."""
-    d2 = metric_lib.lane_d2(q, lambda k: cand[:, :, k], q.shape[1])
+    d2 = metric_lib.lane_d2_sum(q, lambda k: cand[:, :, k], q.shape[1])
     return metric_lib.l2_sq_hits_presquared(d2, scal) & valid
 
 
@@ -62,7 +66,7 @@ def _launch(q, cand, valid, scal, out):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.cell_join_launch(
-            int(q.dtype == torch.float64), q.data_ptr(), cand.data_ptr(),
+            DTYPE_CODES[q.dtype], q.data_ptr(), cand.data_ptr(),
             valid.data_ptr(), scal.data_ptr(), out.data_ptr(), rows, c, n,
             stream)
     if err != 0:
@@ -105,8 +109,9 @@ def cell_join_hits(q, cand, valid, eps, *, method=None):
     ``method`` None picks the CUDA kernel for CUDA tensors and the plain
     version for CPU tensors; "kernel" and "reference" force one ("kernel" on
     CPU tensors raises)."""
-    if q.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"cell_join takes float32/float64, got {q.dtype}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"cell_join takes float32/float64 or "
+                        f"float16/bfloat16, got {q.dtype}")
     if q.ndim != 2 or cand.ndim != 3 or cand.shape[0] != q.shape[0] \
             or cand.shape[2] != q.shape[1] or q.shape[1] < 1 \
             or tuple(valid.shape) != tuple(cand.shape[:2]):

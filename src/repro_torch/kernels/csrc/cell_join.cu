@@ -7,11 +7,17 @@
 //   d2 = 0;  for k in 0..n-1: t = q[row, k] - cand[row, slot, k]; d2 = d2 + t*t
 //   hit = d2 <= eps2  and  valid[row, slot]
 //
-// in float64 for float64 input, else float32, lane by lane in lane order:
-// the order of repro_torch/kernels/cell_join.py::_cell_join_hits_reference,
-// bit for bit. Every subtract, multiply and add is an explicit
-// round-to-nearest intrinsic and the library is built with -fmad=false, so no
-// multiply-add is contracted.
+// in the input's dtype, lane by lane in lane order: the order of
+// repro_torch/kernels/cell_join.py::_cell_join_hits_reference, bit for bit.
+// Every subtract, multiply and add is an explicit round-to-nearest intrinsic
+// and the library is built with -fmad=false, so no multiply-add is
+// contracted. float16 and bfloat16 (__half, __nv_bfloat16) follow the Pallas
+// kernel's jnp.sum(d * d) as XLA computes it on the CPU: t is computed in
+// float32 and rounds to the half dtype (one rounding: float32's 24 bits are
+// at least 2p + 2 for p = 11 and 8); t*t rounds to float16 for __half and
+// stays the exact float32 product for __nv_bfloat16; the squares add in
+// float32 in lane order, and the sum rounds to the half dtype once before
+// the comparison.
 //
 // Design, a first and simple one: one thread per (row, slot), over a
 // grid-stride loop with 64-bit offsets (B * C * n passes 2^31 at 10 M
@@ -31,6 +37,8 @@
 // The (B, C, n) candidate tensor it reads is the unfused sweep's own cost:
 // the fused kernel (fused_join.cu) never builds it.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,6 +55,43 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 
+// Row dtypes, as kernels/fused_join.py numbers them (DTYPE_CODES).
+constexpr int kFloat32 = 0;
+constexpr int kFloat64 = 1;
+constexpr int kFloat16 = 2;
+constexpr int kBFloat16 = 3;
+
+// d2 of one slot. float and double: the input dtype throughout. The half
+// types: each difference rounds to the half dtype (round), a float16 square
+// too (round_sq), the squares sum in float32, and the sum rounds once.
+template <typename T>
+struct Sum {
+  using A = T;
+  static __device__ __forceinline__ A load(T x) { return x; }
+  static __device__ __forceinline__ A round(A x) { return x; }
+  static __device__ __forceinline__ A round_sq(A x) { return x; }
+};
+template <>
+struct Sum<__half> {
+  using A = float;
+  static __device__ __forceinline__ A load(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ A round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+  static __device__ __forceinline__ A round_sq(float x) { return round(x); }
+};
+template <>
+struct Sum<__nv_bfloat16> {
+  using A = float;
+  static __device__ __forceinline__ A load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ A round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ A round_sq(float x) { return x; }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) cell_join_kernel(
     const T* __restrict__ q,            // (B, n)
@@ -55,7 +100,9 @@ __global__ void __launch_bounds__(kThreads) cell_join_kernel(
     const T* __restrict__ scal,         // (1,) eps^2 in T
     int8_t* __restrict__ out,           // (B, C)
     long long slots, int c, int n) {
-  const T eps2 = scal[0];
+  using S = Sum<T>;
+  using A = typename S::A;
+  const A eps2 = S::load(scal[0]);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        s < slots; s += stride) {
@@ -63,12 +110,12 @@ __global__ void __launch_bounds__(kThreads) cell_join_kernel(
     if (valid[s] != 0) {  // an invalid slot's candidate is never read
       const T* qr = q + (s / c) * n;
       const T* cr = cand + s * n;
-      T d2 = T(0);
+      A d2 = A(0);
       for (int k = 0; k < n; ++k) {
-        const T t = sub_rn(qr[k], cr[k]);
-        d2 = add_rn(d2, mul_rn(t, t));
+        const A t = S::round(sub_rn(S::load(qr[k]), S::load(cr[k])));
+        d2 = add_rn(d2, S::round_sq(mul_rn(t, t)));
       }
-      hit = d2 <= eps2 ? 1 : 0;
+      hit = S::round(d2) <= eps2 ? 1 : 0;
     }
     out[s] = hit;
   }
@@ -89,16 +136,24 @@ void launch(const void* q, const void* cand, const void* valid,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 when the launch was
-// accepted). The Python wrapper checks dtypes, shapes and contiguity, and
-// launches only when rows * c > 0.
-extern "C" int cell_join_launch(int is_double, const void* q, const void* cand,
+// accepted), or cudaErrorInvalidValue for an unknown dtype code. The Python
+// wrapper checks dtypes, shapes and contiguity, and launches only when
+// rows * c > 0.
+extern "C" int cell_join_launch(int dtype, const void* q, const void* cand,
                                 const void* valid, const void* scal, void* out,
                                 long long rows, int c, int n, void* stream) {
   if (rows <= 0 || c <= 0 || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long slots = rows * c;
-  if (is_double) launch<double>(q, cand, valid, scal, out, slots, c, n, s);
-  else launch<float>(q, cand, valid, scal, out, slots, c, n, s);
+  switch (dtype) {
+    case kFloat32: launch<float>(q, cand, valid, scal, out, slots, c, n, s); break;
+    case kFloat64: launch<double>(q, cand, valid, scal, out, slots, c, n, s); break;
+    case kFloat16: launch<__half>(q, cand, valid, scal, out, slots, c, n, s); break;
+    case kBFloat16:
+      launch<__nv_bfloat16>(q, cand, valid, scal, out, slots, c, n, s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

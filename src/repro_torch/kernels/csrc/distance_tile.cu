@@ -11,7 +11,13 @@
 //   cross = q0*p0 + q1*p1 + ...
 //   d2 = (qn + pn) - 2 * cross;   hit = d2 <= eps2
 //
-// in float64 for float64 input, else float32. Every add, subtract and
+// in float64 for float64 input, else float32. float16 and bfloat16 input
+// (B2-bf16: __half, __nv_bfloat16 rows) is loaded and converted to float32,
+// exactly, and the float32 form runs on it, as the TPU kernels upcast to
+// their float32 accumulator (_acc_dtype); eps2 arrives squared at the half
+// dtype, as the JAX package squares it, and is widened the same way. A
+// product of two half values is exact in float32, so only the order of the
+// float32 sums has to match the plain version's. Every add, subtract and
 // multiply is an explicit round-to-nearest intrinsic and the library is built
 // with -fmad=false, so no multiply-add is contracted. The cross term is
 // computed here, not by a library product: at a contraction depth of 1-8 a
@@ -24,8 +30,9 @@
 //   the (nq, N) output. Bound on the H100 by bytes: one output byte per pair
 //   against 2n + 2 FP64 operations, and the byte plane is written once.
 //   Only real rows and columns are computed and written: the TPU kernel's
-//   padding candidates (at 1e9, never a hit) are sliced off its output, so
-//   they have no counterpart here.
+//   padding candidates (at 1e9, never a hit; +inf at float16, where their
+//   d2 is inf or NaN and still no hit) are sliced off its output, so they
+//   have no counterpart here.
 //
 // distance_tile_counts_kernel (B3): one block per tile of tq query rows, one
 //   thread per query row, with the loop over candidate tiles inside the
@@ -37,6 +44,8 @@
 //   operations, with O(N) bytes in and out. The mask is col < N (the loop
 //   bound) and col != row, as the TPU kernel's (row < N is the thread's own).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +59,32 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+
+// Row dtypes, as kernels/fused_join.py numbers them (DTYPE_CODES).
+constexpr int kFloat32 = 0;
+constexpr int kFloat64 = 1;
+constexpr int kFloat16 = 2;
+constexpr int kBFloat16 = 3;
+
+// The type a row type T computes in (A) and its exact widening (load):
+// float32 for the half types, T itself otherwise.
+template <typename T>
+struct Acc {
+  using A = T;
+  static __device__ __forceinline__ A load(T x) { return x; }
+};
+template <>
+struct Acc<__half> {
+  using A = float;
+  static __device__ __forceinline__ A load(__half x) { return __half2float(x); }
+};
+template <>
+struct Acc<__nv_bfloat16> {
+  using A = float;
+  static __device__ __forceinline__ A load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+};
 
 template <typename T, int N>
 __device__ __forceinline__ T sq_norm(const T* x) {
@@ -76,38 +111,39 @@ __global__ void __launch_bounds__(kThreads) distance_tile_hits_kernel(
     const T* __restrict__ scal,   // (1,) eps^2 in T
     int8_t* __restrict__ out,     // (nq, npts)
     int nq, int npts, int tq, int tc) {
+  using A = typename Acc<T>::A;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);   // tq * N
-  T* p_s = q_s + (size_t)tq * N;         // tc * N
-  T* qn_s = p_s + (size_t)tc * N;        // tq
-  T* pn_s = qn_s + tq;                   // tc
+  A* q_s = reinterpret_cast<A*>(smem);   // tq * N
+  A* p_s = q_s + (size_t)tq * N;         // tc * N
+  A* qn_s = p_s + (size_t)tc * N;        // tq
+  A* pn_s = qn_s + tq;                   // tc
   const int i0 = blockIdx.y * tq;
   const int j0 = blockIdx.x * tc;
   const int rows = min(tq, nq - i0);
   const int cols = min(tc, npts - j0);
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    T v[N];
+    A v[N];
 #pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = q[(size_t)(i0 + r) * N + k];
+    for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(q[(size_t)(i0 + r) * N + k]);
 #pragma unroll
     for (int k = 0; k < N; ++k) q_s[r * N + k] = v[k];
-    qn_s[r] = sq_norm<T, N>(v);
+    qn_s[r] = sq_norm<A, N>(v);
   }
   for (int r = threadIdx.x; r < cols; r += blockDim.x) {
-    T v[N];
+    A v[N];
 #pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = pts[(size_t)(j0 + r) * N + k];
+    for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(pts[(size_t)(j0 + r) * N + k]);
 #pragma unroll
     for (int k = 0; k < N; ++k) p_s[r * N + k] = v[k];
-    pn_s[r] = sq_norm<T, N>(v);
+    pn_s[r] = sq_norm<A, N>(v);
   }
   __syncthreads();
-  const T eps2 = scal[0];
+  const A eps2 = Acc<T>::load(scal[0]);
   const int work = rows * cols;
   for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
     const int i = idx / cols;
     const int j = idx - i * cols;
-    const bool hit = expanded_hit<T, N>(q_s + i * N, qn_s[i], p_s + j * N,
+    const bool hit = expanded_hit<A, N>(q_s + i * N, qn_s[i], p_s + j * N,
                                         pn_s[j], eps2);
     out[(size_t)(i0 + i) * npts + j0 + j] = hit ? 1 : 0;
   }
@@ -119,36 +155,37 @@ __global__ void __launch_bounds__(kThreads) distance_tile_counts_kernel(
     const T* __restrict__ scal,   // (1,) eps^2 in T
     int* __restrict__ counts,     // (npts,)
     int npts, int tq, int tc) {
+  using A = typename Acc<T>::A;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* p_s = reinterpret_cast<T*>(smem);   // tc * N
-  T* pn_s = p_s + (size_t)tc * N;        // tc
-  const T eps2 = scal[0];
+  A* p_s = reinterpret_cast<A*>(smem);   // tc * N
+  A* pn_s = p_s + (size_t)tc * N;        // tc
+  const A eps2 = Acc<T>::load(scal[0]);
   for (int g = 0; g < tq; g += blockDim.x) {
     const int row = blockIdx.x * tq + g + threadIdx.x;
     const bool live = g + (int)threadIdx.x < tq && row < npts;
-    T qr[N];
-    T qn = T(0);
+    A qr[N];
+    A qn = A(0);
     if (live) {
 #pragma unroll
-      for (int k = 0; k < N; ++k) qr[k] = pts[(size_t)row * N + k];
-      qn = sq_norm<T, N>(qr);
+      for (int k = 0; k < N; ++k) qr[k] = Acc<T>::load(pts[(size_t)row * N + k]);
+      qn = sq_norm<A, N>(qr);
     }
     int cnt = 0;
     for (int j0 = 0; j0 < npts; j0 += tc) {
       const int cols = min(tc, npts - j0);
       __syncthreads();   // the previous tile is read
       for (int r = threadIdx.x; r < cols; r += blockDim.x) {
-        T v[N];
+        A v[N];
 #pragma unroll
-        for (int k = 0; k < N; ++k) v[k] = pts[(size_t)(j0 + r) * N + k];
+        for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(pts[(size_t)(j0 + r) * N + k]);
 #pragma unroll
         for (int k = 0; k < N; ++k) p_s[r * N + k] = v[k];
-        pn_s[r] = sq_norm<T, N>(v);
+        pn_s[r] = sq_norm<A, N>(v);
       }
       __syncthreads();
       if (live) {
         for (int j = 0; j < cols; ++j) {
-          const bool hit = expanded_hit<T, N>(qr, qn, p_s + j * N, pn_s[j],
+          const bool hit = expanded_hit<A, N>(qr, qn, p_s + j * N, pn_s[j],
                                               eps2);
           cnt += (hit && j0 + j != row) ? 1 : 0;
         }
@@ -161,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) distance_tile_counts_kernel(
 template <typename T, int N>
 void launch_hits(const void* q, const void* pts, const void* scal, void* out,
                  int nq, int npts, int tq, int tc, cudaStream_t s) {
-  const size_t smem = (size_t)(tq + tc) * (N + 1) * sizeof(T);
+  const size_t smem = (size_t)(tq + tc) * (N + 1) * sizeof(typename Acc<T>::A);
   const dim3 grid((npts + tc - 1) / tc, (nq + tq - 1) / tq);
   distance_tile_hits_kernel<T, N><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(pts),
@@ -171,7 +208,7 @@ void launch_hits(const void* q, const void* pts, const void* scal, void* out,
 template <typename T, int N>
 void launch_counts(const void* pts, const void* scal, void* counts, int npts,
                    int tq, int tc, cudaStream_t s) {
-  const size_t smem = (size_t)tc * (N + 1) * sizeof(T);
+  const size_t smem = (size_t)tc * (N + 1) * sizeof(typename Acc<T>::A);
   distance_tile_counts_kernel<T, N><<<(npts + tq - 1) / tq, kThreads, smem, s>>>(
       static_cast<const T*>(pts), static_cast<const T*>(scal),
       static_cast<int*>(counts), npts, tq, tc);
@@ -214,20 +251,33 @@ int dispatch_counts(int n, const void* pts, const void* scal, void* counts,
 }  // namespace
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). The Python wrappers check dtypes, shapes (1 <= n <= 8,
-// contiguous rows), grid limits and shared memory.
+// launch was accepted), or cudaErrorInvalidValue for an unknown dtype code.
+// The Python wrappers check dtypes, shapes (1 <= n <= 8, contiguous rows),
+// grid limits and shared memory.
 extern "C" int distance_tile_hits_launch(
-    int is_double, int n, const void* q, const void* pts, const void* scal,
+    int dtype, int n, const void* q, const void* pts, const void* scal,
     void* out, int nq, int npts, int tq, int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) return dispatch_hits<double>(n, q, pts, scal, out, nq, npts, tq, tc, s);
-  return dispatch_hits<float>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+  switch (dtype) {
+    case kFloat32: return dispatch_hits<float>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+    case kFloat64: return dispatch_hits<double>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+    case kFloat16: return dispatch_hits<__half>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+    case kBFloat16:
+      return dispatch_hits<__nv_bfloat16>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int distance_tile_counts_launch(
-    int is_double, int n, const void* pts, const void* scal, void* counts,
+    int dtype, int n, const void* pts, const void* scal, void* counts,
     int npts, int tq, int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) return dispatch_counts<double>(n, pts, scal, counts, npts, tq, tc, s);
-  return dispatch_counts<float>(n, pts, scal, counts, npts, tq, tc, s);
+  switch (dtype) {
+    case kFloat32: return dispatch_counts<float>(n, pts, scal, counts, npts, tq, tc, s);
+    case kFloat64: return dispatch_counts<double>(n, pts, scal, counts, npts, tq, tc, s);
+    case kFloat16: return dispatch_counts<__half>(n, pts, scal, counts, npts, tq, tc, s);
+    case kBFloat16:
+      return dispatch_counts<__nv_bfloat16>(n, pts, scal, counts, npts, tq, tc, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -3,7 +3,8 @@
 // Replaces repro/kernels/fused_join.py::_fused_kernel, the Pallas TPU kernel,
 // for the l2 metric (and cosine, which is l2 on unit rows): per-cell and
 // merged sweeps, the three masks (UNICOMP, self, external queries), with and
-// without the hits plane, in float64 and float32; and for the jaccard metric
+// without the hits plane, in float64, float32, float16 and bfloat16 (see
+// the note on half precision below); and for the jaccard metric
 // (the JACCARD template parameter, below). It computes what
 // repro_torch/kernels/fused_join.py::_fused_join_hits_reference computes, bit
 // for bit:
@@ -24,6 +25,14 @@
 // intrinsic, and the library is built with -fmad=false, because the plain
 // PyTorch version is an unfused IEEE sequence. A contracted multiply-add
 // would flip pairs whose d2 lies within an ulp of eps2.
+//
+// Half precision (__half and __nv_bfloat16 rows, ROADMAP C1): the plain
+// version rounds to the half dtype after every subtract, square and add
+// (the JAX package's reference lowering, metric.plane_refine_hits). Here each
+// operation runs in float32 with __f*_rn and rounds to the half dtype at
+// once (Arith<T>::round). Rounding twice, to float32 and then to half, is
+// the same as rounding once for +, - and x: float32 keeps 24 bits, at least
+// 2p + 2 for p = 11 (f16) and 8 (bf16).
 //
 // What bounds it on the H100: bytes. Per slot it writes one int8 hit and
 // reads one candidate row (n_real + 1 lanes), against 3 * n_real floating
@@ -85,12 +94,20 @@
 // launch opts in to more, up to the device's limit (227 KB on the H100);
 // the wrapper refuses a tile beyond that.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// Row dtypes, as kernels/fused_join.py numbers them (DTYPE_CODES).
+constexpr int kFloat32 = 0;
+constexpr int kFloat64 = 1;
+constexpr int kFloat16 = 2;
+constexpr int kBFloat16 = 3;
 
 // Mask modes, as kernels/fused_join.py numbers them.
 constexpr int kMaskSelf = 0;
@@ -103,6 +120,43 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+
+// The arithmetic of a row type T: A is the type it computes in, load widens
+// a stored lane exactly, and sub / mul / add round each result to T. For
+// float and double that is the operation itself; for the half types it is a
+// float32 operation rounded to T (see the note on rounding above).
+template <typename T>
+struct Arith {
+  using A = T;
+  static __device__ __forceinline__ A load(T x) { return x; }
+  static __device__ __forceinline__ A sub(A a, A b) { return sub_rn(a, b); }
+  static __device__ __forceinline__ A mul(A a, A b) { return mul_rn(a, b); }
+  static __device__ __forceinline__ A add(A a, A b) { return add_rn(a, b); }
+};
+template <>
+struct Arith<__half> {
+  using A = float;
+  static __device__ __forceinline__ A load(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ A round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+  static __device__ __forceinline__ A sub(A a, A b) { return round(__fsub_rn(a, b)); }
+  static __device__ __forceinline__ A mul(A a, A b) { return round(__fmul_rn(a, b)); }
+  static __device__ __forceinline__ A add(A a, A b) { return round(__fadd_rn(a, b)); }
+};
+template <>
+struct Arith<__nv_bfloat16> {
+  using A = float;
+  static __device__ __forceinline__ A load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ A round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ A sub(A a, A b) { return round(__fsub_rn(a, b)); }
+  static __device__ __forceinline__ A mul(A a, A b) { return round(__fmul_rn(a, b)); }
+  static __device__ __forceinline__ A add(A a, A b) { return round(__fadd_rn(a, b)); }
+};
 
 // The mask mode's rule: UNICOMP keeps the triangle on the zero offset, SELF
 // drops the self pair, EXTERNAL keeps every hit.
@@ -119,13 +173,16 @@ template <typename T, bool MERGED, int MASK>
 __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
                                             int n_real, bool zero, int cand,
                                             int qpos) {
-  T d2 = T(0);
+  using Ar = Arith<T>;
+  using A = typename Ar::A;
+  A d2 = A(0);
   for (int k = 0; k < n_real; ++k) {
-    const T t = sub_rn(q[k], p[k]);
-    d2 = add_rn(d2, mul_rn(t, t));
+    const A t = Ar::sub(Ar::load(q[k]), Ar::load(p[k]));
+    d2 = Ar::add(d2, Ar::mul(t, t));
   }
-  bool hit = d2 <= eps2;
-  if (MERGED) hit = hit && fabs(sub_rn(p[n_real], q[n_real])) <= T(1);
+  bool hit = d2 <= Ar::load(eps2);
+  if (MERGED)
+    hit = hit && fabs(Ar::sub(Ar::load(p[n_real]), Ar::load(q[n_real]))) <= A(1);
   return mask_hit<MASK>(hit, zero, cand, qpos);
 }
 
@@ -364,15 +421,15 @@ int launch_merged(const Args& a, bool merged, int mask, bool keep_hits,
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted), or cudaErrorInvalidValue for an unknown mask mode
-// (0 self, 1 UNICOMP, 2 external) or a Jaccard launch that is not float32
-// per-cell. The Python wrapper validates shapes and dtypes (qp % tq == 0,
+// launch was accepted), or cudaErrorInvalidValue for an unknown dtype code
+// (0 float32, 1 float64, 2 float16, 3 bfloat16) or mask mode (0 self,
+// 1 UNICOMP, 2 external), or a Jaccard launch that is not float32 per-cell. The Python wrapper validates shapes and dtypes (qp % tq == 0,
 // lanes >= n_real + n_feat + merged, run_ord with run_loop) and the
 // shared-memory total against fused_join_smem_optin; the drivers pad
 // points_pad with a tail of at least c rows, so every window read is in
 // bounds.
 extern "C" int fused_join_launch(
-    int is_double, int merged, int mask, int keep_hits, int run_loop,
+    int dtype, int merged, int mask, int keep_hits, int run_loop,
     int jaccard, const void* points_pad, const void* q_batch,
     const void* win_start, const void* win_count, const void* is_zero,
     const void* q_pos, const void* run_ord, const void* scal, void* hits,
@@ -385,12 +442,26 @@ extern "C" int fused_join_launch(
   int bad;
   if (jaccard) {
     // the drivers reach Jaccard only as float32 words on the per-cell sweep
-    if (is_double || merged) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != kFloat32 || merged)
+      return static_cast<int>(cudaErrorInvalidValue);
     bad = launch_mask<float, false, true>(a, mask, keep_hits, run_loop, s);
   } else {
-    bad = is_double
-        ? launch_merged<double>(a, merged, mask, keep_hits, run_loop, s)
-        : launch_merged<float>(a, merged, mask, keep_hits, run_loop, s);
+    switch (dtype) {
+      case kFloat32:
+        bad = launch_merged<float>(a, merged, mask, keep_hits, run_loop, s);
+        break;
+      case kFloat64:
+        bad = launch_merged<double>(a, merged, mask, keep_hits, run_loop, s);
+        break;
+      case kFloat16:
+        bad = launch_merged<__half>(a, merged, mask, keep_hits, run_loop, s);
+        break;
+      case kBFloat16:
+        bad = launch_merged<__nv_bfloat16>(a, merged, mask, keep_hits,
+                                           run_loop, s);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (bad != 0) return bad;
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,11 @@ counterpart of the JAX package's ``repro.kernels.distance_tile``:
 Both compute d2 in the expanded form the TPU kernels compute on the MXU,
 ``d2 = (qn + pn) - 2 * cross`` with qn, pn the squared norms and cross the
 dot product, each summed lane by lane from the left, in float64 for float64
-input and float32 for float32 (``_expanded_d2``). That form rounds
+input and float32 for float32 (``_expanded_d2``); float16 and bfloat16
+input (kernel B2-bf16) is upcast to float32 and takes the float32 form, as
+the TPU kernels upcast to their accumulator dtype, with eps rounded to the
+half dtype and squared there, then upcast, as the JAX package forms it
+(``_acc_rows``). The expanded form rounds
 differently from the direct ``sum((q - p)^2)`` of the oracles
 (``distance_tile_hits_ref``, ``distance_tile_counts_ref``), so the two may
 disagree on pairs whose d2 lies within a few ulps of (qn + pn) of eps^2.
@@ -27,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.core import metric as metric_lib
+from repro_torch.kernels.fused_join import DTYPE_CODES
 
 TQ_DEFAULT = 256   # query rows of a tile
 TC_DEFAULT = 256   # candidate rows of a tile
@@ -41,12 +46,22 @@ COUNTS_LAUNCHES = 0
 
 
 def _check_dtype(dtype) -> None:
-    if dtype in (torch.bfloat16, torch.float16):
-        raise TypeError(f"distance_tile takes float32/float64, got {dtype}; "
-                        f"the reduced-precision path is not ported yet "
-                        f"(ROADMAP B2-bf16)")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"distance_tile takes float32/float64, got {dtype}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"distance_tile takes float32/float64 or "
+                        f"float16/bfloat16, got {dtype}")
+
+
+def _acc_dtype(dtype) -> torch.dtype:
+    """The dtype the tiles compute in: float64 for float64, else float32
+    (the JAX kernels' ``_acc_dtype``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _acc_rows(*xs):
+    """``xs`` (rows and the squared threshold) upcast to ``_acc_dtype``:
+    exact, and a no-op at float32 and float64."""
+    acc = _acc_dtype(xs[0].dtype)
+    return tuple(x.to(acc) for x in xs)
 
 
 def _check_rows(name: str, x: torch.Tensor) -> None:
@@ -77,6 +92,7 @@ def _expanded_d2(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 def _distance_tile_hits_reference(q, pts, scal):
     """The plain version of the hits kernel: (nq, N) bool."""
+    q, pts, scal = _acc_rows(q, pts, scal)
     return metric_lib.l2_sq_hits_presquared(_expanded_d2(q, pts), scal)
 
 
@@ -128,6 +144,12 @@ def _kernel_library():
     return lib
 
 
+def _acc_item(dtype) -> int:
+    """Bytes of one staged value: the kernels stage rows and norms in the
+    accumulator dtype."""
+    return torch.empty((), dtype=_acc_dtype(dtype)).element_size()
+
+
 def _check_tiles(tq: int, tc: int, smem: int) -> None:
     if tq <= 0 or tc <= 0:
         raise ValueError(f"tiles must be positive, got tq={tq}, tc={tc}")
@@ -141,7 +163,7 @@ def _distance_tile_hits_cuda(q, pts, scal, *, tq, tc):
     global HITS_LAUNCHES
     nq, n = q.shape
     npts = pts.shape[0]
-    _check_tiles(tq, tc, (tq + tc) * (n + 1) * q.element_size())
+    _check_tiles(tq, tc, (tq + tc) * (n + 1) * _acc_item(q.dtype))
     if -(-nq // tq) > _GRID_Y_MAX:
         raise ValueError(f"{nq} query rows need more than {_GRID_Y_MAX} "
                          f"tiles of {tq}")
@@ -151,7 +173,7 @@ def _distance_tile_hits_cuda(q, pts, scal, *, tq, tc):
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.distance_tile_hits_launch(
-                int(q.dtype == torch.float64), n, q.data_ptr(),
+                DTYPE_CODES[q.dtype], n, q.data_ptr(),
                 pts.data_ptr(), scal.data_ptr(), out.data_ptr(), nq, npts,
                 tq, tc, stream)
         if err != 0:
@@ -165,14 +187,14 @@ def _distance_tile_counts_cuda(pts, scal, *, tq, tc):
     """Launch the count kernel on the current stream (no sync)."""
     global COUNTS_LAUNCHES
     npts, n = pts.shape
-    _check_tiles(tq, tc, tc * (n + 1) * pts.element_size())
+    _check_tiles(tq, tc, tc * (n + 1) * _acc_item(pts.dtype))
     counts = torch.empty(npts, dtype=torch.int32, device=pts.device)
     if npts:
         lib = _kernel_library()
         with torch.cuda.device(pts.device):
             stream = torch.cuda.current_stream(pts.device).cuda_stream
             err = lib.distance_tile_counts_launch(
-                int(pts.dtype == torch.float64), n, pts.data_ptr(),
+                DTYPE_CODES[pts.dtype], n, pts.data_ptr(),
                 scal.data_ptr(), counts.data_ptr(), npts, tq, tc, stream)
         if err != 0:
             raise RuntimeError(f"distance_tile count kernel launch failed: "

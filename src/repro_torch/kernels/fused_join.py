@@ -42,6 +42,9 @@ import torch
 from repro_torch.core import metric as metric_lib
 
 NP_PAD = 8        # minimum lane padding of the coordinate axis
+# the row dtypes of the CUDA kernels (csrc/*.cu number them alike)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+               torch.bfloat16: 3}
 TQ_DEFAULT = 128  # query tile rows
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
@@ -206,7 +209,7 @@ def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_join_launch(
-            int(points_pad.dtype == torch.float64), int(merged),
+            DTYPE_CODES[points_pad.dtype], int(merged),
             (MASK_EXTERNAL if external
              else MASK_UNICOMP if unicomp else MASK_SELF),
             int(keep_hits), int(run_ord is not None),
@@ -246,8 +249,9 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
     n_off, qp = win_start.shape
     lanes = points_pad.shape[1]
     jaccard = metric == "jaccard"
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_join kernel takes float32/float64, got {dtype}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"fused_join kernel takes float32/float64 or "
+                        f"float16/bfloat16, got {dtype}")
     if jaccard and dtype != torch.float32:
         raise TypeError(f"the Jaccard kernel takes float32 rows (the packed "
                         f"16-bit words are exact in float32, as "

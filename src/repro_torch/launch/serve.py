@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.grid import build_grid, resolve_device
+from repro_torch.core.grid import build_grid, host_points, resolve_device
 from repro_torch.core.query_join import (QueryJoinResult, bucket_rows,
                                          coalesce_requests,
                                          executable_cache_stats, metric_free,
@@ -185,7 +185,7 @@ class JoinService(_JoinServiceBase):
             index = build_grid(np.asarray(canon.geom), float(canon.eps_geom),
                                device=resolve_device(device))
         elif index is None:
-            index = build_grid(np.asarray(points), self.eps,
+            index = build_grid(points, self.eps,
                                device=resolve_device(device))
         self.device = index.device
         prepared = prepare(index, merge_last_dim=merge_last_dim, canon=canon)
@@ -228,7 +228,8 @@ class JoinService(_JoinServiceBase):
             raise RuntimeError("reindex already in progress")
         self.join_reindex()          # surface a previous failure, if any
         # non-L2 input may be ragged (token sets); canonicalized in the thread
-        pts = np.asarray(points) if self.metric == "l2" else points
+        pts = (np.asarray(points) if self.metric == "l2"
+               and not isinstance(points, torch.Tensor) else points)
 
         def work():
             try:
@@ -424,7 +425,7 @@ class BatchingJoinService(_JoinServiceBase):
             index = build_grid(np.asarray(qc.geom), float(qc.eps_geom),
                                device=resolve_device(device))
         elif index is None:
-            index = build_grid(np.asarray(points), self.eps,
+            index = build_grid(points, self.eps,
                                device=resolve_device(device))
         self.prepared = prepare(index, merge_last_dim=merge_last_dim,
                                 canon=qc)
@@ -449,14 +450,14 @@ class BatchingJoinService(_JoinServiceBase):
             # feature rows coalesce as one 2-D array and split at launch
             qg, qf = metric_lib.canonicalize_queries(self._query_canon,
                                                      queries)
-            q = np.asarray(qg, pj.dtype)
+            q = host_points(qg, pj.dtype)
             if qf is not None:
-                q = np.concatenate([q, np.asarray(qf, pj.dtype)], axis=1)
+                q = torch.cat([q, host_points(qf, pj.dtype)], dim=1)
         else:
-            q = np.asarray(queries, pj.dtype)
+            q = host_points(queries, pj.dtype)
             if q.ndim != 2 or q.shape[1] != pj.n_dims:
                 raise ValueError(f"queries must be (Q, {pj.n_dims}), "
-                                 f"got {q.shape}")
+                                 f"got {tuple(q.shape)}")
         eps_key = float(self.eps if eps is None else eps)
         n = q.shape[0]
         if n == 0:

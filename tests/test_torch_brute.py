@@ -106,11 +106,22 @@ def test_lattice_expanded_form_differs_only_in_band(n, dtype):
 
 
 def test_distance_tile_rejects_bf16_and_cpu_kernel():
-    q = torch.zeros((4, 2), dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        tdt.distance_tile_hits(q, q, 1.0)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        tdt.distance_tile_counts(q, 1.0)
+    """bfloat16 rows were refused until kernel B2-bf16 was ported; they now
+    compute, and equal the JAX package's tiles in interpret mode exactly.
+    The kernel on CPU tensors is still refused."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 10, (300, 2)).astype(ml_dtypes.bfloat16)
+    q = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    want = np.asarray(jdt.distance_tile_hits(jnp.asarray(x[:40]),
+                                             jnp.asarray(x), 1.3,
+                                             interpret=True))
+    assert np.array_equal(tdt.distance_tile_hits(q[:40], q, 1.3).numpy(),
+                          want)
+    want = np.asarray(jdt.distance_tile_counts(jnp.asarray(x), 1.3,
+                                               interpret=True))
+    assert np.array_equal(tdt.distance_tile_counts(q, 1.3).numpy(), want)
     with pytest.raises(RuntimeError, match="CUDA"):
         tdt.distance_tile_counts(q.double(), 1.0, method="kernel")
 

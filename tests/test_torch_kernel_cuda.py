@@ -2,7 +2,8 @@
 
 The fused join (B1: the row loop, the cell-run loop, and the external-query
 mask in both; the Jaccard popcount refine, B1 (e), in all of them), the
-brute-force tiles (B2 hits, B3 counts) and the unfused sweep's refine (B4)
+brute-force tiles (B2 hits, B3 counts) and the unfused sweep's refine (B4),
+at float64, float32, float16 and bfloat16 (B2-bf16 and the half instances),
 must equal their plain versions bit for bit, and the entry points on the
 card (the joins, fused and unfused, the counts, the external-query join and
 the services, for every metric) the same entry points on the CPU.
@@ -29,6 +30,11 @@ from repro_torch.kernels import distance_tile as tdt
 from repro_torch.kernels import fused_join as tfj
 
 
+# every row dtype the kernels take; the half ones follow the JAX package's
+# rules for them (repro_torch/core/metric.py's module note)
+DTYPES = [torch.float64, torch.float32, torch.float16, torch.bfloat16]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -36,7 +42,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("merged", [True, False])
 @pytest.mark.parametrize("unicomp", [True, False])
 def test_kernel_matches_plain_version(cuda_device, dtype, merged, unicomp):
@@ -119,7 +125,7 @@ RUN_DATA = {
 
 
 @pytest.mark.parametrize("data", list(RUN_DATA))
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("merged", [True, False])
 @pytest.mark.parametrize("unicomp", [True, False])
 def test_run_loop_kernel_matches_plain_version(cuda_device, data, dtype,
@@ -154,7 +160,7 @@ def test_run_loop_kernel_ignores_a_broken_plan(cuda_device):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 3, 6, 8])
 def test_distance_tile_kernels_match_plain_version(cuda_device, dtype, n):
     """B2 and B3 against their plain versions, on random data and on a
@@ -178,7 +184,7 @@ def test_distance_tile_kernels_match_plain_version(cuda_device, dtype, n):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 3, 6, 8])
 @pytest.mark.parametrize("b,c", [(1, 8), (57, 24), (600, 40), (70000, 32)])
 def test_cell_join_kernel_matches_plain_version(cuda_device, dtype, n, b, c):
@@ -198,7 +204,7 @@ def test_cell_join_kernel_matches_plain_version(cuda_device, dtype, n, b, c):
     assert tcj.KERNEL_LAUNCHES == before + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_cell_join_kernel_on_a_lattice(cuda_device, dtype):
     """Integer data at eps = 2: many d^2 exactly on eps^2 = 4. The kernel
     equals its plain version and an integer brute force; an empty batch
@@ -303,7 +309,7 @@ EXTERNAL_DATA = {
 
 
 @pytest.mark.parametrize("data", list(EXTERNAL_DATA))
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("merged", [True, False])
 @pytest.mark.parametrize("run_loop", [True, False])
 def test_external_kernel_matches_plain_version(cuda_device, data, dtype,
@@ -578,3 +584,35 @@ def test_metric_services_on_card(cuda_device, metric):
                               cpu.query(q, eps=tight).pairs)
     svc.assert_no_retrace()
     bat.assert_no_retrace()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_half_paths_on_card_match_cpu(cuda_device, dtype):
+    """Half points through the fused join, the unfused "pallas" sweep, the
+    counts, per-point counts, brute force "pallas" and the external-query
+    join on the card equal the same entry points on the CPU."""
+    pts = torch.as_tensor(np.random.default_rng(8).uniform(0, 60, (20000, 2)))
+    pts = pts.to(dtype)
+    eps = 0.5
+    for kw in (dict(), dict(merge_last_dim=False), dict(unicomp=False),
+               dict(distance_impl="pallas")):
+        gpu = tsj.self_join(pts, eps, device=cuda_device, **kw)
+        assert torch.equal(gpu.cpu(), tsj.self_join(pts, eps, device="cpu",
+                                                    **kw))
+    for route in ("dense", "dense-run", "compact", "jnp"):
+        a = tsj.self_join_count(pts, eps, route=route, device=cuda_device)
+        b = tsj.self_join_count(pts, eps, route=route, device="cpu")
+        assert a == b
+    assert np.array_equal(
+        tsj.per_point_neighbor_counts(pts, eps, device=cuda_device),
+        tsj.per_point_neighbor_counts(pts, eps, device="cpu"))
+    small = pts[:3000]
+    assert repro_torch.brute_force_count(
+        small, eps, distance_impl="pallas", device=cuda_device) == \
+        repro_torch.brute_force_count(small, eps, distance_impl="pallas",
+                                      device="cpu")
+    q = pts[::7] + 0.01
+    a = tqj.epsilon_join(q, pts, eps, device=cuda_device)
+    b = tqj.epsilon_join(q, pts, eps, device="cpu")
+    assert np.array_equal(a.pairs, b.pairs)
+    assert np.array_equal(a.counts, b.counts)

@@ -93,3 +93,55 @@ def jax_runner(table_dir):
         return cache[key]
 
     return get
+
+
+def jax_half_totals() -> dict:
+    """The JAX package's counterparts of ``chip_smoke.py``'s recorded half
+    totals (``HALF_MAIN_TOTAL``, ``HALF_TOTALS``, ``HALF_COSINE_TOTALS``),
+    on the CPU, for holding the recorded ones to the reference:
+
+        PYTHONPATH=src:tests python -c "import json, torch_workloads as w;
+            print(json.dumps(w.jax_half_totals()))"
+
+    The same data (``chip_smoke.as_half``'s casts: float16 in one rounding,
+    bfloat16 through float32) through ``self_join_count``: the fused count
+    per cell at bfloat16 where the port refuses the merged lane, and the
+    "jnp" count, whose sum of squares is the "pallas" one's."""
+    import sys
+    from pathlib import Path
+
+    import ml_dtypes
+
+    import repro.core.grid as jgrid
+    import repro.core.selfjoin as jsj
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    halves = {"float16": np.float16, "bfloat16": ml_dtypes.bfloat16}
+
+    def cast(x, dt):
+        return np.asarray(x).astype(np.float32 if dt is ml_dtypes.bfloat16
+                                    else np.float64).astype(dt)
+
+    main = jsj.self_join_count(
+        cast(cs.syn(cs.MAIN_POINTS, cs.MAIN_DIMS), np.float16), cs.MAIN_EPS,
+        distance_impl="fused", route="dense").total_pairs
+    totals = {}
+    for dname, dt in halves.items():
+        totals[dname] = {"fused": {}, "pallas": {}}
+        for name, (raw, eps) in cs.bench_workloads().items():
+            pts = cast(raw, dt)
+            dims = np.asarray(jgrid.build_grid(pts, eps).dims)
+            merge = dt is np.float16 or int(dims[-1]) - 1 <= 256
+            totals[dname]["fused"][name] = int(jsj.self_join_count(
+                pts, eps, distance_impl="fused", route="dense",
+                merge_last_dim=merge).total_pairs)
+            totals[dname]["pallas"][name] = int(jsj.self_join_count(
+                pts, eps, distance_impl="jnp").total_pairs)
+    emb = cs.cosine_data(cs.COSINE_POINTS)
+    cosine = {dname: int(jsj.self_join_count(
+        cast(emb, dt), cs.COSINE_T, metric="cosine",
+        distance_impl="fused").total_pairs) for dname, dt in halves.items()}
+    return dict(HALF_MAIN_TOTAL=int(main), HALF_TOTALS=totals,
+                HALF_COSINE_TOTALS=cosine)
