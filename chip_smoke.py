@@ -73,15 +73,29 @@ each printing one JSON line:
                   bound); both services per metric against direct
                   evaluations, and one batching stream per metric against
                   the solo answers; one profiled join per metric
+  slab            the slab join in one process (distributed_self_join,
+                  kernel B1 (d), the global-id masks): the main path's
+                  points at 1, 2 and 4 slabs, each equal to self_join's
+                  pairs (timed in the same phase), its count-only total and
+                  the plain count sweep's equal to MAIN_TOTAL, time and peak
+                  memory of each; B1 (d) against its plain version on every
+                  launch of one slab's join (merged and per-cell, UNICOMP
+                  and self, row and run loop, hits on and off) in
+                  PLAIN_ROWS slices, and timed beside B1 (c) / (a) on the
+                  same launches without the id masks, with its byte bound;
+                  the serve phase's 1 M skewed points at eps 0.3 on 48
+                  slabs (a 2-hop halo) and cosine at the 1 M embeddings,
+                  each equal to self_join's pairs; a float16 refusal and a
+                  forced halo overflow
   kernels         one line: every kernel with launches, agreement and times
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
-join's B1 and the Jaccard join's B1 (e)) and read just after; comparisons
-with the plain versions run outside those windows. The last lines are the
-card's ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": {...}}``. Any failure raises and
-exits non-zero; without a CUDA device the script exits non-zero before
-printing a result.
+join's B1 and the Jaccard join's B1 (e), slab for B1 (d)) and read just
+after; comparisons with the plain versions run outside those windows. The
+last lines are the card's ``nvidia-smi`` name and power limit, then
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device the script exits non-zero before printing a result.
 """
 from __future__ import annotations
 
@@ -188,6 +202,19 @@ HALF_BRUTE_WORKLOAD = "uniform-2d"
 # unit roundoff of the half dtypes: rule P's d^2 lies within (n + 3) u d^2
 # of the exact one, the band where it and B3's float32 form may disagree
 HALF_UNIT = {torch.float16: 2.0 ** -11, torch.bfloat16: 2.0 ** -8}
+# The slab join in one process (ROADMAP A14 (i), kernel B1 (d)): the main
+# path's points at these slab counts; the timed and compared launches are
+# those of slab SLAB_HELD[1] of the SLAB_HELD[0]-slab join (halos on both
+# sides). The skewed case is the serve phase's index B points (1 M expo-3d)
+# at eps 0.3 (at 1.2 its join would emit ~8e8 pairs): at 48 equal-count
+# slabs the slabs near 0 are narrower than eps, so the halo takes 2 hops.
+SLAB_COUNTS = (1, 2, 4)
+SLAB_HELD = (4, 1)
+SLAB_SKEW_EPS, SLAB_SKEW_SLABS = 0.3, 48
+SLAB_COSINE_SLABS = 2
+# of the 16 compared variants, the join's own (merged, UNICOMP, run loop,
+# hits) is held on every row; the others on every SLAB_ROW_STRIDE-th slice
+SLAB_ROW_STRIDE = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -259,15 +286,19 @@ def event_ms(fn, repeats: int = 1) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def prepared_launches(index, *, merged, unicomp, run_loop=False):
+def prepared_launches(index, *, merged, unicomp, run_loop=False, slab=None):
     """The drivers' launch schedule for ``index`` with each launch's inputs;
-    with ``run_loop``, the table-prep inputs and the launch's run plan."""
+    with ``run_loop``, the table-prep inputs and the launch's run plan.
+    With ``slab`` (a ``core.distributed.SlabIndex``; ``index`` is its grid)
+    the slab join's schedule: the owned rows only, ids in the pad lane, and
+    ``gid_pairs`` in each launch's ``kw`` (B1 (d))."""
     from repro_torch.core import grid, selfjoin as sj
     tables = sj._merged_offset_tables if merged else sj._offset_tables
     deltas, is_zero = tables(index, unicomp)
     tabs = (grid.cell_window_tables(index, deltas, merged=merged,
                                     tag=unicomp) if run_loop else None)
-    launches, points_pad, _ = sj._fused_launches(index, merged=merged)
+    ids = {} if slab is None else dict(row_ok=slab.row_ok, gid=slab.ids)
+    launches, points_pad, _ = sj._fused_launches(index, merged=merged, **ids)
     out = []
     for launch in launches:
         ws, wc, _, qb, qpos = sj._launch_prep(index, points_pad, deltas,
@@ -280,7 +311,7 @@ def prepared_launches(index, *, merged, unicomp, run_loop=False):
                               index.eps),
                         kw=dict(c=launch[4], tq=launch[5],
                                 n_real=index.n_dims, unicomp=unicomp,
-                                merged=merged)))
+                                merged=merged, gid_pairs=slab is not None)))
     return out
 
 
@@ -389,7 +420,8 @@ def kernel_bound(prepared):
     kept, counts, slot_base). Operations, on the slots this data needs (sum
     of win_count): 3 * n_real floating-point ones (subtract, multiply, add)
     for l2 and cosine; 2 * n_feat INT32 ones (AND, popcount) for jaccard.
-    The run loop does the same work, so it has the same bound."""
+    The run loop does the same work, so it has the same bound. B1 (d)
+    reads the id lane too: one more used lane a row."""
     total_bytes = 0
     flops = 0
     dtype = None
@@ -402,7 +434,8 @@ def kernel_bound(prepared):
         item = points_pad.element_size()
         dtype = ("int32" if jaccard
                  else OPS_DTYPE[str(points_pad.dtype).replace("torch.", "")])
-        used_lanes = n_real + n_feat + (1 if merged else 0)
+        used_lanes = (n_real + n_feat + (1 if merged else 0)
+                      + (1 if p["kw"].get("gid_pairs") else 0))
         # distinct candidate rows over all windows of the launch
         rows = points_pad.shape[0]
         edge = torch.zeros(rows + 1, dtype=torch.int32, device=ws.device)
@@ -1178,11 +1211,13 @@ def phase_profile():
         lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE)))
 
 
-def profiled_join(join, kernel: str = "fused_join_kernel"):
+def profiled_join(join, kernel: str = "fused_join_kernel",
+                  spans=("self_join.",)):
     """``join()`` once to warm up, then once under ``torch.profiler``: the
-    stage spans' host and device ms, the device time of the kernels whose
-    name holds ``kernel`` (B1's by default), device time by kernel name and
-    the device's busy share of the wall time."""
+    stage spans' host and device ms (the spans named with a prefix of
+    ``spans``; the slab join adds ``slab_join.``), the device time of the
+    kernels whose name holds ``kernel`` (B1's by default), device time by
+    kernel name and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     join()
     sync()
@@ -1203,10 +1238,11 @@ def profiled_join(join, kernel: str = "fused_join_kernel"):
                           device_ms=(getattr(e, "device_time_total", 0)
                                      or 0) / 1e3)
               for e in averages
-              if e.key.startswith("self_join.")
+              if e.key.startswith(spans)
               and e.device_type == torch.autograd.DeviceType.CPU}
-    check(set(stages) == {"self_join.grid", "self_join.plan",
-                          "self_join.kernel", "self_join.emit"},
+    check({k for k in stages if k.startswith("self_join.")}
+          == {"self_join.grid", "self_join.plan", "self_join.kernel",
+              "self_join.emit"},
           f"profiled join entered the stage spans {sorted(stages)}")
     # device-side entries only (kernels, copies, fills): the CPU ops that
     # launched them carry the same device time, the spans' device-side
@@ -1215,7 +1251,7 @@ def profiled_join(join, kernel: str = "fused_join_kernel"):
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and device_us(e) > 0
-              and not e.key.startswith(("Activity Buffer", "self_join."))]
+              and not e.key.startswith(("Activity Buffer", *spans))]
     busy_ms = sum(device_us(e) for e in events) / 1e3
     ours = [e for e in events if kernel in e.key]
     ours_ms = sum(device_us(e) for e in ours) / 1e3 if ours else None
@@ -2528,6 +2564,207 @@ def half_brute(workloads) -> dict:
     return out
 
 
+def slab_launch_count(pts, eps: float, n_slabs: int, merged: bool) -> int:
+    """B1 (d)'s launches in one ``distributed_self_join`` of ``pts``."""
+    from repro_torch.core import distributed as dist, selfjoin as sj
+    return sum(len(sj._fused_launches(s.index, merged=merged,
+                                      row_ok=s.row_ok, gid=s.ids)[0])
+               for s in dist.slab_indexes(pts, eps, n_slabs, device=DEVICE))
+
+
+def timed_slab_join(join):
+    """(result, host s, peak bytes) of one join ending in a sync."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = join()
+    sync()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def slab_plan(pts, eps: float, n_slabs: int) -> dict:
+    """The host plan of a slab join: hops and the exact halo capacity."""
+    from repro_torch.core import distributed as dist
+    coords, gids, width = dist.partition_points_host(pts, n_slabs)
+    mins, maxs = dist.slab_extents(coords, gids)
+    k_hops = dist.halo_reach(mins, maxs, eps)
+    need = dist.exact_halo_capacity(coords, gids, mins, maxs, eps, k_hops)
+    return dict(slabs=n_slabs, k_hops=k_hops, exact_halo_capacity=need,
+                halo_capacity=min(dist._next_pow2(need), coords.shape[1]),
+                slab_rows=coords.shape[1], narrowest_slab=float(width))
+
+
+def slab_vs_plain(slab) -> tuple[int, int]:
+    """B1 (d) against its plain version on every launch of one slab's join:
+    merged and per-cell sweeps, UNICOMP and self masks, row and run loop,
+    hits plane on and off, in PLAIN_ROWS slices (every slice for the join's
+    own variant, every SLAB_ROW_STRIDE-th for the others). Returns (max
+    |kernel - plain|, launches compared)."""
+    worst = compared = 0
+    for merged in (True, False):
+        for unicomp in (True, False):
+            for run_loop in (True, False):
+                prepared = prepared_launches(slab.index, merged=merged,
+                                             unicomp=unicomp,
+                                             run_loop=run_loop, slab=slab)
+                for keep_hits in (True, False):
+                    own = merged and unicomp and run_loop and keep_hits
+                    for p in prepared:
+                        qp = p["args"][1].shape[0]
+                        step = PLAIN_ROWS * (1 if own else SLAB_ROW_STRIDE)
+                        err, _ = sliced_vs_plain(
+                            p["args"], dict(p["kw"], keep_hits=keep_hits),
+                            p["plan"].run_ord if run_loop else None,
+                            starts=range(0, qp, step))
+                        check(err == 0, f"B1 (d) merged={merged} unicomp="
+                              f"{unicomp} run_loop={run_loop} keep_hits="
+                              f"{keep_hits}: kernel differs from the plain "
+                              f"version by {err}")
+                        worst = max(worst, err)
+                        compared += 1
+    return worst, compared
+
+
+def phase_slab() -> dict:
+    """The slab join in one process on the card (``distributed_self_join``,
+    ROADMAP A14 (i)) and its kernel B1 (d)."""
+    import repro_torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import fused_join as fj
+    t_phase = time.perf_counter()
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    merged = True                  # 2-D: room for the merged and id lanes
+    repro_torch.self_join(pts, eps, device=DEVICE)            # warm-up
+    ref, one_s, one_peak = timed_slab_join(
+        lambda: repro_torch.self_join(pts, eps, device=DEVICE))
+    check(ref.shape[0] == MAIN_TOTAL, f"self_join gave {ref.shape[0]} "
+          f"pairs, recorded {MAIN_TOTAL}")
+    runs = []
+    for n_slabs in SLAB_COUNTS:
+        plan = slab_plan(pts, eps, n_slabs)
+        expected = slab_launch_count(pts, eps, n_slabs, merged)
+        fj.KERNEL_LAUNCHES = fj.GID_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
+        got, join_s, peak = timed_slab_join(
+            lambda: dist.distributed_self_join(pts, eps, n_slabs,
+                                               device=DEVICE))
+        launches = dict(total=fj.KERNEL_LAUNCHES, gid=fj.GID_LAUNCHES,
+                        run_loop=fj.RUN_LOOP_LAUNCHES)
+        check(launches["total"] == launches["gid"] == expected > 0,
+              f"{n_slabs} slabs: B1 launches {launches}, scheduled "
+              f"{expected} B1 (d) launches")
+        check(torch.equal(got, ref), f"{n_slabs} slabs: pairs differ from "
+              f"self_join's ({got.shape[0]} vs {ref.shape[0]})")
+        del got
+        total, count_s, _ = timed_slab_join(
+            lambda: dist.distributed_self_join(pts, eps, n_slabs,
+                                               return_pairs=False,
+                                               device=DEVICE))
+        plain_total, plain_s, _ = timed_slab_join(
+            lambda: dist.distributed_self_join_count(pts, eps, n_slabs,
+                                                     device=DEVICE))
+        check(total == plain_total == MAIN_TOTAL, f"{n_slabs} slabs: "
+              f"count-only {total}, plain count {plain_total}, recorded "
+              f"{MAIN_TOTAL}")
+        runs.append(dict(plan, join_s=join_s, peak_mem_bytes=peak,
+                         launches=launches, count_only_s=count_s,
+                         plain_count_s=plain_s, total_pairs=total))
+        emit("slab", part="main_path", points=MAIN_POINTS, eps=eps,
+             self_join_s=one_s, self_join_peak_bytes=one_peak, **runs[-1])
+
+    # B1 (d) on one slab's launches: against its plain version, and timed
+    # beside B1 (c) / (a) on the same launches without the id masks
+    slab, = [s for s in dist.slab_indexes(pts, eps, SLAB_HELD[0],
+                                          device=DEVICE)
+             if s.slab == SLAB_HELD[1]]
+    worst, compared = slab_vs_plain(slab)
+    gid = prepared_launches(slab.index, merged=merged, unicomp=True,
+                            run_loop=True, slab=slab)
+    pos = [dict(p, kw=dict(p["kw"], gid_pairs=False)) for p in gid]
+    variants = (("gid", gid, "kernel", True),
+                ("gid_row", gid, "kernel", False),
+                ("run", pos, "kernel", True), ("row", pos, "kernel", False),
+                ("plain", gid, "reference", False))
+    rounds = [{key: timed_launches(prep, method, run_loop)
+               for key, prep, method, run_loop in variants}
+              for _ in range(3)]
+    timed = {key: statistics.median(r[key] for r in rounds)
+             for key, _, _, _ in variants}
+    bound_ms, bound_by, nbytes, flops = kernel_bound(gid)
+    held = dict(slabs=SLAB_HELD[0], slab=SLAB_HELD[1],
+                rows=int(slab.index.num_points),
+                owned_rows=int(slab.row_ok.sum()),
+                launch_caps=[p["kw"]["c"] for p in gid],
+                launch_rows=[p["args"][1].shape[0] for p in gid],
+                launches_compared=compared, max_abs_err=worst,
+                gid_ms=timed["gid"], gid_row_loop_ms=timed["gid_row"],
+                positions_run_loop_ms=timed["run"],
+                positions_row_loop_ms=timed["row"], plain_ms=timed["plain"],
+                timed_rounds_ms=rounds, bound_ms=bound_ms, bound_by=bound_by,
+                bound_bytes=nbytes, bound_flops=flops)
+    emit("slab", part="b1d", **held)
+    del slab, gid, pos, ref
+    emit("slab", part="profile", points=MAIN_POINTS, slabs=SLAB_HELD[0],
+         **profiled_join(lambda: dist.distributed_self_join(
+             pts, eps, SLAB_HELD[0], device=DEVICE),
+             spans=("self_join.", "slab_join.")))
+
+    # a skewed set whose halo takes two hops or more
+    skew = expo(SKEW_POINTS, 3)
+    skew_plan = slab_plan(skew, SLAB_SKEW_EPS, SLAB_SKEW_SLABS)
+    check(skew_plan["k_hops"] >= 2, f"the skewed case takes "
+          f"{skew_plan['k_hops']} hop(s)")
+    want, skew_one_s, _ = timed_slab_join(
+        lambda: repro_torch.self_join(skew, SLAB_SKEW_EPS, device=DEVICE))
+    got, skew_s, skew_peak = timed_slab_join(
+        lambda: dist.distributed_self_join(skew, SLAB_SKEW_EPS,
+                                           SLAB_SKEW_SLABS, device=DEVICE))
+    check(got.shape[0] > 0 and torch.equal(got, want),
+          f"skewed slab join: {got.shape[0]} pairs, self_join "
+          f"{want.shape[0]}")
+    emit("slab", part="skew", points=SKEW_POINTS, eps=SLAB_SKEW_EPS,
+         total_pairs=int(got.shape[0]), join_s=skew_s,
+         peak_mem_bytes=skew_peak, self_join_s=skew_one_s, **skew_plan)
+    del skew, want, got
+
+    # cosine through the slab join
+    emb = cosine_data(COSINE_POINTS)
+    want, cos_one_s, _ = timed_slab_join(
+        lambda: repro_torch.self_join(emb, COSINE_T, metric="cosine",
+                                      device=DEVICE))
+    got, cos_s, _ = timed_slab_join(
+        lambda: dist.distributed_self_join(emb, COSINE_T, SLAB_COSINE_SLABS,
+                                           metric="cosine", device=DEVICE))
+    check(got.shape[0] > 0 and torch.equal(got, want),
+          f"cosine slab join: {got.shape[0]} pairs, self_join "
+          f"{want.shape[0]}")
+    cos_total = int(got.shape[0])
+    del emb, want, got
+
+    # refusals: half points past the exact-id bound, a forced overflow
+    refused = {}
+    for what, call in (
+            ("float16_ids", lambda: dist.distributed_self_join(
+                as_half(syn(3000, 2), torch.float16), 2.0, 2,
+                device=DEVICE)),
+            ("halo_overflow", lambda: dist.distributed_self_join(
+                pts, eps, 2, halo_capacity=2, device=DEVICE))):
+        try:
+            call()
+        except (ValueError, RuntimeError) as err:
+            refused[what] = str(err)
+    check(sorted(refused) == ["float16_ids", "halo_overflow"]
+          and "C3" in refused["float16_ids"]
+          and "halo capacity overflow" in refused["halo_overflow"],
+          f"refusals: {refused}")
+    emit("slab", part="cosine_and_refusals", points=COSINE_POINTS,
+         t=COSINE_T, slabs=SLAB_COSINE_SLABS, total_pairs=cos_total,
+         join_s=cos_s, self_join_s=cos_one_s, refused=refused,
+         phase_s=time.perf_counter() - t_phase)
+    counted = runs[-1]["launches"]
+    return dict(launches=counted["gid"], ms=held["gid_ms"],
+                plain_ms=held["plain_ms"], bound_ms=held["bound_ms"],
+                bound_by=held["bound_by"], worst=worst)
+
+
 def phase_half(workloads) -> dict:
     t0 = time.perf_counter()
     main = half_main_path()
@@ -2662,6 +2899,7 @@ def main() -> int:
     served = phase_serve()
     metrics = phase_metrics()
     half = phase_half(workloads)
+    slab = phase_slab()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -2678,8 +2916,10 @@ def main() -> int:
                                 "cosine": metrics["cosine_launches"],
                                 "jaccard": metrics["launches"],
                                 "jaccard_external":
-                                    metrics["external_launches"]},
-        "max_abs_err": max(worst, served["worst"], metrics["worst"]),
+                                    metrics["external_launches"],
+                                "gid": slab["launches"]},
+        "max_abs_err": max(worst, served["worst"], metrics["worst"],
+                           slab["worst"]),
         "ms": b1["ms"],
         "row_loop_ms": b1["row_loop_ms"],
         "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
@@ -2695,6 +2935,9 @@ def main() -> int:
         "jaccard_bound_ms": metrics["bound_ms"],
         "jaccard_bound_by": metrics["bound_by"],
         "jaccard_library_ms": None,
+        "gid_ms": slab["ms"], "gid_plain_ms": slab["plain_ms"],
+        "gid_bound_ms": slab["bound_ms"], "gid_bound_by": slab["bound_by"],
+        "gid_library_ms": None,
         "matched_plain": True,
     }, {
         "name": "distance_tile_hits", "route": "cuda",

@@ -14,8 +14,13 @@ Public API, as the JAX package's ``repro.core`` names it:
     brute_force_join, brute_force_count   -- GPU brute-force baseline (SVI-B)
     epsilon_join, prepare, range_query    -- external-query joins against an
                                              index built once
+    distributed_self_join,                -- the slab join in one process:
+    distributed_self_join_count              equal-count slabs, an eps-halo,
+                                             global ids in kernel B1's masks
 """
 from repro_torch.core.brute import brute_force_count, brute_force_join
+from repro_torch.core.distributed import (distributed_self_join,
+                                          distributed_self_join_count)
 from repro_torch.core.grid import GridIndex, build_grid
 from repro_torch.core.query_join import epsilon_join, prepare
 from repro_torch.core.selfjoin import (JoinStats, per_point_neighbor_counts,
@@ -26,4 +31,5 @@ from repro_torch.core.selfjoin import (JoinStats, per_point_neighbor_counts,
 __all__ = ["GridIndex", "JoinStats", "build_grid", "self_join",
            "self_join_count", "self_join_count_compact", "self_join_batched",
            "per_point_neighbor_counts", "brute_force_count",
-           "brute_force_join", "epsilon_join", "prepare", "range_query"]
+           "brute_force_join", "epsilon_join", "prepare", "range_query",
+           "distributed_self_join", "distributed_self_join_count"]

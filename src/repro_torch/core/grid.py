@@ -266,26 +266,44 @@ def build_grid(points, eps: float, *, device=None) -> GridIndex:
     if not isinstance(points, torch.Tensor):
         points = torch.from_numpy(np.ascontiguousarray(points))
     pts = points.to(resolve_device(device))
+    check_float_points(pts)
+    if pts.ndim != 2 or pts.shape[0] == 0:
+        raise ValueError(f"points must be a non-empty (N, n) array, got "
+                         f"shape {tuple(pts.shape)}")
+    gmin, dims = points_geometry(pts, eps)
+    return build_grid_with_geometry(pts, float(eps), gmin, dims,
+                                    key_dtype=key_dtype_for(dims))
+
+
+def check_float_points(pts: torch.Tensor) -> None:
+    """Refuse points of a dtype the joins do not take."""
     if pts.dtype not in FLOAT_DTYPES:
         raise TypeError(
             f"points must be float64, float32, float16 or bfloat16, got "
             f"{pts.dtype}; the JAX package casts eps to integer points' "
             f"dtype and joins at a truncated radius, so the port refuses "
             f"them (ROADMAP §C, C2): cast to a float dtype first")
-    if pts.ndim != 2 or pts.shape[0] == 0:
-        raise ValueError(f"points must be a non-empty (N, n) array, got "
-                         f"shape {tuple(pts.shape)}")
+
+
+def points_geometry(pts: torch.Tensor, eps) -> tuple[np.ndarray, np.ndarray]:
+    """``host_grid_geometry`` of a tensor of points: only the per-dimension
+    min and max come to the host, in ``geometry_dtype``."""
     extremes = torch.stack([pts.min(dim=0).values, pts.max(dim=0).values])
     extremes = extremes.cpu().to(geometry_dtype(pts.dtype))
-    gmin, dims = host_grid_geometry(extremes.numpy(), float(eps))
-    return build_grid_with_geometry(pts, float(eps), gmin, dims,
-                                    key_dtype=key_dtype_for(dims))
+    return host_grid_geometry(extremes.numpy(), float(eps))
 
 
 def build_grid_with_geometry(points: torch.Tensor, eps: float,
-                             gmin: np.ndarray, dims: np.ndarray, *,
+                             gmin: np.ndarray, dims: np.ndarray,
+                             valid: Optional[torch.Tensor] = None, *,
                              key_dtype) -> GridIndex:
-    """Grid build against given geometry: keys, stable sort, segments."""
+    """Grid build against given geometry: keys, stable sort, segments.
+
+    ``valid`` (the slab join's padded candidate sets) marks real points;
+    the others take the out-of-set sentinel cell, key ``prod(dims)``, which
+    sorts after every real cell and no stencil probe of a real point
+    reaches, and ``max_per_cell`` leaves that cell out. A padded build takes
+    ``device_key_dtype(dims, padded=True)``."""
     dev = points.device
     npts = points.shape[0]
     kd = _TORCH_DTYPES[np.dtype(key_dtype)]
@@ -296,6 +314,10 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     # weakly typed Python eps does (float32 for bfloat16 points)
     eps_g = scalar_as(eps, gmin_t.dtype, dev)
     keys = linearize(cell_coords(points, gmin_t, eps_g), dims_t).to(kd)
+    sentinel = int(np.prod(np.asarray(dims, dtype=object)))
+    if valid is not None:
+        keys = torch.where(valid.to(dev), keys,
+                           torch.tensor(sentinel, dtype=kd, device=dev))
 
     order = torch.argsort(keys, stable=True)
     keys_sorted = keys[order]
@@ -321,6 +343,8 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     nxt = torch.cat([cell_start[1:], cell_start.new_zeros(1)])
     nxt = torch.where(idx == ncells - 1, npts, nxt)
     cell_count = torch.where(idx < ncells, nxt - cell_start, 0).to(torch.int32)
+    real_count = (cell_count if valid is None else
+                  torch.where(cell_keys < sentinel, cell_count, 0))
     return GridIndex(
         grid_min=gmin_t,
         eps=eps_t,
@@ -332,7 +356,7 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
         cell_count=cell_count,
         point_cell_rank=rank,
         num_cells=ncells,
-        max_per_cell=cell_count.max().to(torch.int32),
+        max_per_cell=real_count.max().to(torch.int32),
     )
 
 
@@ -858,6 +882,30 @@ def occupancy_plan(index: GridIndex, align: int = CAP_ALIGN,
     bucket, so per-bucket counts and slot bases concatenate."""
     return index_cached(index, f"plan/{align}/{merged}",
                         lambda: _build_occupancy_plan(index, align, merged))
+
+
+def filter_plan_rows(plan: BucketPlan, row_ok: np.ndarray) -> BucketPlan:
+    """``plan`` restricted to the sorted rows where ``row_ok`` is True (the
+    slab join launches only the rows its slab owns). Selections stay
+    ascending, the single contiguous class becomes an explicit selection,
+    emptied classes drop out, and ``hist`` counts the rows kept; with no row
+    left, one empty class at the global capacity remains."""
+    row_ok = np.asarray(row_ok, bool)
+    caps, sels, hist = [], [], {}
+    for cap, sel in zip(plan.caps, plan.sel):
+        rows = (np.flatnonzero(row_ok).astype(np.int32) if sel is None
+                else sel[row_ok[sel]])
+        if rows.size:
+            caps.append(cap)
+            sels.append(rows)
+            hist[int(cap)] = int(rows.size)
+    if not caps:
+        return BucketPlan(caps=(plan.cap_global,),
+                          sel=(np.zeros(0, np.int32),),
+                          cap_global=plan.cap_global,
+                          hist={plan.cap_global: 0})
+    return BucketPlan(caps=tuple(caps), sel=tuple(sels),
+                      cap_global=plan.cap_global, hist=hist)
 
 
 def _build_occupancy_plan(index: GridIndex, align: int,

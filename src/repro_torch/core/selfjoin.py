@@ -47,10 +47,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.grid import (_NUMPY_DTYPES, GridIndex, RunPlan,
-                                   _keys64, _pad_probe, build_grid,
+from repro_torch.core.grid import (_NUMPY_DTYPES, BucketPlan, GridIndex,
+                                   RunPlan, _keys64, _pad_probe, build_grid,
                                    cell_run_plan, cell_window_tables,
-                                   check_merged_lane,
+                                   check_merged_lane, filter_plan_rows,
                                    global_window_cap, host_dims,
                                    neighbor_rank, occupancy_plan,
                                    point_last_coords,
@@ -219,18 +219,19 @@ def _launch_run_plan(index: GridIndex, q_pos, *, tile: int) -> RunPlan:
 
 def _fused_pad(index: GridIndex, *, q_size: int, c: int,
                q_start_max: int = 0, tq: int = TQ_DEFAULT,
-               merged: bool = False, feats=None):
+               merged: bool = False, gid=None, feats=None):
     """One padded copy of the points for every launch of a sweep. The tail
     covers the c-slot window reads and the last batch's rounded-up query
     slice; ``feats`` (a metric's feature payload in sorted point order)
-    rides right after the coordinates, and merged sweeps carry the
-    last-dimension cell coordinate after that."""
+    rides right after the coordinates, merged sweeps carry the
+    last-dimension cell coordinate after that, and ``gid`` (the slab join's
+    global ids in sorted point order) the lane after those."""
     qp = round_up(max(q_size, 1), tq)
     tail = max(c, q_start_max + qp - index.num_points)
     if merged:
         check_merged_lane(index)
     lc = point_last_coords(index) if merged else None
-    return pad_points(index.points_sorted, tail, last_coord=lc,
+    return pad_points(index.points_sorted, tail, last_coord=lc, gid=gid,
                       feats=feats), qp
 
 
@@ -269,7 +270,7 @@ def _launch_prep(index: GridIndex, points_pad, deltas, launch, *,
 def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
                   unicomp: bool, keep_hits: bool, merged: bool,
                   run_loop: bool = False, metric: str = "l2",
-                  n_feat: int = 0, refine_eps=None):
+                  n_feat: int = 0, refine_eps=None, gid_pairs: bool = False):
     """One launch through the fused kernel at its capacity (the JAX
     package's ``_fused_batch_run`` and ``_fused_bucket_launch``). With
     ``run_loop`` the descriptors come from the per-cell tables and the
@@ -277,7 +278,8 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
     (None without). ``metric`` / ``n_feat`` pick the refine predicate;
     ``refine_eps`` is the scalar it compares against when the index's cell
     width is not it (jaccard prunes on set sizes at ``eps_geom`` and refines
-    against the threshold t)."""
+    against the threshold t). ``gid_pairs``: the masks compare the global
+    ids of ``points_pad``'s id lane (B1 (d))."""
     _, _, _, _, c, tile = launch
     plan = None
     with record_function("self_join.plan"):
@@ -291,8 +293,8 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
         hits, counts, base = ops.fused_join_hits(
             points_pad, q_batch, ws, wc, is_zero, q_pos,
             index.eps if refine_eps is None else refine_eps, c=c,
-            n_real=index.n_dims, unicomp=unicomp, merged=merged, tq=tile,
-            keep_hits=keep_hits,
+            n_real=index.n_dims, unicomp=unicomp, merged=merged,
+            gid_pairs=gid_pairs, tq=tile, keep_hits=keep_hits,
             run_ord=None if plan is None else plan.run_ord,
             run_loop=run_loop, metric=metric, n_feat=n_feat)
     return ws, wc, wcells, hits, counts, base, q_pos, plan
@@ -300,13 +302,17 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
 
 def _fused_launches(index: GridIndex, *, n_batches: int = 1,
                     bucketed: Optional[bool] = None, merged: bool = False,
+                    row_ok: Optional[np.ndarray] = None, gid=None,
                     feats=None):
     """The launch schedule of one fused sweep: one launch per occupancy
     bucket, or contiguous batches when the plan has a single class; either
     is cut to ``ceil(npts / n_batches)`` rows a launch (``n_batches``
     clamped to [1, npts]). Returns (launches, points_pad, c_global), each
-    launch (sel | None, q_start, q_size, qp, c, tile); ``feats`` rides the
-    padded points (``_fused_pad``)."""
+    launch (sel | None, q_start, q_size, qp, c, tile); ``gid`` and
+    ``feats`` ride the padded points (``_fused_pad``). ``row_ok`` (the
+    slab join: the rows its slab owns, a host bool mask over sorted
+    positions) keeps only those rows as queries, every launch then an
+    explicit selection (``grid.filter_plan_rows``)."""
     npts = index.num_points
     c_glob = global_window_cap(index, merged)
     n_batches = max(min(int(n_batches), max(npts, 1)), 1)
@@ -314,19 +320,24 @@ def _fused_launches(index: GridIndex, *, n_batches: int = 1,
     if bucketed is None:
         bucketed = True
     plan = occupancy_plan(index, merged=merged) if bucketed else None
+    if row_ok is not None:
+        if plan is None:
+            plan = BucketPlan(caps=(c_glob,), sel=(None,), cap_global=c_glob,
+                              hist={c_glob: npts})
+        plan = filter_plan_rows(plan, row_ok)
     tile = TQ_DEFAULT
     if plan is None or plan.sel[0] is None:
         cap = c_glob if plan is None else plan.caps[0]
         points_pad, qp = _fused_pad(
             index, q_size=batch_rows, c=c_glob, tq=tile,
             q_start_max=(n_batches - 1) * batch_rows, merged=merged,
-            feats=feats)
+            gid=gid, feats=feats)
         launches = [(None, b * batch_rows,
                      min(batch_rows, npts - b * batch_rows), qp, cap, tile)
                     for b in range(n_batches)]
         return launches, points_pad, c_glob
     points_pad, _ = _fused_pad(index, q_size=1, c=c_glob, merged=merged,
-                               feats=feats)
+                               gid=gid, feats=feats)
     launches = []
     for cap, sel in zip(plan.caps, plan.sel):
         for i in range(0, sel.shape[0], batch_rows):
@@ -424,8 +435,9 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
                      n_batches: int = 1, bucketed: Optional[bool] = None,
                      merged: bool = True, run_loop: Optional[bool] = None,
                      to_host: bool = False, metric: str = "l2",
-                     n_feat: int = 0, feats=None,
-                     refine_eps=None) -> torch.Tensor:
+                     n_feat: int = 0, feats=None, refine_eps=None,
+                     row_ok: Optional[np.ndarray] = None, ids=None,
+                     gid_pairs: bool = False) -> torch.Tensor:
     """Single-pass count -> fill driver for ``distance_impl="fused"``.
 
     Each launch's kernel returns its hit plane and counts; the result size
@@ -442,6 +454,15 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     scalar where it is not the index's cell width (``_fused_launch``). The
     emit reads only hits and descriptors, whatever the metric.
 
+    The slab join (``core.distributed``) runs this driver per slab with
+    ``row_ok`` (the sorted rows the slab owns, the only queries), ``ids``
+    (sorted position -> global point id, on the index's device, emitted in
+    place of ``index.order``) and ``gid_pairs`` (the ids ride a pad lane
+    and the kernel's masks compare them, B1 (d)); it owns a row of every
+    slab it joins, and sorts all slabs' pairs itself (``sort_result``
+    False). The one-process join is ``row_ok=None, ids=None,
+    gid_pairs=False``.
+
     The stages run inside ``torch.profiler.record_function`` spans
     (``self_join.plan``, ``.kernel``, ``.emit``) that a profiler groups its
     time by.
@@ -453,9 +474,10 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
             deltas, is_zero = _merged_offset_tables(index, unicomp)
         else:
             deltas, is_zero = _offset_tables(index, unicomp)
+        ids_dev = index.order if ids is None else ids
         launches, points_pad, _ = _fused_launches(
             index, n_batches=n_batches, bucketed=bucketed, merged=merged,
-            feats=feats)
+            row_ok=row_ok, gid=ids_dev if gid_pairs else None, feats=feats)
     mult = 2 if unicomp else 1
     host = _HostCopies(index.device) if to_host else None
 
@@ -465,7 +487,7 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         with record_function("self_join.emit"):
             ordered = mult * int(counts.sum(dtype=torch.int64))
             keys, vals = _emit_from_hits(
-                index, index.order, hits, counts, base, ws, q_pos, c=cap,
+                index, ids_dev, hits, counts, base, ws, q_pos, c=cap,
                 tq=tile, unicomp=unicomp, capacity=max(ordered, 1))
             chunk = torch.stack([keys[:ordered], vals[:ordered]], dim=1)
             if host is None:
@@ -479,7 +501,7 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         ws, _, _, hits, counts, base, q_pos, _ = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
             keep_hits=True, merged=merged, run_loop=run_loop, metric=metric,
-            n_feat=n_feat, refine_eps=refine_eps)
+            n_feat=n_feat, refine_eps=refine_eps, gid_pairs=gid_pairs)
         if prev is not None:
             finish(prev)
         prev = (ws, hits, counts, base, q_pos, launch[4], launch[5])
@@ -496,15 +518,18 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
                            bucketed: Optional[bool] = None,
                            merged: bool = True,
                            run_loop: bool = False, metric: str = "l2",
-                           n_feat: int = 0, feats=None,
-                           refine_eps=None) -> JoinStats:
+                           n_feat: int = 0, feats=None, refine_eps=None,
+                           row_ok: Optional[np.ndarray] = None, ids=None,
+                           gid_pairs: bool = False) -> JoinStats:
     """Count-only fused sweep (no hit plane). Occupancy-bucketed by
     default; an explicit ``query_batch`` runs contiguous batches at the
     global capacity (the paper's SV-A memory bound). Merged and per-cell
     sweeps report the same totals, cells and candidates. ``run_loop`` (the
     ``"dense-run"`` route) reads windows once per cell run: the same totals
     and counters, with the window reads it issued and saved. The metric
-    arguments are ``_self_join_fused``'s."""
+    and slab arguments (``row_ok``, ``ids``, ``gid_pairs``) are
+    ``_self_join_fused``'s; ``row_ok`` applies to the bucketed schedule,
+    not to an explicit ``query_batch``."""
     if merged:
         deltas, is_zero = _merged_offset_tables(index, unicomp)
     else:
@@ -512,25 +537,27 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
     n_off = int(is_zero.shape[0])
     npts = index.num_points
     mult = 2 if unicomp else 1
+    gid = ids if gid_pairs else None
     if query_batch:
         c = global_window_cap(index, merged)
         q_size = int(query_batch)
         points_pad, qp = _fused_pad(
             index, q_size=q_size, c=c, tq=TQ_DEFAULT,
             q_start_max=((npts - 1) // q_size) * q_size, merged=merged,
-            feats=feats)
+            gid=gid, feats=feats)
         launches = [(None, q_start, min(q_size, npts - q_start), qp, c,
                      TQ_DEFAULT) for q_start in range(0, npts, q_size)]
     else:
-        launches, points_pad, _ = _fused_launches(index, bucketed=bucketed,
-                                                  merged=merged, feats=feats)
+        launches, points_pad, _ = _fused_launches(
+            index, bucketed=bucketed, merged=merged, row_ok=row_ok, gid=gid,
+            feats=feats)
     row_bytes = points_pad.shape[1] * points_pad.element_size()
     total = cells = cands = dma_windows = dma_saved = 0
     for launch in launches:
         _, wc, wcells, _, counts, _, _, plan = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
             keep_hits=False, merged=merged, run_loop=run_loop, metric=metric,
-            n_feat=n_feat, refine_eps=refine_eps)
+            n_feat=n_feat, refine_eps=refine_eps, gid_pairs=gid_pairs)
         qp, cap = launch[3], launch[4]
         if plan is None:
             dma_windows += n_off * qp

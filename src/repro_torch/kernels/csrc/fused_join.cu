@@ -4,8 +4,9 @@
 // for the l2 metric (and cosine, which is l2 on unit rows): per-cell and
 // merged sweeps, the three masks (UNICOMP, self, external queries), with and
 // without the hits plane, in float64, float32, float16 and bfloat16 (see
-// the note on half precision below); and for the jaccard metric
-// (the JACCARD template parameter, below). It computes what
+// the note on half precision below); for the jaccard metric (the JACCARD
+// template parameter, below); and with the global-id masks of the slab join
+// (the GID template parameter, below). It computes what
 // repro_torch/kernels/fused_join.py::_fused_join_hits_reference computes, bit
 // for bit:
 //
@@ -93,6 +94,27 @@
 // (tq * lanes floats) passes the 48 KiB default of shared memory, so the
 // launch opts in to more, up to the device's limit (227 KB on the H100);
 // the wrapper refuses a tile beyond that.
+//
+// Global ids (GID, the TPU kernel's gid_pairs; B1 (d)). The slab join of
+// core/distributed.py runs each slab's join over its own points and a halo
+// of its neighbours', so sorted positions differ from slab to slab and
+// cannot break a tie inside a cell the same way everywhere. Each row then
+// carries its global point id, a float of the row dtype, in lane
+// n_real + MERGED (after the merged lane; tail rows hold -1), and the masks
+// compare ids instead of positions:
+//     SELF     keep gc != gq
+//     UNICOMP  on the zero offset keep gc > gq; on the merged sweep, whose
+//              zero offset's window spans the own cell and the next one
+//              along the last dimension, keep ldiff > 0 || (ldiff == 0 &&
+//              gc > gq), with ldiff = p[n_real] - q[n_real] rounded as in
+//              the boundary test
+// Ids are compared as floats of the row dtype, as the plain version
+// compares them; the driver refuses ids the dtype does not hold exactly.
+// The lane is one more the refine reads, so the run loop stages it too.
+// Only the l2 refine at the four dtypes with the SELF and UNICOMP masks is
+// instantiated: external queries and Jaccard never take ids. The lane
+// costs 2 to 8 bytes a slot on top of the candidate row, so the bound is
+// still bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -169,7 +191,7 @@ __device__ __forceinline__ bool mask_hit(bool hit, bool zero, int cand,
 }
 
 // One slot's L2 refine and masks, in the plain version's order of operations.
-template <typename T, bool MERGED, int MASK>
+template <typename T, bool MERGED, int MASK, bool GID>
 __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
                                             int n_real, bool zero, int cand,
                                             int qpos) {
@@ -181,9 +203,22 @@ __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
     d2 = Ar::add(d2, Ar::mul(t, t));
   }
   bool hit = d2 <= Ar::load(eps2);
-  if (MERGED)
-    hit = hit && fabs(Ar::sub(Ar::load(p[n_real]), Ar::load(q[n_real]))) <= A(1);
-  return mask_hit<MASK>(hit, zero, cand, qpos);
+  A ldiff = A(0);
+  if (MERGED) {
+    ldiff = Ar::sub(Ar::load(p[n_real]), Ar::load(q[n_real]));
+    hit = hit && fabs(ldiff) <= A(1);
+  }
+  if constexpr (GID) {
+    // the global-id masks (B1 (d), the note above)
+    const A gc = Ar::load(p[n_real + MERGED]);
+    const A gq = Ar::load(q[n_real + MERGED]);
+    if (MASK == kMaskSelf) return hit && gc != gq;
+    bool tri = gc > gq;
+    if (MERGED) tri = ldiff > A(0) || (ldiff == A(0) && tri);
+    return hit && (!zero || tri);
+  } else {
+    return mask_hit<MASK>(hit, zero, cand, qpos);
+  }
 }
 
 // Jaccard (B1 (e)): the intersection is the popcount of the AND of the packed
@@ -202,7 +237,7 @@ __device__ __forceinline__ bool refine_jaccard(const T* p, const T* q, T t,
   return mask_hit<MASK>(uni > T(0) && fi >= mul_rn(t, uni), zero, cand, qpos);
 }
 
-template <typename T, bool MERGED, int MASK, bool JACCARD>
+template <typename T, bool MERGED, int MASK, bool JACCARD, bool GID>
 __device__ __forceinline__ bool refine(const T* p, const T* q, T scal,
                                        int n_real, int n_feat, bool zero,
                                        int cand, int qpos) {
@@ -210,12 +245,12 @@ __device__ __forceinline__ bool refine(const T* p, const T* q, T scal,
     return refine_jaccard<T, MASK>(p, q, scal, n_real, n_feat, zero, cand,
                                    qpos);
   else
-    return refine_slot<T, MERGED, MASK>(p, q, scal, n_real, zero, cand,
-                                        qpos);
+    return refine_slot<T, MERGED, MASK, GID>(p, q, scal, n_real, zero, cand,
+                                             qpos);
 }
 
 template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
-          bool JACCARD>
+          bool JACCARD, bool GID>
 __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const T* __restrict__ points_pad,   // (rows, lanes)
     const T* __restrict__ q_batch,      // (qp, lanes)
@@ -267,8 +302,10 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     }
   }
   const T eps2 = scal[0];
-  // lanes a refine reads: coordinates (sizes), Jaccard's words, merged lane
-  const int n_use = n_real + (JACCARD ? n_feat : 0) + (MERGED ? 1 : 0);
+  // lanes a refine reads: coordinates (sizes), Jaccard's words, merged lane,
+  // global-id lane
+  const int n_use =
+      n_real + (JACCARD ? n_feat : 0) + (MERGED ? 1 : 0) + (GID ? 1 : 0);
   const int stage_rows = stage_bytes / (n_use * (int)sizeof(T));
   const int seg_cap = c < stage_rows ? c : stage_rows;  // slots per segment
   const int runs_per_chunk = stage_rows / seg_cap;
@@ -290,7 +327,7 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
         bool hit = false;
         if (s < wc_s[r]) {
           const int cand = ws_s[r] + s;
-          hit = refine<T, MERGED, MASK, JACCARD>(
+          hit = refine<T, MERGED, MASK, JACCARD, GID>(
               points_pad + (size_t)cand * lanes, q_s + r * lanes, eps2,
               n_real, n_feat, zero, cand, qpos_s[r]);
         }
@@ -333,7 +370,7 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
             const T* p = (ws_s[r] == ws_s[h] && slot < wc_s[h])
                 ? stage + ((size_t)(u - u0) * seg_cap + s) * n_use
                 : points_pad + (size_t)cand * lanes;
-            hit = refine<T, MERGED, MASK, JACCARD>(
+            hit = refine<T, MERGED, MASK, JACCARD, GID>(
                 p, q_s + r * lanes, eps2, n_real, n_feat, zero, cand,
                 qpos_s[r]);
           }
@@ -362,11 +399,12 @@ struct Args {
 };
 
 template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
-          bool JACCARD>
+          bool JACCARD, bool GID>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.tq * a.lanes * sizeof(T) + 4 * a.tq * sizeof(int)
       + (RUN_LOOP ? (size_t)a.stage_bytes + (2 * a.tq + 2) * sizeof(int) : 0);
-  auto kernel = fused_join_kernel<T, MERGED, MASK, KEEP_HITS, RUN_LOOP, JACCARD>;
+  auto kernel =
+      fused_join_kernel<T, MERGED, MASK, KEEP_HITS, RUN_LOOP, JACCARD, GID>;
   if (smem > 48 * 1024) {
     // a wide vocabulary's query tile: opt in past the 48 KiB default (the
     // wrapper has checked the device's opt-in limit)
@@ -385,21 +423,41 @@ int launch(const Args& a, cudaStream_t stream) {
   return 0;
 }
 
-template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool JACCARD>
+template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool JACCARD,
+          bool GID>
 int launch_run(const Args& a, bool run_loop, cudaStream_t s) {
-  if (run_loop) return launch<T, MERGED, MASK, KEEP_HITS, true, JACCARD>(a, s);
-  return launch<T, MERGED, MASK, KEEP_HITS, false, JACCARD>(a, s);
+  if (run_loop)
+    return launch<T, MERGED, MASK, KEEP_HITS, true, JACCARD, GID>(a, s);
+  return launch<T, MERGED, MASK, KEEP_HITS, false, JACCARD, GID>(a, s);
 }
 
-template <typename T, bool MERGED, int MASK, bool JACCARD>
+template <typename T, bool MERGED, int MASK, bool JACCARD, bool GID = false>
 int launch_keep(const Args& a, bool keep_hits, bool run_loop, cudaStream_t s) {
-  if (keep_hits) return launch_run<T, MERGED, MASK, true, JACCARD>(a, run_loop, s);
-  return launch_run<T, MERGED, MASK, false, JACCARD>(a, run_loop, s);
+  if (keep_hits)
+    return launch_run<T, MERGED, MASK, true, JACCARD, GID>(a, run_loop, s);
+  return launch_run<T, MERGED, MASK, false, JACCARD, GID>(a, run_loop, s);
 }
 
+// `gid` (B1 (d)) is instantiated for the l2 refine with the SELF and
+// UNICOMP masks only; any other combination is refused.
 template <typename T, bool MERGED, bool JACCARD>
-int launch_mask(const Args& a, int mask, bool keep_hits, bool run_loop,
-                cudaStream_t s) {
+int launch_mask(const Args& a, int mask, bool gid, bool keep_hits,
+                bool run_loop, cudaStream_t s) {
+  if (gid) {
+    if constexpr (JACCARD) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      switch (mask) {
+        case kMaskSelf:
+          return launch_keep<T, MERGED, kMaskSelf, false, true>(
+              a, keep_hits, run_loop, s);
+        case kMaskUnicomp:
+          return launch_keep<T, MERGED, kMaskUnicomp, false, true>(
+              a, keep_hits, run_loop, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+  }
   switch (mask) {
     case kMaskSelf:
       return launch_keep<T, MERGED, kMaskSelf, JACCARD>(a, keep_hits, run_loop, s);
@@ -412,10 +470,11 @@ int launch_mask(const Args& a, int mask, bool keep_hits, bool run_loop,
 }
 
 template <typename T>
-int launch_merged(const Args& a, bool merged, int mask, bool keep_hits,
-                  bool run_loop, cudaStream_t s) {
-  if (merged) return launch_mask<T, true, false>(a, mask, keep_hits, run_loop, s);
-  return launch_mask<T, false, false>(a, mask, keep_hits, run_loop, s);
+int launch_merged(const Args& a, bool merged, int mask, bool gid,
+                  bool keep_hits, bool run_loop, cudaStream_t s) {
+  if (merged)
+    return launch_mask<T, true, false>(a, mask, gid, keep_hits, run_loop, s);
+  return launch_mask<T, false, false>(a, mask, gid, keep_hits, run_loop, s);
 }
 
 }  // namespace
@@ -423,14 +482,16 @@ int launch_merged(const Args& a, bool merged, int mask, bool keep_hits,
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
 // launch was accepted), or cudaErrorInvalidValue for an unknown dtype code
 // (0 float32, 1 float64, 2 float16, 3 bfloat16) or mask mode (0 self,
-// 1 UNICOMP, 2 external), or a Jaccard launch that is not float32 per-cell. The Python wrapper validates shapes and dtypes (qp % tq == 0,
-// lanes >= n_real + n_feat + merged, run_ord with run_loop) and the
+// 1 UNICOMP, 2 external), a Jaccard launch that is not float32 per-cell, or
+// a global-id launch with the external mask or Jaccard. The Python wrapper
+// validates shapes and dtypes (qp % tq == 0, lanes >= n_real + n_feat +
+// merged + gid, run_ord with run_loop) and the
 // shared-memory total against fused_join_smem_optin; the drivers pad
 // points_pad with a tail of at least c rows, so every window read is in
 // bounds.
 extern "C" int fused_join_launch(
     int dtype, int merged, int mask, int keep_hits, int run_loop,
-    int jaccard, const void* points_pad, const void* q_batch,
+    int jaccard, int gid, const void* points_pad, const void* q_batch,
     const void* win_start, const void* win_count, const void* is_zero,
     const void* q_pos, const void* run_ord, const void* scal, void* hits,
     void* counts, void* slot_base, int n_off, int qp, int c, int n_real,
@@ -444,20 +505,24 @@ extern "C" int fused_join_launch(
     // the drivers reach Jaccard only as float32 words on the per-cell sweep
     if (dtype != kFloat32 || merged)
       return static_cast<int>(cudaErrorInvalidValue);
-    bad = launch_mask<float, false, true>(a, mask, keep_hits, run_loop, s);
+    bad = launch_mask<float, false, true>(a, mask, gid, keep_hits, run_loop,
+                                          s);
   } else {
     switch (dtype) {
       case kFloat32:
-        bad = launch_merged<float>(a, merged, mask, keep_hits, run_loop, s);
+        bad = launch_merged<float>(a, merged, mask, gid, keep_hits, run_loop,
+                                   s);
         break;
       case kFloat64:
-        bad = launch_merged<double>(a, merged, mask, keep_hits, run_loop, s);
+        bad = launch_merged<double>(a, merged, mask, gid, keep_hits,
+                                    run_loop, s);
         break;
       case kFloat16:
-        bad = launch_merged<__half>(a, merged, mask, keep_hits, run_loop, s);
+        bad = launch_merged<__half>(a, merged, mask, gid, keep_hits,
+                                    run_loop, s);
         break;
       case kBFloat16:
-        bad = launch_merged<__nv_bfloat16>(a, merged, mask, keep_hits,
+        bad = launch_merged<__nv_bfloat16>(a, merged, mask, gid, keep_hits,
                                            run_loop, s);
         break;
       default: return static_cast<int>(cudaErrorInvalidValue);

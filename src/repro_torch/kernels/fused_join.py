@@ -7,7 +7,9 @@ refined by the metric's predicate (``core.metric.plane_refine_hits``: the L2
 distance against epsilon for l2 and cosine, the bitmap popcount against the
 threshold t for jaccard) and masked (window length, merged last-dimension
 boundary, then the UNICOMP triangle, the self pair, or nothing for external
-queries, which are not points of the index). The launch returns
+queries, which are not points of the index; with ``gid_pairs`` the
+UNICOMP and self masks compare global point ids riding a pad lane instead
+of sorted positions, as the slab join needs). The launch returns
 
     hits      (n_off, Q_pad, C) int8  -- masked epsilon hits
     counts    (Q_pad,)          int32 -- per-row hits over all offsets
@@ -49,11 +51,13 @@ TQ_DEFAULT = 128  # query tile rows
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
 # one per call that reaches the kernel, and nowhere else; the others count
-# the run-loop, the external-query and the Jaccard launches among them.
+# the run-loop, the external-query, the Jaccard and the global-id (slab
+# join) launches among them.
 KERNEL_LAUNCHES = 0
 RUN_LOOP_LAUNCHES = 0
 EXTERNAL_LAUNCHES = 0
 JACCARD_LAUNCHES = 0
+GID_LAUNCHES = 0
 # the kernel's mask modes (csrc/fused_join.cu): the self mask, the UNICOMP
 # triangle, and none for external queries
 MASK_SELF, MASK_UNICOMP, MASK_EXTERNAL = 0, 1, 2
@@ -65,16 +69,20 @@ def pad_width(n_lanes: int) -> int:
     return max(NP_PAD, -(-int(n_lanes) // 8) * 8)
 
 
-def resolve_merge_last_dim(n_dims: int, merge_last_dim: bool | None) -> bool:
+def resolve_merge_last_dim(n_dims: int, merge_last_dim: bool | None,
+                           extra_lanes: int = 0) -> bool:
     """Merged-range sweeps default on, and need a free pad lane for the
-    last-dimension cell coordinate (``n_dims < NP_PAD``)."""
+    last-dimension cell coordinate besides the ``n_dims`` coordinates and
+    ``extra_lanes`` more (the slab join's global-id lane):
+    ``n_dims + extra_lanes < NP_PAD``."""
     if merge_last_dim is None:
         merge_last_dim = True
-    return bool(merge_last_dim) and n_dims < NP_PAD
+    return bool(merge_last_dim) and n_dims + extra_lanes < NP_PAD
 
 
 def pad_points(points_sorted: torch.Tensor, tail: int,
                last_coord: torch.Tensor | None = None,
+               gid: torch.Tensor | None = None,
                feats: torch.Tensor | None = None) -> torch.Tensor:
     """(N, n) -> (N + tail, L) zero-padded copy for window reads, with L the
     ``pad_width`` of the occupied lanes.
@@ -83,39 +91,61 @@ def pad_points(points_sorted: torch.Tensor, tail: int,
     jaccard metric's packed token words, in sorted point order) fill lanes
     [n, n + n_feat), right after the coordinates. ``last_coord`` (merged
     sweeps) is each point's last-dimension cell coordinate, stored as an
-    exact float in the next lane. Tail rows hold 0.
+    exact float in the next lane. ``gid`` (the slab join) is each point's
+    global id, as a float of the points' dtype in the lane after those;
+    its tail rows hold -1. Other tail lanes hold 0.
     """
     n_pts, n = points_sorted.shape
     n_feat = 0 if feats is None else feats.shape[1]
-    lanes = pad_width(n + n_feat + (0 if last_coord is None else 1))
-    out = points_sorted.new_zeros((n_pts + tail, lanes))
+    lane = n + n_feat + (0 if last_coord is None else 1)
+    out = points_sorted.new_zeros(
+        (n_pts + tail, pad_width(lane + (0 if gid is None else 1))))
     out[:n_pts, :n] = points_sorted
     if feats is not None:
         out[:n_pts, n:n + n_feat] = feats.to(points_sorted.dtype)
     if last_coord is not None:
         out[:n_pts, n + n_feat] = last_coord.to(points_sorted.dtype)
+    if gid is not None:
+        out[:n_pts, lane] = gid.to(points_sorted.dtype)
+        out[n_pts:, lane] = -1
     return out
 
 
 def _mask_hits(hit, cand_pos, q_pos, zero, unicomp: bool,
-               external: bool = False):
+               external: bool = False, gq=None, gc=None, ldiff=None):
     """UNICOMP triangle on the zero offset, else the self-pair mask.
-    External queries have no self pair and no triangle: the identity."""
+    External queries have no self pair and no triangle: the identity.
+
+    ``gq`` / ``gc`` (the slab join, B1 (d)): global ids of query and
+    candidate replace sorted positions, so every slab breaks a tie inside a
+    cell the same way. On the merged sweep the zero offset's window spans
+    the own cell and the next one along the last dimension; only the own
+    cell (``ldiff == 0``) takes the id triangle, the next cell (``ldiff >
+    0``) counts whole, as sorted positions gave for free."""
     if external:
         return hit
+    if gq is not None:
+        if not unicomp:
+            return hit & (gc != gq)
+        tri = gc > gq
+        if ldiff is not None:
+            tri = (ldiff > 0) | ((ldiff == 0) & tri)
+        return hit & (tri | (zero == 0))
     if unicomp:
         return hit & ((cand_pos > q_pos) | (zero == 0))
     return hit & (cand_pos != q_pos)
 
 
 def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
-                 n_real, unicomp, external, merged, metric, n_feat):
+                 n_real, unicomp, external, merged, metric, n_feat,
+                 gid_pairs=False):
     """Masked (Q, C) hits of every query row against one offset's windows."""
     slots = torch.arange(c, dtype=torch.int32, device=points_pad.device)
     cand_pos = ws[:, None] + slots[None, :]
     hit = metric_lib.plane_refine_hits(metric, points_pad, q_batch, cand_pos,
                                        scal, n_real=n_real, n_feat=n_feat)
     hit = hit & (slots[None, :] < wc[:, None])
+    ldiff = gq = gc = None
     if merged:
         # cell coordinates ride the lane after the coordinate and feature
         # lanes as exact integers
@@ -123,14 +153,19 @@ def _offset_hits(points_pad, q_batch, ws, wc, zero, q_pos, scal, *, c,
         ldiff = (points_pad[:, ml][cand_pos.long()]
                  - q_batch[:, ml][:, None])
         hit = hit & (torch.abs(ldiff) <= 1)
+    if gid_pairs:
+        # global ids ride the lane after the merged lane, exact in the dtype
+        gl = n_real + n_feat + (1 if merged else 0)
+        gq = q_batch[:, gl][:, None]
+        gc = points_pad[:, gl][cand_pos.long()]
     return _mask_hits(hit, cand_pos, q_pos[:, None], zero, unicomp,
-                      external)
+                      external, gq, gc, ldiff if gid_pairs else None)
 
 
 def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
                                is_zero, q_pos, scal, *, c, tq, n_real,
                                unicomp, external, merged, keep_hits,
-                               metric="l2", n_feat=0):
+                               metric="l2", n_feat=0, gid_pairs=False):
     """The plain PyTorch version of the kernel."""
     n_off, qp = win_start.shape
     dev = points_pad.device
@@ -141,7 +176,8 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
         hit = _offset_hits(points_pad, q_batch, win_start[j], win_count[j],
                            is_zero[j], q_pos, scal, c=c, n_real=n_real,
                            unicomp=unicomp, external=external,
-                           merged=merged, metric=metric, n_feat=n_feat)
+                           merged=merged, metric=metric, n_feat=n_feat,
+                           gid_pairs=gid_pairs)
         counts = counts + hit.sum(dim=1, dtype=torch.int32)
         if keep_hits:
             hits[j] = hit.to(torch.int8)
@@ -150,7 +186,7 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
     return hits, counts, base
 
 
-_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 11
+_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 11
              + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 # Shared memory the run loop stages windows in. With the query tile and the
 # per-row tables a 128-row f64 block then needs ~25 KiB, so eight 256-thread
@@ -200,7 +236,7 @@ def shared_bytes(tq: int, lanes: int, item: int, run_loop: bool) -> int:
 
 def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
             run_ord, scal, hits, counts, slot_base, merged, unicomp,
-            external, keep_hits, c, n_real, tq, metric, n_feat):
+            external, keep_hits, c, n_real, tq, metric, n_feat, gid_pairs):
     """The kernel launch on the current stream, as the CUDA implementation
     of the torch op ``repro_torch::fused_join`` (below)."""
     dev = points_pad.device
@@ -213,7 +249,7 @@ def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
             (MASK_EXTERNAL if external
              else MASK_UNICOMP if unicomp else MASK_SELF),
             int(keep_hits), int(run_ord is not None),
-            int(metric == "jaccard"), points_pad.data_ptr(),
+            int(metric == "jaccard"), int(gid_pairs), points_pad.data_ptr(),
             q_batch.data_ptr(), win_start.data_ptr(), win_count.data_ptr(),
             is_zero.data_ptr(), q_pos.data_ptr(),
             0 if run_ord is None else run_ord.data_ptr(), scal.data_ptr(),
@@ -233,17 +269,18 @@ _OPS.define("fused_join(Tensor points_pad, Tensor q_batch, Tensor win_start, "
             "Tensor scal, Tensor(a!) hits, Tensor(b!) counts, "
             "Tensor(c!) slot_base, bool merged, bool unicomp, bool external, "
             "bool keep_hits, int c, int n_real, int tq, str metric, "
-            "int n_feat) -> ()")
+            "int n_feat, bool gid_pairs) -> ()")
 _OPS.impl("fused_join", _launch, "CUDA")
 
 
 def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                           q_pos, run_ord, scal, *, c, tq, n_real, unicomp,
-                          external, merged, keep_hits, metric, n_feat):
+                          external, merged, keep_hits, metric, n_feat,
+                          gid_pairs):
     """Launch ``csrc/fused_join.cu`` on the current stream (no sync);
     ``run_ord`` None runs the row loop, a (Qp,) plan the run loop."""
     global KERNEL_LAUNCHES, RUN_LOOP_LAUNCHES, EXTERNAL_LAUNCHES
-    global JACCARD_LAUNCHES
+    global JACCARD_LAUNCHES, GID_LAUNCHES
     dev = points_pad.device
     dtype = points_pad.dtype
     n_off, qp = win_start.shape
@@ -278,10 +315,12 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
         raise ValueError("points_pad must be contiguous")
     if tq <= 0 or qp % tq:
         raise ValueError(f"query rows {qp} must be a multiple of tq={tq}")
-    if n_real + n_feat + (1 if merged else 0) > lanes:
+    if n_real + n_feat + (1 if merged else 0) + (1 if gid_pairs else 0) \
+            > lanes:
         raise ValueError(f"{lanes} lanes cannot hold {n_real} coordinates"
                          f"{f' and {n_feat} feature lanes' if n_feat else ''}"
-                         f"{' and the merged lane' if merged else ''}")
+                         f"{' and the merged lane' if merged else ''}"
+                         f"{' and the global-id lane' if gid_pairs else ''}")
     smem = shared_bytes(tq, lanes, points_pad.element_size(),
                         run_ord is not None)
     if smem > SMEM_DEFAULT and smem > smem_limit(dev):
@@ -296,11 +335,12 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
     torch.ops.repro_torch.fused_join(
         points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
         scal, hits, counts, base, merged, unicomp, external, keep_hits, c,
-        n_real, tq, metric, n_feat)
+        n_real, tq, metric, n_feat, gid_pairs)
     KERNEL_LAUNCHES += 1
     RUN_LOOP_LAUNCHES += run_ord is not None
     EXTERNAL_LAUNCHES += external
     JACCARD_LAUNCHES += jaccard
+    GID_LAUNCHES += gid_pairs
     return hits, counts, base
 
 
@@ -347,14 +387,17 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                   sweep only on the kernel).
       n_feat:     feature lanes after the ``n_real`` coordinates (jaccard's
                   packed words; ``pad_points(feats=)`` lays them out).
-
-    ``gid_pairs`` is not ported yet and raises ``NotImplementedError``.
+      gid_pairs:  the lane after the coordinates and the merged lane holds
+                  global point ids (``pad_points(gid=)``), and the UNICOMP
+                  and self masks compare them instead of sorted positions
+                  (the slab join, B1 (d)); l2 and cosine only, never with
+                  ``external``.
 
     Returns (hits, counts, slot_base).
     """
-    if gid_pairs:
-        raise NotImplementedError("fused_join's gid_pairs is not ported yet "
-                                  "(ROADMAP A14 / B1(d))")
+    if gid_pairs and (external or metric == "jaccard"):
+        raise ValueError("gid_pairs masks the self join of a slab: it takes "
+                         "neither external queries nor the jaccard metric")
     if run_loop:
         if run_ord is None:
             raise ValueError("run_loop=True requires a run_ord plan "
@@ -374,7 +417,7 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                                            points_pad.device)
     kw = dict(c=c, tq=tq, n_real=n_real, unicomp=unicomp,
               external=bool(external), merged=merged, keep_hits=keep_hits,
-              metric=metric, n_feat=n_feat)
+              metric=metric, n_feat=n_feat, gid_pairs=bool(gid_pairs))
     if method == "kernel":
         if not points_pad.is_cuda:
             raise RuntimeError("the fused_join CUDA kernel needs CUDA "

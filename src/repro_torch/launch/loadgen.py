@@ -218,7 +218,7 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--slabs", type=int, default=1,
                     help="slab-sharded serving; not ported yet (ROADMAP "
-                         "A14)")
+                         "A14 (ii))")
     ap.add_argument("--return-pairs", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -226,7 +226,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.slabs > 1:
         raise NotImplementedError("--slabs > 1 (slab-sharded serving) is "
-                                  "not ported yet (ROADMAP A14)")
+                                  "not ported yet (ROADMAP A14 (ii))")
 
     rng = np.random.default_rng(args.seed)
     pts = rng.uniform(0, 100, size=(args.points, args.dims))

@@ -23,8 +23,9 @@ command line): the index is built over the canonical geometry and requests
 arrive as raw embeddings or token sets, with thresholds in metric units.
 
 Not ported yet, each raising and naming its ROADMAP item: the slab-sharded
-service and ``n_slabs > 1`` (A14), and ``--arch`` other than ``selfjoin``
-(the LM decode service, A17).
+service and ``n_slabs > 1`` (A14 (ii), the collective slab join; the slab
+join in one process is ``core.distributed``), and ``--arch`` other than
+``selfjoin`` (the LM decode service, A17).
 """
 from __future__ import annotations
 
@@ -294,7 +295,7 @@ class ShardedJoinService:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("the slab-sharded join service is not "
-                                  "ported yet (ROADMAP A14)")
+                                  "ported yet (ROADMAP A14 (ii))")
 
 
 class BatchTicket:
@@ -386,7 +387,7 @@ class BatchingJoinService(_JoinServiceBase):
     Each request's answer is sliced back out of the coalesced result by its
     query rows (``slice_result``) and equals serving it alone. A request
     wider than ``max_batch`` splits into parts; an empty request completes
-    at once. ``n_slabs > 1`` waits for ROADMAP A14 and raises.
+    at once. ``n_slabs > 1`` waits for ROADMAP A14 (ii) and raises.
 
     ``metric`` / ``vocab`` as in ``JoinService``; a request is
     canonicalized once, at admission, and its geometry and feature rows
@@ -403,7 +404,7 @@ class BatchingJoinService(_JoinServiceBase):
         metric_lib.check_metric(metric)
         if n_slabs > 1:
             raise NotImplementedError("n_slabs > 1 (slab-sharded batching) "
-                                      "is not ported yet (ROADMAP A14)")
+                                      "is not ported yet (ROADMAP A14 (ii))")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.max_batch = int(max_batch)
@@ -617,7 +618,7 @@ def serve_selfjoin(args):
     device = resolve_device(args.device)
     if args.slabs > 1:
         raise NotImplementedError("--slabs > 1 (slab-sharded serving) is "
-                                  "not ported yet (ROADMAP A14)")
+                                  "not ported yet (ROADMAP A14 (ii))")
     if args.batching:
         svc = BatchingJoinService(
             pts, eps, return_pairs=args.return_pairs,
@@ -706,7 +707,7 @@ def main(argv=None):
                          "of the merged-range 3^(n-1) sweep")
     ap.add_argument("--slabs", type=int, default=1,
                     help="slab-sharded serving; not ported yet (ROADMAP "
-                         "A14)")
+                         "A14 (ii))")
     ap.add_argument("--reindex", action="store_true",
                     help="re-index a permutation of the point set halfway "
                          "through the request loop (background build and "

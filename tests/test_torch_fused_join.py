@@ -156,13 +156,33 @@ def test_kernel_method_refuses_cpu_tensors(launch_inputs):
     dict(external=True, metric="cosine"), dict(),
     dict(metric="cosine"), dict(metric="jaccard"), dict(n_feat=2)])
 def test_unported_kernel_options_raise(launch_inputs, option):
-    """gid_pairs (ROADMAP A14 / B1 (d)) raises with every metric and lane
-    layout; the metrics themselves are ported (A8)."""
+    """gid_pairs (B1 (d), ROADMAP A14 (i)) refuses what the slab join never
+    asks of it, external queries and the jaccard metric; with the other
+    metrics and lane layouts it equals JAX's reference on a launch whose id
+    lane holds the ids in reverse order of the sorted positions (so the id
+    triangle and the position triangle disagree)."""
     jidx, arrays, c, eps = launch_inputs("uniform-2d", np.float64, True, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        tfj.fused_join_hits(*_torch(arrays), eps, c=c, n_real=2,
-                            unicomp=True, merged=True, gid_pairs=True,
-                            **option)
+    kw = dict(c=c, n_real=2, unicomp=True, merged=True, gid_pairs=True,
+              tq=TQ, **option)
+    if option.get("external") or option.get("metric") == "jaccard":
+        with pytest.raises(ValueError, match="gid_pairs"):
+            tfj.fused_join_hits(*_torch(arrays), eps, **kw)
+        return
+    pp, qb, ws, wc, is_zero, qpos = (np.array(a) for a in arrays)
+    npts, qp = jidx.num_points, qb.shape[0]
+    assert np.array_equal(qb, pp[:qp])          # one contiguous batch
+    gl = 2 + option.get("n_feat", 0) + 1        # after the merged lane
+    pp[:npts, gl] = np.arange(npts)[::-1]
+    pp[npts:, gl] = -1
+    qb = pp[:qp].copy()
+    arrays = (pp, qb, ws, wc, is_zero, qpos)
+    want = jfj.fused_join_hits(*[jnp.asarray(a) for a in arrays], jidx.eps,
+                               method="reference", **kw)
+    got = tfj.fused_join_hits(*_torch(arrays),
+                              torch.as_tensor(np.array(jidx.eps)), **kw)
+    for name, g, w in zip(("hits", "counts", "slot_base"), got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), name
+    assert int(got[1].sum()) > 0
 
 
 def test_run_loop_needs_a_run_plan(launch_inputs):

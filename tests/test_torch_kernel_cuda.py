@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on a card.
 
 The fused join (B1: the row loop, the cell-run loop, and the external-query
-mask in both; the Jaccard popcount refine, B1 (e), in all of them), the
+mask in both; the Jaccard popcount refine, B1 (e), in all of them; the
+global-id masks of the slab join, B1 (d), in both loops), the
 brute-force tiles (B2 hits, B3 counts) and the unfused sweep's refine (B4),
 at float64, float32, float16 and bfloat16 (B2-bf16 and the half instances),
 must equal their plain versions bit for bit, and the entry points on the
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import distributed as tdist
 from repro_torch.core import grid as tgrid
 from repro_torch.core import metric as tmetric
 from repro_torch.core import query_join as tqj
@@ -616,3 +618,106 @@ def test_half_paths_on_card_match_cpu(cuda_device, dtype):
     b = tqj.epsilon_join(q, pts, eps, device="cpu")
     assert np.array_equal(a.pairs, b.pairs)
     assert np.array_equal(a.counts, b.counts)
+
+
+# The slab join's launches (B1 (d)): skewed 3-D points at 3 slabs, the half
+# dtypes at their largest point counts with exact ids
+GID_POINTS = {torch.float64: 20000, torch.float32: 20000,
+              torch.float16: 2049, torch.bfloat16: 257}
+
+
+def _gid_launches(slab, merged, unicomp, run_loop):
+    """Every launch of one slab's join with its inputs and run plan."""
+    index = slab.index
+    tables = tsj._merged_offset_tables if merged else tsj._offset_tables
+    deltas, is_zero = tables(index, unicomp)
+    tabs = (tgrid.cell_window_tables(index, deltas, merged=merged,
+                                     tag=unicomp) if run_loop else None)
+    launches, points_pad, _ = tsj._fused_launches(
+        index, merged=merged, row_ok=slab.row_ok, gid=slab.ids)
+    for launch in launches:
+        ws, wc, _, qb, qpos = tsj._launch_prep(index, points_pad, deltas,
+                                               launch, merged=merged,
+                                               tables=tabs)
+        plan = (tsj._launch_run_plan(index, qpos, tile=launch[5])
+                if run_loop else None)
+        yield launch, (points_pad, qb, ws, wc, is_zero, qpos), plan
+
+
+def _gid_points(dtype):
+    pts = np.random.default_rng(9).exponential(2.0, (GID_POINTS[dtype], 3))
+    return torch.as_tensor(pts).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("unicomp", [True, False])
+@pytest.mark.parametrize("run_loop", [True, False])
+def test_gid_kernel_matches_plain_version(cuda_device, dtype, merged,
+                                          unicomp, run_loop):
+    """Every launch of every slab's join, hits plane on and off: B1 (d)'s
+    hits, counts and slot_base equal its plain version's bit for bit."""
+    compared = 0
+    for slab in tdist.slab_indexes(_gid_points(dtype), 1.0, 3,
+                                   device=cuda_device):
+        for launch, args, plan in _gid_launches(slab, merged, unicomp,
+                                                run_loop):
+            loop = ({} if plan is None else
+                    dict(run_ord=plan.run_ord, run_loop=True))
+            for keep_hits in (True, False):
+                kw = dict(c=launch[4], n_real=3, unicomp=unicomp,
+                          merged=merged, gid_pairs=True, tq=launch[5],
+                          keep_hits=keep_hits)
+                a = tfj.fused_join_hits(*args, slab.index.eps,
+                                        method="kernel", **loop, **kw)
+                b = tfj.fused_join_hits(*args, slab.index.eps,
+                                        method="reference", **kw)
+                for x, y in zip(a, b):
+                    assert torch.equal(x, y)
+                compared += 1
+    assert compared > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_slab_join_on_card_matches_cpu(cuda_device, dtype):
+    """The slab join on the card (exchange, slab grids, B1 (d), emit) gives
+    the pairs and totals of the plain versions on the CPU, and the pairs of
+    the one-process join on the card."""
+    pts = _gid_points(dtype)
+    before = tfj.GID_LAUNCHES
+    for n_slabs in (2, 4):
+        gpu = tdist.distributed_self_join(pts, 1.0, n_slabs,
+                                          device=cuda_device)
+        assert torch.equal(gpu.cpu(), tdist.distributed_self_join(
+            pts, 1.0, n_slabs, device="cpu"))
+        assert torch.equal(gpu, tsj.self_join(pts, 1.0, device=cuda_device))
+        assert tdist.distributed_self_join(
+            pts, 1.0, n_slabs, return_pairs=False,
+            device=cuda_device) == gpu.shape[0]
+        assert tdist.distributed_self_join_count(
+            pts, 1.0, n_slabs, device=cuda_device) == \
+            tdist.distributed_self_join_count(pts, 1.0, n_slabs, device="cpu")
+    assert tfj.GID_LAUNCHES > before
+
+
+def test_gid_kernel_refuses_what_it_cannot_run(cuda_device):
+    """The wrapper refuses ids with external queries or Jaccard, and lanes
+    that cannot hold the id lane; the library refuses a global-id launch
+    with the external mask by itself too."""
+    slab = next(tdist.slab_indexes(_gid_points(torch.float32), 1.0, 3,
+                                   device=cuda_device))
+    launch, args, _ = next(_gid_launches(slab, True, True, False))
+    kw = dict(c=launch[4], n_real=3, unicomp=True, merged=True,
+              gid_pairs=True, tq=launch[5], method="kernel")
+    with pytest.raises(ValueError, match="gid_pairs"):
+        tfj.fused_join_hits(*args, 1.0, external=True, **kw)
+    with pytest.raises(ValueError, match="global-id lane"):
+        tfj.fused_join_hits(*args, 1.0, **dict(kw, n_real=7))
+    pp, qb, ws, wc, is_zero, qpos = args
+    scal = tmetric.device_refine_scalar("l2", 1.0, pp.dtype, pp.device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfj._fused_join_hits_cuda(
+            pp, qb, ws, wc, is_zero.to(torch.int32), qpos, None, scal,
+            c=launch[4], tq=launch[5], n_real=3, unicomp=False,
+            external=True, merged=True, keep_hits=True, metric="l2",
+            n_feat=0, gid_pairs=True)

@@ -145,3 +145,33 @@ def jax_half_totals() -> dict:
         distance_impl="fused").total_pairs) for dname, dt in halves.items()}
     return dict(HALF_MAIN_TOTAL=int(main), HALF_TOTALS=totals,
                 HALF_COSINE_TOTALS=cosine)
+
+
+def slab_blocks(pts, eps: float, n_slabs: int, halo_capacity=None):
+    """The port's slab join up to its per-slab grid builds, on the CPU:
+    ``(blocks, gmin, dims, key_dtype)`` with one dict a slab holding the
+    candidate block as the driver hands it to the grid build (``cc``, the
+    invalid slots moved far away, and ``valid``) and the global ids and
+    ownership of its rows (``gid``, ``owned``), as numpy arrays."""
+    from repro_torch.core import distributed as td
+    from repro_torch.core import grid as tgrid
+    from repro_torch.core import metric as tmetric
+
+    t = torch.as_tensor(pts)
+    cpu = torch.device("cpu")
+    coords, gids, coords_t, gids_t = td._slabs(t, n_slabs, cpu)
+    mins, maxs = td.slab_extents(coords, gids)
+    k_hops = td.halo_reach(mins, maxs, eps)
+    if halo_capacity is None:
+        need = td.exact_halo_capacity(coords, gids, mins, maxs, eps, k_hops)
+        halo_capacity = min(td._next_pow2(need), coords.shape[1])
+    cfg = td.DistJoinConfig(coords.shape[1], t.shape[1], halo_capacity, 0,
+                            k_hops=k_hops)
+    cand_c, cand_g, cand_v, cand_o, _ = td._assemble_candidates(
+        coords_t, gids_t, tmetric.scalar_as(eps, t.dtype), cfg=cfg)
+    gmin, dims = tgrid.points_geometry(t, eps)
+    far = td._far_point(t, eps).to(t.dtype)
+    blocks = [dict(cc=torch.where(v[:, None], c, far).numpy(), valid=v.numpy(),
+                   gid=g.numpy(), owned=(o & v).numpy())
+              for c, g, v, o in zip(cand_c, cand_g, cand_v, cand_o)]
+    return blocks, gmin, dims, tgrid.device_key_dtype(dims, padded=True)
