@@ -89,6 +89,11 @@ each printing one JSON line:
                   forced halo overflow
   kernels         one line: every kernel with launches, agreement and times
 
+``python3 chip_smoke.py --kernel-times [SRC]`` times B3 and B1 (e) alone
+(``kernel_times``), from the package in SRC (another checkout's ``src``,
+the parent commit's say) or this checkout's, so that two versions can be
+compared in one chip call, in turns.
+
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
 join's B1 and the Jaccard join's B1 (e), slab for B1 (d)) and read just
@@ -139,6 +144,10 @@ BRUTE_WORKLOADS = ("uniform-2d", "expo-3d", "clustered-4d")
 # FMA as two), so half of 34e12.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "int32": 17e12}
+# Issue floors: instructions a second at one a lane a clock (132 SMs at
+# 1.98 GHz): FP64 on 64 lanes an SM (17e12, the FP64 peak with an FMA as
+# one), FP32 on 128, and POPC at a quarter of the INT32 rate (16 an SM).
+ISSUE_RATE = {"float64": 17e12, "float32": 33.5e12, "popc": 4.2e12}
 # the unit a row dtype's refine runs on: the half kernels compute in float32
 # (each operation rounded to the half dtype), outside the tensor cores
 OPS_DTYPE = {"float64": "float64", "float32": "float32",
@@ -419,7 +428,8 @@ def kernel_bound(prepared):
     rows' used lanes) and each output written once (the int8 hit plane when
     kept, counts, slot_base). Operations, on the slots this data needs (sum
     of win_count): 3 * n_real floating-point ones (subtract, multiply, add)
-    for l2 and cosine; 2 * n_feat INT32 ones (AND, popcount) for jaccard.
+    for l2 and cosine; for jaccard 2 * ceil(n_feat / 2) INT32 ones (AND,
+    popcount) on the words packed two to a 32-bit word.
     The run loop does the same work, so it has the same bound. B1 (d)
     reads the id lane too: one more used lane a row."""
     total_bytes = 0
@@ -449,7 +459,7 @@ def kernel_bound(prepared):
                         + n_off * qp * c * p["kw"].get("keep_hits", True)
                         + qp * 4 * 2)                         # counts, base
         slots = int(wc.sum(dtype=torch.int64))
-        flops += (2 * n_feat if jaccard else 3 * n_real) * slots
+        flops += (2 * -(-n_feat // 2) if jaccard else 3 * n_real) * slots
     return bound(total_bytes, flops, dtype) + (total_bytes, flops)
 
 
@@ -471,15 +481,30 @@ def hits_tile_work(nq: int, npts: int, n: int, item: int, tq=256, tc=256):
     return nbytes, flops
 
 
-def counts_tile_work(npts: int, n: int, item: int, tq=256):
-    """B3's work for one (N,) call, counted from the kernel: bytes = the
-    rows read once and the counts written once; operations = (2n + 2) per
-    pair over all N^2 pairs, the query rows' norms, and every block's norms
-    of all candidate rows ((2n - 1) each)."""
-    blocks = -(-npts // tq)
+def counts_tile_work(npts: int, n: int, item: int):
+    """B3's work for one (N,) call: bytes = the rows read once and the
+    counts written once; operations = (2n + 2) per unordered pair over the
+    N(N - 1)/2 pairs the triangle evaluates (n multiplies and n - 1 adds of
+    the dot product, then add, multiply by 2, subtract), plus each row's
+    norm once ((2n - 1) each)."""
     nbytes = npts * n * item + npts * 4
-    flops = (npts * npts * (2 * n + 2) + (blocks + 1) * npts * (2 * n - 1))
+    flops = npts * (npts - 1) // 2 * (2 * n + 2) + npts * (2 * n - 1)
     return nbytes, flops
+
+
+def counts_issue_ms(npts: int, n: int, unit: str) -> float:
+    """B3's issue floor: the (2n + 2) instructions a pair (n multiplies,
+    n - 1 adds, the norms' add, the fused multiply-subtract, the compare)
+    over N(N - 1)/2 pairs, at ``ISSUE_RATE[unit]``."""
+    return npts * (npts - 1) / 2 * (2 * n + 2) / ISSUE_RATE[unit] * 1e3
+
+
+def jaccard_issue_ms(prepared) -> float:
+    """B1 (e)'s issue floor: ceil(n_feat / 2) POPC a live slot (one a
+    packed 32-bit word) over the launches' slots, at ``ISSUE_RATE["popc"]``."""
+    popc = sum(int(p["args"][3].sum(dtype=torch.int64))
+               * -(-p["kw"]["n_feat"] // 2) for p in prepared)
+    return popc / ISSUE_RATE["popc"] * 1e3
 
 
 def band_points(pts_gpu, ids, eps: float) -> int:
@@ -752,8 +777,11 @@ def phase_main_path():
     b3_err = counts_rows_vs_plain(pts_gpu, b3_counts, eps, b3_rows.to(DEVICE))
     check(b3_err == 0, f"main path: B3 differs from its plain version by "
           f"{b3_err} on sampled rows")
-    b3_ms = event_ms(lambda: dt.distance_tile_counts(pts_gpu, eps))
+    b3_runs = [event_ms(lambda: dt.distance_tile_counts(pts_gpu, eps))
+               for _ in range(3)]
+    b3_ms = statistics.median(b3_runs)
     b3_bound = bound(*counts_tile_work(MAIN_POINTS, MAIN_DIMS, 8), "float64")
+    b3_issue = counts_issue_ms(MAIN_POINTS, MAIN_DIMS, "float64")
 
     index = repro_torch.build_grid(pts, eps, device=DEVICE)
     prepared = prepared_launches(index, merged=merged, unicomp=True,
@@ -785,8 +813,9 @@ def phase_main_path():
          bound_ms=bound_ms, bound_by=bound_by,
          bound_bytes=nbytes, bound_flops=flops, kernel_equals_plain=True,
          oracle_points=MAIN_POINTS, oracle_differing_points=n_differ,
-         oracle_s=oracle_s, b3_ms=b3_ms, b3_bound_ms=b3_bound[0],
-         b3_bound_by=b3_bound[1], b3_rows_vs_plain=SAMPLED_QUERIES,
+         oracle_s=oracle_s, b3_ms=b3_ms, b3_runs_ms=b3_runs,
+         b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
+         b3_issue_floor_ms=b3_issue, b3_rows_vs_plain=SAMPLED_QUERIES,
          b3_rows_max_abs_err=b3_err)
     return dict(b1=dict(launches=launches[-1][0],
                         run_loop_launches=launches[-1][1],
@@ -794,7 +823,8 @@ def phase_main_path():
                         plain_ms=timed["plain"], bound_ms=bound_ms,
                         bound_by=bound_by),
                 b3_launches=launches[-1][2], b3_ms=b3_ms, b3_err=b3_err,
-                b3_bound=b3_bound, e2e=statistics.median(e2e), peak=peak,
+                b3_bound=b3_bound, b3_issue=b3_issue,
+                e2e=statistics.median(e2e), peak=peak,
                 total_pairs=int(pairs.shape[0]))
 
 
@@ -1180,6 +1210,7 @@ def phase_brute(workloads):
         b2_flops += nf
     b2_bound = bound(b2_bytes, b2_flops, "float64")
     b3_bound = bound(*counts_tile_work(npts, n, 8), "float64")
+    b3_issue = counts_issue_ms(npts, n, "float64")
     emit("brute", workloads=list(BRUTE_WORKLOADS), totals=totals,
          band_points=band, brute_count_s=brute_s,
          b2_launches=hits_launches, b2_equals_plain=True,
@@ -1189,12 +1220,14 @@ def phase_brute(workloads):
          b2_bound_bytes=b2_bytes, b2_bound_flops=b2_flops,
          b2_launches_timed=-(-npts // 256),
          b3_ms=timed["b3"], b3_plain_ms=timed["b3_plain"],
-         b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1])
+         b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
+         b3_issue_floor_ms=b3_issue)
     return dict(b2=dict(launches=hits_launches, ms=timed["b2"],
                         plain_ms=timed["b2_plain"], bound_ms=b2_bound[0],
                         bound_by=b2_bound[1]),
                 b3=dict(ms=timed["b3"], plain_ms=timed["b3_plain"],
-                        bound_ms=b3_bound[0], bound_by=b3_bound[1]),
+                        bound_ms=b3_bound[0], bound_by=b3_bound[1],
+                        issue_ms=b3_issue),
                 worst=worst)
 
 
@@ -1638,15 +1671,21 @@ def jaccard_data(n: int, vocab: int, seed: int = 1):
 
 def jaccard_launches(canon, index, *, unicomp=True, run_loop=False):
     """The drivers' launch schedule of a Jaccard self-join over its size
-    grid, in the form of ``prepared_launches`` (``kw`` carries the metric
-    and the feature lanes)."""
+    grid, in the form of ``prepared_launches`` (``kw`` carries the metric,
+    the feature lanes and, as the drivers pass them, the packed words)."""
     from repro_torch.core import grid, selfjoin as sj
+    from repro_torch.kernels import fused_join as fj
     feats = sj._metric_feats_sorted(canon, index)
     deltas, is_zero = sj._offset_tables(index, unicomp)
     tabs = (grid.cell_window_tables(index, deltas, merged=False,
                                     tag=unicomp) if run_loop else None)
     launches, points_pad, _ = sj._fused_launches(index, merged=False,
                                                  feats=feats)
+    # a checkout from before the packed refine has no pack_words; the
+    # --kernel-times mode may time one
+    pack = getattr(fj, "pack_words", None)
+    words = ({} if pack is None else
+             dict(words=pack(points_pad, 1, canon.n_feat)))
     out = []
     for launch in launches:
         ws, wc, _, qb, qpos = sj._launch_prep(index, points_pad, deltas,
@@ -1659,7 +1698,8 @@ def jaccard_launches(canon, index, *, unicomp=True, run_loop=False):
                               canon.eps),
                         kw=dict(c=launch[4], tq=launch[5], n_real=1,
                                 unicomp=unicomp, merged=False,
-                                metric="jaccard", n_feat=canon.n_feat)))
+                                metric="jaccard", n_feat=canon.n_feat,
+                                **words)))
     return out
 
 
@@ -1718,7 +1758,8 @@ def jaccard_external_vs_plain(pj, queries) -> tuple[int, int]:
         for _, _, args, kw in launches:
             plain = {k: v for k, v in kw.items()
                      if k not in ("run_ord", "run_loop")}
-            err, _ = sliced_vs_plain(args, plain, kw.get("run_ord")
+            err, _ = sliced_vs_plain(args, dict(plain, words=pj.words),
+                                     kw.get("run_ord")
                                      if kw.get("run_loop") else None)
             check(err == 0, f"B1 (e) external run_loop={pj.run_loop} "
                   f"keep_hits={keep_hits}: kernel differs from the plain "
@@ -1976,6 +2017,7 @@ def metric_jaccard_scale():
     # plain version, in turns
     ms = timed_launches(prepared, "kernel", run_loop=True, reps=2)
     bound_ms, bound_by, nbytes, ops = kernel_bound(prepared)
+    issue_ms = jaccard_issue_ms(prepared)
     head = slice(0, PLAIN_ROWS)
     sample = [dict(p, args=(p["args"][0], p["args"][1][head],
                             p["args"][2][:, head].contiguous(),
@@ -2007,8 +2049,9 @@ def metric_jaccard_scale():
                 launches=launches,
                 launch_caps=[p["kw"]["c"] for p in prepared],
                 launch_rows=[p["args"][1].shape[0] for p in prepared],
-                smem_bytes=fj.shared_bytes(128, int(
-                    prepared[0]["args"][0].shape[1]), 4, True),
+                smem_bytes=fj.shared_bytes(
+                    128, int(prepared[0]["args"][0].shape[1]), 4, True,
+                    fj.packed_width(canon.n_feat)),
                 total_pairs=npairs, planted_pairs=int(dup.size),
                 planted_found=True, data_s=data_s, canonicalize_s=canon_s,
                 join_canonical_s=e2e, join_canonical_runs_s=runs,
@@ -2017,6 +2060,7 @@ def metric_jaccard_scale():
                 sampled_sets_checked=SAMPLED_QUERIES,
                 b1e_ms=ms, b1e_bound_ms=bound_ms, b1e_bound_by=bound_by,
                 b1e_bound_bytes=nbytes, b1e_bound_ops=ops,
+                b1e_issue_floor_ms=issue_ms,
                 b1e_sample_rows=PLAIN_ROWS, b1e_sample_run_ms=timed["run"],
                 b1e_sample_row_ms=timed["row"],
                 b1e_sample_plain_ms=timed["plain"],
@@ -2154,6 +2198,7 @@ def phase_metrics():
                 plain_ms=jaccard["b1e_sample_plain_ms"],
                 bound_ms=jaccard["b1e_bound_ms"],
                 bound_by=jaccard["b1e_bound_by"],
+                issue_ms=jaccard["b1e_issue_floor_ms"],
                 worst=max(worst, jaccard["b1e_sample_max_abs_err"]),
                 cosine_launches=cosine["launches"],
                 external_launches=services["jaccard"]["launches"])
@@ -2559,6 +2604,8 @@ def half_brute(workloads) -> dict:
                           b2_bound_ms=b2_bound[0], b2_bound_by=b2_bound[1],
                           b3_ms=timed["b3"], b3_plain_ms=timed["b3_plain"],
                           b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
+                          b3_issue_floor_ms=counts_issue_ms(npts, n,
+                                                            "float32"),
                           b3_equals_b2_row_sums=True)
         del p
     return out
@@ -2839,6 +2886,7 @@ def half_kernels(half) -> list:
             + half["cosine"][dname]["b3_launches"] * (dname == "float16"),
             "max_abs_err": 0, "ms": b["b3_ms"], "plain_ms": b["b3_plain_ms"],
             "bound_ms": b["b3_bound_ms"], "bound_by": b["b3_bound_by"],
+            "issue_floor_ms": b["b3_issue_floor_ms"],
             "library_ms": None, "matched_plain": True,
             "timed_on": f"{HALF_BRUTE_WORKLOAD} at {dname}"})
     return out
@@ -2876,6 +2924,50 @@ def record_half_totals() -> dict:
                 HALF_COSINE_TOTALS=cosine)
 
 
+def kernel_times() -> dict:
+    """B3 and B1 (e) alone, timed by CUDA events from the ``repro_torch``
+    first on ``sys.path``: B3 on the main path's 2,000,000 points (f64) and
+    on uniform-2d's 100,000 at f64, float16 and bfloat16; B1 (e) on the
+    launches of the 100,000-set Jaccard join (run loop), back to back. Each
+    with its integer total, so two versions can be seen to agree."""
+    import repro_torch
+    from repro_torch.core import metric, selfjoin as sj
+    from repro_torch.kernels import build, distance_tile as dt
+    from repro_torch.kernels import fused_join as fj
+    t0 = time.perf_counter()
+    build.build_all()
+    out = dict(package=str(Path(repro_torch.__file__).resolve().parents[1]),
+               build_s=time.perf_counter() - t0)
+
+    def b3(pts, eps, reps):
+        counts = dt.distance_tile_counts(pts, eps)               # warm-up
+        runs = [event_ms(lambda: dt.distance_tile_counts(pts, eps))
+                for _ in range(reps)]
+        return dict(ms=statistics.median(runs), runs_ms=runs,
+                    total=int(counts.sum(dtype=torch.int64)))
+
+    out["b3_2m_float64"] = b3(torch.as_tensor(
+        syn(MAIN_POINTS, MAIN_DIMS)).to(DEVICE), MAIN_EPS, 3)
+    raw, eps = bench_workloads()["uniform-2d"]
+    for dname, dtype in (("float64", torch.float64),
+                         ("float16", torch.float16),
+                         ("bfloat16", torch.bfloat16)):
+        out[f"b3_100k_{dname}"] = b3(as_half(raw, dtype).to(DEVICE), eps, 5)
+    mat, _, _ = jaccard_data(JACCARD_POINTS, JACCARD_VOCAB)
+    canon = metric.canonicalize(mat, JACCARD_T, metric="jaccard",
+                                vocab=JACCARD_VOCAB)
+    prepared = jaccard_launches(canon, sj._metric_grid(canon, DEVICE),
+                                run_loop=True)
+    total = sum(int(fj.fused_join_hits(
+        *p["args"], method="kernel", **_loop_kw(p, True), **p["kw"])[1]
+        .sum(dtype=torch.int64)) for p in prepared)
+    runs = [timed_launches(prepared, "kernel", run_loop=True, reps=2)
+            for _ in range(3)]
+    out["b1e_100k_sets"] = dict(ms=statistics.median(runs), runs_ms=runs,
+                                launches=len(prepared), total=total)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -2884,6 +2976,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--kernel-times"]:
+        # another checkout's src (the parent commit's, say) goes first
+        for src in sys.argv[2:3]:
+            sys.path.insert(0, str(Path(src).resolve()))
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"kernel_times": kernel_times()}), flush=True)
+        return 0
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     phase_env()
@@ -2934,6 +3033,7 @@ def main() -> int:
         "jaccard_sample_plain_ms": metrics["plain_ms"],
         "jaccard_bound_ms": metrics["bound_ms"],
         "jaccard_bound_by": metrics["bound_by"],
+        "jaccard_issue_floor_ms": metrics["issue_ms"],
         "jaccard_library_ms": None,
         "gid_ms": slab["ms"], "gid_plain_ms": slab["plain_ms"],
         "gid_bound_ms": slab["bound_ms"], "gid_bound_by": slab["bound_by"],
@@ -2956,9 +3056,11 @@ def main() -> int:
         "max_abs_err": max(brute["worst"], main["b3_err"]),
         "ms": brute["b3"]["ms"], "plain_ms": brute["b3"]["plain_ms"],
         "bound_ms": brute["b3"]["bound_ms"],
-        "bound_by": brute["b3"]["bound_by"], "library_ms": None,
+        "bound_by": brute["b3"]["bound_by"],
+        "issue_floor_ms": brute["b3"]["issue_ms"], "library_ms": None,
         "matched_plain": True, "timed_on": "uniform-2d, 100,000 points",
         "main_path_ms": main["b3_ms"], "main_path_bound_ms": main["b3_bound"][0],
+        "main_path_issue_floor_ms": main["b3_issue"],
     }, {
         "name": "cell_join_hits", "route": "cuda",
         "source": f"{csrc}/cell_join.cu",

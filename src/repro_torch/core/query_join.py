@@ -66,7 +66,7 @@ from repro_torch.core import selfjoin as selfjoin_lib
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
-                                            pad_points,
+                                            pack_words, pad_points,
                                             resolve_merge_last_dim)
 
 # Serving metrics (``metric:`` keys): the batching service publishes its
@@ -449,6 +449,9 @@ class PreparedJoin:
         PREPARE_EVENTS["points_pad"] += 1
         self.points_pad = pad_points(index.points_sorted, self.c,
                                      last_coord=last, feats=feats)
+        # jaccard: the kernel's packed copy of the candidates' words
+        self.words = (pack_words(self.points_pad, self.n_dims, self.n_feat)
+                      if self.metric == "jaccard" else None)
         self.order = index.order
         self.dtype = index.points_sorted.dtype
         self.gmin_host = index.grid_min.cpu()
@@ -539,8 +542,10 @@ class PreparedJoin:
         queries, the descriptors and the class partition. Returns
         (plan, launches): ``plan`` holds (perm, wc, qp, n_queries, eps) and
         each launch (rows, n_rows, args, kw) with ``args``/``kw`` ready for
-        ``ops.fused_join_hits(*args, **kw)``. ``eps`` is in metric units
-        (``metric.request_scalar`` maps it onto the kernel scalar)."""
+        ``ops.fused_join_hits(*args, **kw)`` (jaccard's kernel also takes
+        ``words=self.words``, which the request path passes). ``eps`` is in
+        metric units (``metric.request_scalar`` maps it onto the kernel
+        scalar)."""
         q, qf = self._check_queries(queries)
         if eps is None:
             eps = self.refine
@@ -626,7 +631,8 @@ class PreparedJoin:
         launches = []
         with record_function("query_join.kernel"):
             for rows, n_rows, args, kw in planned:
-                hits, counts, base = ops.fused_join_hits(*args, **kw)
+                hits, counts, base = ops.fused_join_hits(*args, **kw,
+                                                         words=self.words)
                 launches.append(_FusedLaunch(
                     rows=rows, n_rows=n_rows,
                     hits=hits if return_pairs else None, counts=counts,
@@ -702,7 +708,7 @@ class PreparedJoin:
                         merged=self.merged, tq=tile, keep_hits=keep,
                         run_ord=self._q_pos(tile) if self.run_loop else None,
                         run_loop=self.run_loop, metric=self.metric,
-                        n_feat=self.n_feat)
+                        n_feat=self.n_feat, words=self.words)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return bucket_rows(n)

@@ -61,7 +61,8 @@ from repro_torch.core.grid import (_NUMPY_DTYPES, BucketPlan, GridIndex,
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
-                                            fused_window_hits, pad_points,
+                                            fused_window_hits, pack_words,
+                                            pad_points,
                                             resolve_merge_last_dim)
 
 _ROUTES = ("dense", "compact", "sparse", "jnp", "dense-flat", "sparse-flat",
@@ -270,7 +271,8 @@ def _launch_prep(index: GridIndex, points_pad, deltas, launch, *,
 def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
                   unicomp: bool, keep_hits: bool, merged: bool,
                   run_loop: bool = False, metric: str = "l2",
-                  n_feat: int = 0, refine_eps=None, gid_pairs: bool = False):
+                  n_feat: int = 0, refine_eps=None, gid_pairs: bool = False,
+                  words=None):
     """One launch through the fused kernel at its capacity (the JAX
     package's ``_fused_batch_run`` and ``_fused_bucket_launch``). With
     ``run_loop`` the descriptors come from the per-cell tables and the
@@ -278,8 +280,9 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
     (None without). ``metric`` / ``n_feat`` pick the refine predicate;
     ``refine_eps`` is the scalar it compares against when the index's cell
     width is not it (jaccard prunes on set sizes at ``eps_geom`` and refines
-    against the threshold t). ``gid_pairs``: the masks compare the global
-    ids of ``points_pad``'s id lane (B1 (d))."""
+    against the threshold t; ``words``, jaccard's ``_sweep_words``, is the
+    kernel's packed copy of the candidates' words). ``gid_pairs``: the
+    masks compare the global ids of ``points_pad``'s id lane (B1 (d))."""
     _, _, _, _, c, tile = launch
     plan = None
     with record_function("self_join.plan"):
@@ -296,8 +299,16 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
             n_real=index.n_dims, unicomp=unicomp, merged=merged,
             gid_pairs=gid_pairs, tq=tile, keep_hits=keep_hits,
             run_ord=None if plan is None else plan.run_ord,
-            run_loop=run_loop, metric=metric, n_feat=n_feat)
+            run_loop=run_loop, metric=metric, n_feat=n_feat, words=words)
     return ws, wc, wcells, hits, counts, base, q_pos, plan
+
+
+def _sweep_words(points_pad, index: GridIndex, metric: str, n_feat: int):
+    """Jaccard's 32-bit packed words of ``points_pad`` (B1 (e) reads its
+    candidates' words there), made once a sweep; None for other metrics."""
+    if metric != "jaccard":
+        return None
+    return pack_words(points_pad, index.n_dims, n_feat)
 
 
 def _fused_launches(index: GridIndex, *, n_batches: int = 1,
@@ -478,6 +489,7 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         launches, points_pad, _ = _fused_launches(
             index, n_batches=n_batches, bucketed=bucketed, merged=merged,
             row_ok=row_ok, gid=ids_dev if gid_pairs else None, feats=feats)
+        words = _sweep_words(points_pad, index, metric, n_feat)
     mult = 2 if unicomp else 1
     host = _HostCopies(index.device) if to_host else None
 
@@ -501,7 +513,8 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         ws, _, _, hits, counts, base, q_pos, _ = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
             keep_hits=True, merged=merged, run_loop=run_loop, metric=metric,
-            n_feat=n_feat, refine_eps=refine_eps, gid_pairs=gid_pairs)
+            n_feat=n_feat, refine_eps=refine_eps, gid_pairs=gid_pairs,
+            words=words)
         if prev is not None:
             finish(prev)
         prev = (ws, hits, counts, base, q_pos, launch[4], launch[5])
@@ -551,13 +564,15 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
         launches, points_pad, _ = _fused_launches(
             index, bucketed=bucketed, merged=merged, row_ok=row_ok, gid=gid,
             feats=feats)
+    words = _sweep_words(points_pad, index, metric, n_feat)
     row_bytes = points_pad.shape[1] * points_pad.element_size()
     total = cells = cands = dma_windows = dma_saved = 0
     for launch in launches:
         _, wc, wcells, _, counts, _, _, plan = _fused_launch(
             index, points_pad, deltas, is_zero, launch, unicomp=unicomp,
             keep_hits=False, merged=merged, run_loop=run_loop, metric=metric,
-            n_feat=n_feat, refine_eps=refine_eps, gid_pairs=gid_pairs)
+            n_feat=n_feat, refine_eps=refine_eps, gid_pairs=gid_pairs,
+            words=words)
         qp, cap = launch[3], launch[4]
         if plan is None:
             dma_windows += n_off * qp

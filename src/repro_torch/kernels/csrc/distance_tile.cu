@@ -34,15 +34,38 @@
 //   d2 is inf or NaN and still no hit) are sliced off its output, so they
 //   have no counterpart here.
 //
-// distance_tile_counts_kernel (B3): one block per tile of tq query rows, one
-//   thread per query row, with the loop over candidate tiles inside the
-//   block. A thread keeps its row and its count in registers, so no
-//   reduction crosses blocks: this replaces the TPU kernel's sequential
-//   candidate-tile grid axis, which kept the counts in VMEM. The block stages
-//   each candidate tile and its norms in shared memory, read by all threads
-//   at once (a broadcast). Bound by operations: N^2 pairs x (2n + 2) FP64
-//   operations, with O(N) bytes in and out. The mask is col < N (the loop
-//   bound) and col != row, as the TPU kernel's (row < N is the thread's own).
+// distance_tile_counts_kernel (B3): (N,) neighbour counts, self excluded,
+//   over all N^2 ordered pairs. The TPU kernel swept every ordered pair along
+//   a sequential candidate-tile axis with its counts in VMEM; here each
+//   unordered pair is evaluated once, over the upper triangle, and credited
+//   to both points. That is exact: qn and pn come from the same sq_norm,
+//   IEEE add and multiply are commutative and the lanes of cross are summed
+//   in one fixed order, so d2(i, j) == d2(j, i) bit for bit, and the
+//   diagonal (self) is never evaluated. Integer sums are exact in any
+//   order, so the counts are deterministic whatever the atomics' order.
+//   Design:
+//   * tiles of kTile = 1024 rows; block b takes the b-th tile pair (I, J),
+//     I <= J, so every block does the same work (the diagonal's half and
+//     the ragged last tile aside) and the grid is filled to the end;
+//   * a thread holds kRows = 4 query rows and their norms in registers;
+//     the candidate tile is staged tc rows at a time, double-buffered, as
+//     records (lanes, then the norm, padded to 16 bytes) read with 16-byte
+//     shared loads that all threads share (a broadcast), so one staged
+//     candidate serves four pairs a thread;
+//   * on the diagonal tile a pair counts only if its candidate follows its
+//     row; off it, every pair of the two tiles counts;
+//   * a hit credits its row in a register and its candidate in a shared
+//     per-tile array; hits are sparse, so that bookkeeping sits behind one
+//     branch a candidate; each block adds its rows and candidates to the
+//     zeroed global counts with one atomicAdd apiece.
+//   The last two steps of d2 are one __fma_rn(-2, cross, qn + pn): 2 * cross
+//   is exact, so the fused form rounds once, as the subtract of the plain
+//   version does. They differ only where 2 * cross overflows while
+//   qn + pn is +inf (NaN against +inf), which changes a hit only when eps2
+//   is +inf itself; a block then takes the unfused form. What bounds it:
+//   operations, N(N-1)/2 pairs x (2n + 2) FP64 instructions (n multiplies,
+//   n - 1 adds, the norms' add, the fma, the compare; FP32 ones for float32
+//   and the half rows), with O(N) bytes in and out.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -94,14 +117,24 @@ __device__ __forceinline__ T sq_norm(const T* x) {
   return acc;
 }
 
-template <typename T, int N>
-__device__ __forceinline__ bool expanded_hit(const T* q, T qn, const T* p,
-                                             T pn, T eps2) {
-  T cross = mul_rn(q[0], p[0]);
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+// d2 of one pair in the expanded form. With FMA the last two steps are one
+// __fma_rn: 2 * cross is exact, so fma(-2, cross, qn + pn) rounds once, as
+// the subtract does (the note at the top says where they could differ).
+template <typename A, int N, bool FMA>
+__device__ __forceinline__ A pair_d2(const A* q, A qn, const A* p, A pn) {
+  A cross = mul_rn(q[0], p[0]);
 #pragma unroll
   for (int k = 1; k < N; ++k) cross = add_rn(cross, mul_rn(q[k], p[k]));
-  const T d2 = sub_rn(add_rn(qn, pn), mul_rn(T(2), cross));
-  return d2 <= eps2;
+  const A s = add_rn(qn, pn);
+  if (FMA) return fma_rn(A(-2), cross, s);
+  return sub_rn(s, mul_rn(A(2), cross));
 }
 
 template <typename T, int N>
@@ -143,55 +176,175 @@ __global__ void __launch_bounds__(kThreads) distance_tile_hits_kernel(
   for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
     const int i = idx / cols;
     const int j = idx - i * cols;
-    const bool hit = expanded_hit<A, N>(q_s + i * N, qn_s[i], p_s + j * N,
-                                        pn_s[j], eps2);
+    const bool hit = pair_d2<A, N, false>(q_s + i * N, qn_s[i], p_s + j * N,
+                                          pn_s[j]) <= eps2;
     out[(size_t)(i0 + i) * npts + j0 + j] = hit ? 1 : 0;
   }
 }
 
+// B3's tile: each thread holds kRows query rows in registers, so a block
+// covers kTile rows on each side of a tile pair.
+constexpr int kRows = 4;
+constexpr int kTile = kThreads * kRows;
+
+// A staged candidate: its N lanes and its squared norm in A, padded to a
+// whole number of 16-byte vectors (kLen values).
+template <typename A, int N>
+struct Record {
+  static constexpr int kPer16 = 16 / static_cast<int>(sizeof(A));
+  static constexpr int kLen = (N + 1 + kPer16 - 1) / kPer16 * kPer16;
+};
+
+template <int L>
+__device__ __forceinline__ void load_record(const double* src, double (&dst)[L]) {
+#pragma unroll
+  for (int k = 0; k < L / 2; ++k) {
+    const double2 v = reinterpret_cast<const double2*>(src)[k];
+    dst[2 * k] = v.x;
+    dst[2 * k + 1] = v.y;
+  }
+}
+template <int L>
+__device__ __forceinline__ void load_record(const float* src, float (&dst)[L]) {
+#pragma unroll
+  for (int k = 0; k < L / 4; ++k) {
+    const float4 v = reinterpret_cast<const float4*>(src)[k];
+    dst[4 * k] = v.x;
+    dst[4 * k + 1] = v.y;
+    dst[4 * k + 2] = v.z;
+    dst[4 * k + 3] = v.w;
+  }
+}
+
+// Rows [r0, r0 + rows) as records in `dst`, one thread a row.
+template <typename T, int N>
+__device__ __forceinline__ void stage_records(const T* __restrict__ pts,
+                                              typename Acc<T>::A* dst, int r0,
+                                              int rows) {
+  using A = typename Acc<T>::A;
+  constexpr int L = Record<A, N>::kLen;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    A v[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(pts[(size_t)(r0 + r) * N + k]);
+    A* rec = dst + (size_t)r * L;
+#pragma unroll
+    for (int k = 0; k < N; ++k) rec[k] = v[k];
+    rec[N] = sq_norm<A, N>(v);
+#pragma unroll
+    for (int k = N + 1; k < L; ++k) rec[k] = A(0);
+  }
+}
+
+// One tile pair of B3's triangle: the kTile rows of the tile at i0 (kRows a
+// thread, rows i0 + threadIdx.x + a * kThreads) against the candidates of
+// the tile at j0, staged tc at a time in two alternating shared buffers. On
+// the diagonal tile (DIAG) a pair counts only with its candidate after its
+// row, so each unordered pair is evaluated once and self never is; rows
+// past npts lie only in the last tile, whose one pair is diagonal, so that
+// mask drops them too. A hit credits both points: the row in a register,
+// the candidate in col_s (shared), each added to counts once at the end.
+template <typename T, int N, bool DIAG, bool FMA>
+__device__ __forceinline__ void counts_tile_pair(
+    const T* __restrict__ pts, typename Acc<T>::A eps2, int* __restrict__ counts,
+    int npts, int i0, int j0, int tc, typename Acc<T>::A* bufs, int* col_s) {
+  using A = typename Acc<T>::A;
+  constexpr int L = Record<A, N>::kLen;
+  A q[kRows][N];
+  A qn[kRows];
+  int rc[kRows];
+#pragma unroll
+  for (int a = 0; a < kRows; ++a) {
+    const int row = i0 + threadIdx.x + a * kThreads;
+    rc[a] = 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      q[a][k] = row < npts ? Acc<T>::load(pts[(size_t)row * N + k]) : A(0);
+    qn[a] = sq_norm<A, N>(q[a]);
+  }
+  const int j_end = min(j0 + kTile, npts);
+  stage_records<T, N>(pts, bufs, j0, min(tc, j_end - j0));
+  __syncthreads();   // the first chunk and the zeroed col_s
+  int k = 0;
+  for (int c0 = j0; c0 < j_end; c0 += tc, ++k) {
+    const int cols = min(tc, j_end - c0);
+    const A* buf = bufs + (size_t)(k & 1) * tc * L;
+    // the next chunk goes to the other buffer, whose readers passed the
+    // barrier that ended the previous chunk
+    if (c0 + tc < j_end)
+      stage_records<T, N>(pts, bufs + (size_t)((k + 1) & 1) * tc * L,
+                          c0 + tc, min(tc, j_end - c0 - tc));
+    for (int jj = 0; jj < cols; ++jj) {
+      A p[L];
+      load_record<L>(buf + (size_t)jj * L, p);   // a broadcast
+      const int lj = c0 - j0 + jj;
+      bool h[kRows];
+      bool any = false;
+#pragma unroll
+      for (int a = 0; a < kRows; ++a) {
+        h[a] = pair_d2<A, N, FMA>(q[a], qn[a], p, p[N]) <= eps2;
+        if (DIAG) h[a] = h[a] && lj > (int)threadIdx.x + a * kThreads;
+        any |= h[a];
+      }
+      if (__builtin_expect(any, 0)) {   // hits are sparse
+        int hs = 0;
+#pragma unroll
+        for (int a = 0; a < kRows; ++a) {
+          rc[a] += h[a];
+          hs += h[a];
+        }
+        atomicAdd(&col_s[lj], hs);
+      }
+    }
+    __syncthreads();   // the chunk is read; the next one is staged
+  }
+#pragma unroll
+  for (int a = 0; a < kRows; ++a)
+    if (rc[a]) atomicAdd(&counts[i0 + threadIdx.x + a * kThreads], rc[a]);
+  for (int j = threadIdx.x; j < j_end - j0; j += kThreads)
+    if (col_s[j]) atomicAdd(&counts[j0 + j], col_s[j]);
+}
+
+// Block b takes the b-th tile pair (I, J), I <= J, of the upper triangle,
+// enumerated row by row: every block does the same kTile^2 pairs but the
+// diagonal ones (half) and the ragged last tile.
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads) distance_tile_counts_kernel(
     const T* __restrict__ pts,    // (npts, N)
     const T* __restrict__ scal,   // (1,) eps^2 in T
-    int* __restrict__ counts,     // (npts,)
-    int npts, int tq, int tc) {
+    int* __restrict__ counts,     // (npts,), zeroed
+    int npts, int n_tiles, int tc) {
   using A = typename Acc<T>::A;
   extern __shared__ __align__(16) unsigned char smem[];
-  A* p_s = reinterpret_cast<A*>(smem);   // tc * N
-  A* pn_s = p_s + (size_t)tc * N;        // tc
+  int* col_s = reinterpret_cast<int*>(smem);                   // kTile
+  A* bufs = reinterpret_cast<A*>(smem + kTile * sizeof(int));  // 2 chunks
+  const long long b = blockIdx.x;
+  const long long nt = n_tiles;
+  // row I of the triangle starts at I * nt - I * (I - 1) / 2
+  const double w = 2.0 * nt + 1.0;
+  long long I = (long long)((w - sqrt(w * w - 8.0 * (double)b)) / 2.0);
+  I = I < 0 ? 0 : (I > nt - 1 ? nt - 1 : I);
+  while (I + 1 < nt && (I + 1) * nt - (I + 1) * I / 2 <= b) ++I;
+  while (I * nt - I * (I - 1) / 2 > b) --I;
+  const int J = (int)(I + b - (I * nt - I * (I - 1) / 2));
+  for (int j = threadIdx.x; j < kTile; j += kThreads) col_s[j] = 0;
   const A eps2 = Acc<T>::load(scal[0]);
-  for (int g = 0; g < tq; g += blockDim.x) {
-    const int row = blockIdx.x * tq + g + threadIdx.x;
-    const bool live = g + (int)threadIdx.x < tq && row < npts;
-    A qr[N];
-    A qn = A(0);
-    if (live) {
-#pragma unroll
-      for (int k = 0; k < N; ++k) qr[k] = Acc<T>::load(pts[(size_t)row * N + k]);
-      qn = sq_norm<A, N>(qr);
-    }
-    int cnt = 0;
-    for (int j0 = 0; j0 < npts; j0 += tc) {
-      const int cols = min(tc, npts - j0);
-      __syncthreads();   // the previous tile is read
-      for (int r = threadIdx.x; r < cols; r += blockDim.x) {
-        A v[N];
-#pragma unroll
-        for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(pts[(size_t)(j0 + r) * N + k]);
-#pragma unroll
-        for (int k = 0; k < N; ++k) p_s[r * N + k] = v[k];
-        pn_s[r] = sq_norm<A, N>(v);
-      }
-      __syncthreads();
-      if (live) {
-        for (int j = 0; j < cols; ++j) {
-          const bool hit = expanded_hit<A, N>(qr, qn, p_s + j * N, pn_s[j],
-                                              eps2);
-          cnt += (hit && j0 + j != row) ? 1 : 0;
-        }
-      }
-    }
-    if (live) counts[row] = cnt;
+  const int i0 = (int)I * kTile;
+  const int j0 = J * kTile;
+  // eps2 = +inf is the one case where the fused form can differ (the note)
+  if (isinf(eps2)) {
+    if (I == J)
+      counts_tile_pair<T, N, true, false>(pts, eps2, counts, npts, i0, j0, tc,
+                                          bufs, col_s);
+    else
+      counts_tile_pair<T, N, false, false>(pts, eps2, counts, npts, i0, j0,
+                                           tc, bufs, col_s);
+  } else if (I == J) {
+    counts_tile_pair<T, N, true, true>(pts, eps2, counts, npts, i0, j0, tc,
+                                       bufs, col_s);
+  } else {
+    counts_tile_pair<T, N, false, true>(pts, eps2, counts, npts, i0, j0, tc,
+                                        bufs, col_s);
   }
 }
 
@@ -207,11 +360,15 @@ void launch_hits(const void* q, const void* pts, const void* scal, void* out,
 
 template <typename T, int N>
 void launch_counts(const void* pts, const void* scal, void* counts, int npts,
-                   int tq, int tc, cudaStream_t s) {
-  const size_t smem = (size_t)tc * (N + 1) * sizeof(typename Acc<T>::A);
-  distance_tile_counts_kernel<T, N><<<(npts + tq - 1) / tq, kThreads, smem, s>>>(
-      static_cast<const T*>(pts), static_cast<const T*>(scal),
-      static_cast<int*>(counts), npts, tq, tc);
+                   int tc, cudaStream_t s) {
+  using A = typename Acc<T>::A;
+  const size_t smem =
+      kTile * sizeof(int) + 2 * (size_t)tc * Record<A, N>::kLen * sizeof(A);
+  const long long tiles = (npts + kTile - 1) / kTile;
+  distance_tile_counts_kernel<T, N>
+      <<<(unsigned)(tiles * (tiles + 1) / 2), kThreads, smem, s>>>(
+          static_cast<const T*>(pts), static_cast<const T*>(scal),
+          static_cast<int*>(counts), npts, (int)tiles, tc);
 }
 
 template <typename T>
@@ -233,16 +390,16 @@ int dispatch_hits(int n, const void* q, const void* pts, const void* scal,
 
 template <typename T>
 int dispatch_counts(int n, const void* pts, const void* scal, void* counts,
-                    int npts, int tq, int tc, cudaStream_t s) {
+                    int npts, int tc, cudaStream_t s) {
   switch (n) {
-    case 1: launch_counts<T, 1>(pts, scal, counts, npts, tq, tc, s); break;
-    case 2: launch_counts<T, 2>(pts, scal, counts, npts, tq, tc, s); break;
-    case 3: launch_counts<T, 3>(pts, scal, counts, npts, tq, tc, s); break;
-    case 4: launch_counts<T, 4>(pts, scal, counts, npts, tq, tc, s); break;
-    case 5: launch_counts<T, 5>(pts, scal, counts, npts, tq, tc, s); break;
-    case 6: launch_counts<T, 6>(pts, scal, counts, npts, tq, tc, s); break;
-    case 7: launch_counts<T, 7>(pts, scal, counts, npts, tq, tc, s); break;
-    case 8: launch_counts<T, 8>(pts, scal, counts, npts, tq, tc, s); break;
+    case 1: launch_counts<T, 1>(pts, scal, counts, npts, tc, s); break;
+    case 2: launch_counts<T, 2>(pts, scal, counts, npts, tc, s); break;
+    case 3: launch_counts<T, 3>(pts, scal, counts, npts, tc, s); break;
+    case 4: launch_counts<T, 4>(pts, scal, counts, npts, tc, s); break;
+    case 5: launch_counts<T, 5>(pts, scal, counts, npts, tc, s); break;
+    case 6: launch_counts<T, 6>(pts, scal, counts, npts, tc, s); break;
+    case 7: launch_counts<T, 7>(pts, scal, counts, npts, tc, s); break;
+    case 8: launch_counts<T, 8>(pts, scal, counts, npts, tc, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -268,16 +425,17 @@ extern "C" int distance_tile_hits_launch(
   }
 }
 
+// counts must be zeroed: B3 adds to it.
 extern "C" int distance_tile_counts_launch(
     int dtype, int n, const void* pts, const void* scal, void* counts,
-    int npts, int tq, int tc, void* stream) {
+    int npts, int tc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return dispatch_counts<float>(n, pts, scal, counts, npts, tq, tc, s);
-    case kFloat64: return dispatch_counts<double>(n, pts, scal, counts, npts, tq, tc, s);
-    case kFloat16: return dispatch_counts<__half>(n, pts, scal, counts, npts, tq, tc, s);
+    case kFloat32: return dispatch_counts<float>(n, pts, scal, counts, npts, tc, s);
+    case kFloat64: return dispatch_counts<double>(n, pts, scal, counts, npts, tc, s);
+    case kFloat16: return dispatch_counts<__half>(n, pts, scal, counts, npts, tc, s);
     case kBFloat16:
-      return dispatch_counts<__nv_bfloat16>(n, pts, scal, counts, npts, tq, tc, s);
+      return dispatch_counts<__nv_bfloat16>(n, pts, scal, counts, npts, tc, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

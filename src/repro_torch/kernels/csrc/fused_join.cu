@@ -77,23 +77,33 @@
 // queries that are not rows of points_pad (and q_pos of zeros) are safe.
 //
 // Jaccard (JACCARD, the TPU kernel's metric="jaccard"; refine in
-// repro/core/metric.py::tile_refine_hits). Rows hold the set size in lane 0
-// and n_feat packed 16-bit token words, exact small integers in float32, in
-// lanes [n_real, n_real + n_feat):
-//     inter = sum_k popc(int(q[k]) & int(p[k]))      (int, then to float)
+// repro/core/metric.py::tile_refine_hits; B1 (e)). Rows hold the set size in
+// lane 0 and n_feat packed 16-bit token words, exact small integers in
+// float32, in lanes [n_real, n_real + n_feat); the plain version computes
+//     inter = sum_k popc16(int(q[k]) & int(p[k]))    (int, then to float)
 //     union = (q[0] + p[0]) - inter
 //     hit   = union > 0 && inter >= t * union        (t = scal, unsquared)
-// with the same round-to-nearest intrinsics, then the same masks. Only the
-// per-cell sweep (the size grid is 1-D) in float32 is instantiated, with the
-// three masks, both loops and both hit modes; feature lanes ride only this
-// variant (the wrapper refuses them elsewhere), so the l2 instances keep
-// their lane arithmetic constant. The run loop stages all the
-// lanes a refine reads (sizes and words), so its stage holds fewer slots.
-// What bounds it: operations, n_feat AND + popcount + add a slot, over
-// windows as long as a whole size cell. A wide vocabulary's query tile
-// (tq * lanes floats) passes the 48 KiB default of shared memory, so the
-// launch opts in to more, up to the device's limit (227 KB on the H100);
-// the wrapper refuses a tile beyond that.
+// with the same round-to-nearest intrinsics, then the same masks. The
+// kernel takes the words packed two to a 32-bit word (low half lane
+// n_real + 2k, high half n_real + 2k + 1, zero past n_feat): the candidates
+// from `words`, an int32 companion of points_pad made once with it
+// (kernels/fused_join.py::pack_words, wl words a row, a multiple of 4), the
+// query tile packed here as it is staged. Packing is exact: the two halves'
+// bits never meet, so popc(a & b) over a 32-bit word is the sum of the two
+// 16-bit popcounts, and inter is the same integer. Per 32 bits that is one
+// AND, one __popc and one add, with no float-to-int conversion, read as
+// 16-byte vectors. The query tile and the run loop's stage hold records:
+// the words, then the size (float bits) in one more vector, an odd number
+// of vectors a record so that neighbouring records' 16-byte loads fall in
+// distinct banks. Only the per-cell sweep (the size grid is 1-D) in float32
+// is instantiated, with the three masks, both loops and both hit modes;
+// feature lanes ride only this variant (the wrapper refuses them
+// elsewhere). What bounds it: __popc, which issues at a quarter of the
+// INT32 rate, ceil(n_feat / 2) of them a slot over windows as long as a
+// whole size cell. A very wide vocabulary's query tile passes the 48 KiB
+// default of shared memory, so the launch opts in to more, up to the
+// device's limit (227 KB on the H100); the wrapper refuses a tile beyond
+// that.
 //
 // Global ids (GID, the TPU kernel's gid_pairs; B1 (d)). The slab join of
 // core/distributed.py runs each slab's join over its own points and a halo
@@ -221,38 +231,37 @@ __device__ __forceinline__ bool refine_slot(const T* p, const T* q, T eps2,
   }
 }
 
-// Jaccard (B1 (e)): the intersection is the popcount of the AND of the packed
-// 16-bit words in lanes [n_real, n_real + n_feat), summed as int and then
-// converted exactly; the sizes come from lane 0. The words are exact small
-// integers stored as floats, so the conversions to int are exact.
-template <typename T, int MASK>
-__device__ __forceinline__ bool refine_jaccard(const T* p, const T* q, T t,
-                                               int n_real, int n_feat,
-                                               bool zero, int cand, int qpos) {
-  int inter = 0;
-  for (int k = n_real; k < n_real + n_feat; ++k)
-    inter += __popc(static_cast<int>(q[k]) & static_cast<int>(p[k]));
-  const T fi = static_cast<T>(inter);
-  const T uni = sub_rn(add_rn(q[0], p[0]), fi);
-  return mask_hit<MASK>(uni > T(0) && fi >= mul_rn(t, uni), zero, cand, qpos);
+// Jaccard (B1 (e)): a slot's record holds its packed 32-bit words in
+// uint4 vectors [0, w4) and its set size (float bits) in .x of vector w4.
+__device__ __forceinline__ float record_size(const uint4* rec, int w4) {
+  return __uint_as_float(rec[w4].x);
 }
 
-template <typename T, bool MERGED, int MASK, bool JACCARD, bool GID>
-__device__ __forceinline__ bool refine(const T* p, const T* q, T scal,
-                                       int n_real, int n_feat, bool zero,
-                                       int cand, int qpos) {
-  if constexpr (JACCARD)
-    return refine_jaccard<T, MASK>(p, q, scal, n_real, n_feat, zero, cand,
-                                   qpos);
-  else
-    return refine_slot<T, MERGED, MASK, GID>(p, q, scal, n_real, zero, cand,
-                                             qpos);
+// The intersection is the popcount of the AND of the packed words, summed
+// as int and converted exactly; then the plain version's float32 union and
+// threshold.
+template <int MASK>
+__device__ __forceinline__ bool refine_jaccard(const uint4* pw, float ps,
+                                               const uint4* qw, float qs,
+                                               int w4, float t, bool zero,
+                                               int cand, int qpos) {
+  int inter = 0;
+  for (int k = 0; k < w4; ++k) {
+    const uint4 a = qw[k];
+    const uint4 b = pw[k];
+    inter += __popc(a.x & b.x) + __popc(a.y & b.y) + __popc(a.z & b.z) +
+             __popc(a.w & b.w);
+  }
+  const float fi = static_cast<float>(inter);
+  const float uni = sub_rn(add_rn(qs, ps), fi);
+  return mask_hit<MASK>(uni > 0.f && fi >= mul_rn(t, uni), zero, cand, qpos);
 }
 
 template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
           bool JACCARD, bool GID>
 __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     const T* __restrict__ points_pad,   // (rows, lanes)
+    const uint4* __restrict__ words,    // (rows, wl / 4), JACCARD only
     const T* __restrict__ q_batch,      // (qp, lanes)
     const int* __restrict__ win_start,  // (n_off, qp)
     const int* __restrict__ win_count,  // (n_off, qp)
@@ -263,13 +272,21 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     int8_t* __restrict__ hits,          // (n_off, qp, c), KEEP_HITS only
     int* __restrict__ counts,           // (qp,)
     int* __restrict__ slot_base,        // (qp,)
-    int n_off, int qp, int c, int n_real, int n_feat, int lanes, int tq,
-    int stage_bytes) {
+    int n_off, int qp, int c, int n_real, int n_feat, int lanes, int wl,
+    int tq, int stage_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);                        // tq * lanes
-  T* stage = q_s + (size_t)tq * lanes;                        // RUN_LOOP
-  int* cnt_s = reinterpret_cast<int*>(
-      reinterpret_cast<unsigned char*>(stage) + (RUN_LOOP ? stage_bytes : 0));
+  // Jaccard records: w4 vectors of packed words, then the size vector, an
+  // odd number of vectors in all (rec4), so the 16-byte loads of
+  // neighbouring records fall in distinct banks
+  const int w4 = wl / 4;
+  const int rec4 = (w4 + 1) | 1;
+  T* q_s = reinterpret_cast<T*>(smem);              // tq * lanes (l2)
+  uint4* qrec_s = reinterpret_cast<uint4*>(smem);   // tq * rec4 (Jaccard)
+  unsigned char* stage_b =
+      smem + (JACCARD ? (size_t)tq * rec4 * 16 : (size_t)tq * lanes * sizeof(T));
+  T* stage = reinterpret_cast<T*>(stage_b);         // RUN_LOOP
+  uint4* stage4 = reinterpret_cast<uint4*>(stage_b);
+  int* cnt_s = reinterpret_cast<int*>(stage_b + (RUN_LOOP ? stage_bytes : 0));
   int* ws_s = cnt_s + tq;                                     // tq
   int* wc_s = ws_s + tq;                                      // tq
   int* qpos_s = wc_s + tq;                                    // tq
@@ -278,8 +295,29 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
   int* nruns_s = run_start_s + tq + 1;                        // 1
 
   const int row0 = blockIdx.x * tq;
-  for (int i = threadIdx.x; i < tq * lanes; i += blockDim.x)
-    q_s[i] = q_batch[(size_t)row0 * lanes + i];
+  if constexpr (JACCARD) {
+    // the query tile packed as it is staged: word k of a row holds the
+    // 16-bit words of lanes n_real + 2k (low half) and n_real + 2k + 1
+    uint32_t* qw = reinterpret_cast<uint32_t*>(qrec_s);
+    const int rw = rec4 * 4;
+    for (int i = threadIdx.x; i < tq * rw; i += blockDim.x) {
+      const int r = i / rw;
+      const int k = i - r * rw;
+      const T* q = q_batch + (size_t)(row0 + r) * lanes;
+      uint32_t v = 0;
+      if (k < wl) {
+        if (2 * k < n_feat) v = static_cast<uint32_t>(q[n_real + 2 * k]);
+        if (2 * k + 1 < n_feat)
+          v |= static_cast<uint32_t>(q[n_real + 2 * k + 1]) << 16;
+      } else if (k == wl) {
+        v = __float_as_uint(q[0]);
+      }
+      qw[i] = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < tq * lanes; i += blockDim.x)
+      q_s[i] = q_batch[(size_t)row0 * lanes + i];
+  }
   for (int r = threadIdx.x; r < tq; r += blockDim.x) {
     cnt_s[r] = 0;
     qpos_s[r] = q_pos[row0 + r];
@@ -302,11 +340,10 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
     }
   }
   const T eps2 = scal[0];
-  // lanes a refine reads: coordinates (sizes), Jaccard's words, merged lane,
-  // global-id lane
-  const int n_use =
-      n_real + (JACCARD ? n_feat : 0) + (MERGED ? 1 : 0) + (GID ? 1 : 0);
-  const int stage_rows = stage_bytes / (n_use * (int)sizeof(T));
+  // lanes an l2 refine reads: coordinates, merged lane, global-id lane
+  const int n_use = n_real + (MERGED ? 1 : 0) + (GID ? 1 : 0);
+  const int stage_rows = JACCARD ? stage_bytes / (rec4 * 16)
+                                 : stage_bytes / (n_use * (int)sizeof(T));
   const int seg_cap = c < stage_rows ? c : stage_rows;  // slots per segment
   const int runs_per_chunk = stage_rows / seg_cap;
 
@@ -327,9 +364,16 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
         bool hit = false;
         if (s < wc_s[r]) {
           const int cand = ws_s[r] + s;
-          hit = refine<T, MERGED, MASK, JACCARD, GID>(
-              points_pad + (size_t)cand * lanes, q_s + r * lanes, eps2,
-              n_real, n_feat, zero, cand, qpos_s[r]);
+          if constexpr (JACCARD) {
+            const uint4* qr = qrec_s + (size_t)r * rec4;
+            hit = refine_jaccard<MASK>(
+                words + (size_t)cand * w4, points_pad[(size_t)cand * lanes],
+                qr, record_size(qr, w4), w4, eps2, zero, cand, qpos_s[r]);
+          } else {
+            hit = refine_slot<T, MERGED, MASK, GID>(
+                points_pad + (size_t)cand * lanes, q_s + r * lanes, eps2,
+                n_real, zero, cand, qpos_s[r]);
+          }
         }
         if (KEEP_HITS) hits_j[idx] = hit ? 1 : 0;
         if (hit) atomicAdd(&cnt_s[r], 1);
@@ -343,17 +387,38 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
       const int r_hi = run_start_s[u1];
       for (int s0 = 0; s0 < c; s0 += seg_cap) {
         const int seg = min(seg_cap, c - s0);
-        // stage the chunk's windows: slot s of run u at (u - u0) * seg_cap + s,
-        // one thread a slot, its n_use lanes in turn
+        // stage the chunk's windows: slot s of run u at (u - u0) * seg_cap + s
         const int stage_slots = (u1 - u0) * seg;
-        for (int t = threadIdx.x; t < stage_slots; t += blockDim.x) {
-          const int u = u0 + t / seg;
-          const int s = t - (u - u0) * seg;
-          const int h = run_start_s[u];
-          if (s0 + s < wc_s[h]) {
-            const T* src = points_pad + (size_t)(ws_s[h] + s0 + s) * lanes;
-            T* dst = stage + ((size_t)(u - u0) * seg_cap + s) * n_use;
-            for (int k = 0; k < n_use; ++k) dst[k] = src[k];
+        if constexpr (JACCARD) {
+          // neighbouring threads copy neighbouring 16-byte vectors of one
+          // window's words, then each slot's size
+          for (int t = threadIdx.x; t < stage_slots * (w4 + 1);
+               t += blockDim.x) {
+            const int slot = t / (w4 + 1);
+            const int k = t - slot * (w4 + 1);
+            const int u = u0 + slot / seg;
+            const int s = slot - (u - u0) * seg;
+            const int h = run_start_s[u];
+            if (s0 + s < wc_s[h]) {
+              const size_t row = (size_t)ws_s[h] + s0 + s;
+              uint4* dst = stage4 + ((size_t)(u - u0) * seg_cap + s) * rec4;
+              dst[k] = k < w4 ? words[row * w4 + k]
+                              : make_uint4(__float_as_uint(
+                                               points_pad[row * lanes]),
+                                           0u, 0u, 0u);
+            }
+          }
+        } else {
+          // one thread a slot, its n_use lanes in turn
+          for (int t = threadIdx.x; t < stage_slots; t += blockDim.x) {
+            const int u = u0 + t / seg;
+            const int s = t - (u - u0) * seg;
+            const int h = run_start_s[u];
+            if (s0 + s < wc_s[h]) {
+              const T* src = points_pad + (size_t)(ws_s[h] + s0 + s) * lanes;
+              T* dst = stage + ((size_t)(u - u0) * seg_cap + s) * n_use;
+              for (int k = 0; k < n_use; ++k) dst[k] = src[k];
+            }
           }
         }
         __syncthreads();
@@ -367,12 +432,22 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
             const int cand = ws_s[r] + slot;
             const int u = run_of_s[r];
             const int h = run_start_s[u];
-            const T* p = (ws_s[r] == ws_s[h] && slot < wc_s[h])
-                ? stage + ((size_t)(u - u0) * seg_cap + s) * n_use
-                : points_pad + (size_t)cand * lanes;
-            hit = refine<T, MERGED, MASK, JACCARD, GID>(
-                p, q_s + r * lanes, eps2, n_real, n_feat, zero, cand,
-                qpos_s[r]);
+            const bool staged = ws_s[r] == ws_s[h] && slot < wc_s[h];
+            const size_t at = (size_t)(u - u0) * seg_cap + s;
+            if constexpr (JACCARD) {
+              const uint4* qr = qrec_s + (size_t)r * rec4;
+              const uint4* pw = staged ? stage4 + at * rec4
+                                       : words + (size_t)cand * w4;
+              const float ps = staged ? record_size(pw, w4)
+                                      : points_pad[(size_t)cand * lanes];
+              hit = refine_jaccard<MASK>(pw, ps, qr, record_size(qr, w4), w4,
+                                         eps2, zero, cand, qpos_s[r]);
+            } else {
+              const T* p = staged ? stage + at * n_use
+                                  : points_pad + (size_t)cand * lanes;
+              hit = refine_slot<T, MERGED, MASK, GID>(
+                  p, q_s + r * lanes, eps2, n_real, zero, cand, qpos_s[r]);
+            }
           }
           if (KEEP_HITS) hits_j[(size_t)r * c + slot] = hit ? 1 : 0;
           if (hit) atomicAdd(&cnt_s[r], 1);
@@ -391,17 +466,20 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
 }
 
 struct Args {
-  const void* points_pad; const void* q_batch;
+  const void* points_pad; const void* words; const void* q_batch;
   const void* win_start; const void* win_count; const void* is_zero;
   const void* q_pos; const void* run_ord; const void* scal;
   void* hits; void* counts; void* slot_base;
-  int n_off, qp, c, n_real, n_feat, lanes, tq, stage_bytes;
+  int n_off, qp, c, n_real, n_feat, lanes, wl, tq, stage_bytes;
 };
 
 template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
           bool JACCARD, bool GID>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)a.tq * a.lanes * sizeof(T) + 4 * a.tq * sizeof(int)
+  // the query tile: Jaccard's packed records, else the rows as they are
+  const size_t q_bytes = JACCARD ? (size_t)a.tq * ((a.wl / 4 + 1) | 1) * 16
+                                 : (size_t)a.tq * a.lanes * sizeof(T);
+  const size_t smem = q_bytes + 4 * a.tq * sizeof(int)
       + (RUN_LOOP ? (size_t)a.stage_bytes + (2 * a.tq + 2) * sizeof(int) : 0);
   auto kernel =
       fused_join_kernel<T, MERGED, MASK, KEEP_HITS, RUN_LOOP, JACCARD, GID>;
@@ -413,13 +491,14 @@ int launch(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<a.qp / a.tq, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.points_pad), static_cast<const T*>(a.q_batch),
+      static_cast<const T*>(a.points_pad), static_cast<const uint4*>(a.words),
+      static_cast<const T*>(a.q_batch),
       static_cast<const int*>(a.win_start), static_cast<const int*>(a.win_count),
       static_cast<const int*>(a.is_zero), static_cast<const int*>(a.q_pos),
       static_cast<const int*>(a.run_ord), static_cast<const T*>(a.scal),
       static_cast<int8_t*>(a.hits), static_cast<int*>(a.counts),
-      static_cast<int*>(a.slot_base),
-      a.n_off, a.qp, a.c, a.n_real, a.n_feat, a.lanes, a.tq, a.stage_bytes);
+      static_cast<int*>(a.slot_base), a.n_off, a.qp, a.c, a.n_real, a.n_feat,
+      a.lanes, a.wl, a.tq, a.stage_bytes);
   return 0;
 }
 
@@ -485,20 +564,22 @@ int launch_merged(const Args& a, bool merged, int mask, bool gid,
 // 1 UNICOMP, 2 external), a Jaccard launch that is not float32 per-cell, or
 // a global-id launch with the external mask or Jaccard. The Python wrapper
 // validates shapes and dtypes (qp % tq == 0, lanes >= n_real + n_feat +
-// merged + gid, run_ord with run_loop) and the
+// merged + gid, run_ord with run_loop, Jaccard's words as (rows,
+// word_lanes) int32 with word_lanes a multiple of 4) and the
 // shared-memory total against fused_join_smem_optin; the drivers pad
 // points_pad with a tail of at least c rows, so every window read is in
 // bounds.
 extern "C" int fused_join_launch(
     int dtype, int merged, int mask, int keep_hits, int run_loop,
-    int jaccard, int gid, const void* points_pad, const void* q_batch,
-    const void* win_start, const void* win_count, const void* is_zero,
-    const void* q_pos, const void* run_ord, const void* scal, void* hits,
-    void* counts, void* slot_base, int n_off, int qp, int c, int n_real,
-    int n_feat, int lanes, int tq, int stage_bytes, void* stream) {
-  Args a{points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
-         scal, hits, counts, slot_base, n_off, qp, c, n_real, n_feat, lanes,
-         tq, stage_bytes};
+    int jaccard, int gid, const void* points_pad, const void* words,
+    const void* q_batch, const void* win_start, const void* win_count,
+    const void* is_zero, const void* q_pos, const void* run_ord,
+    const void* scal, void* hits, void* counts, void* slot_base, int n_off,
+    int qp, int c, int n_real, int n_feat, int lanes, int word_lanes, int tq,
+    int stage_bytes, void* stream) {
+  Args a{points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
+         run_ord, scal, hits, counts, slot_base, n_off, qp, c, n_real,
+         n_feat, lanes, word_lanes, tq, stage_bytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int bad;
   if (jaccard) {

@@ -21,7 +21,9 @@ disagree on pairs whose d2 lies within a few ulps of (qn + pn) of eps^2.
 
 Each function has a CUDA kernel (``csrc/distance_tile.cu``) for CUDA tensors
 and its plain PyTorch version for CPU tensors; the kernel equals the plain
-version bit for bit. There is no fallback: a kernel that fails to build or
+version bit for bit. The count kernel evaluates each unordered pair once,
+since d2 is symmetric bit for bit, where the plain version evaluates all
+N^2 ordered pairs. There is no fallback: a kernel that fails to build or
 launch raises.
 """
 from __future__ import annotations
@@ -37,6 +39,10 @@ TQ_DEFAULT = 256   # query rows of a tile
 TC_DEFAULT = 256   # candidate rows of a tile
 MAX_LANES = 8      # the TPU kernels' padded lane count (NP_PAD)
 _GRID_Y_MAX = 65535
+_GRID_X_MAX = 2 ** 31 - 1
+# The count kernel's own tile (csrc/distance_tile.cu kTile): 256 threads x 4
+# query rows each, on both sides of a tile pair.
+COUNTS_TILE = 1024
 _SMEM_DEFAULT = 48 * 1024
 
 # Launches of each CUDA kernel since import (or since a caller reset them):
@@ -138,7 +144,7 @@ def _kernel_library():
         + [ctypes.c_void_p])
     lib.distance_tile_hits_launch.restype = ctypes.c_int
     lib.distance_tile_counts_launch.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
         + [ctypes.c_void_p])
     lib.distance_tile_counts_launch.restype = ctypes.c_int
     return lib
@@ -148,6 +154,16 @@ def _acc_item(dtype) -> int:
     """Bytes of one staged value: the kernels stage rows and norms in the
     accumulator dtype."""
     return torch.empty((), dtype=_acc_dtype(dtype)).element_size()
+
+
+def counts_shared_bytes(n: int, dtype, tc: int) -> int:
+    """Shared memory of one count-kernel block: the tile's candidate
+    credits (int32) and two chunks of ``tc`` staged records, each the row's
+    ``n`` lanes and its norm in the accumulator dtype, padded to 16 bytes."""
+    item = _acc_item(dtype)
+    per16 = 16 // item
+    record = -(-(n + 1) // per16) * per16
+    return COUNTS_TILE * 4 + 2 * tc * record * item
 
 
 def _check_tiles(tq: int, tc: int, smem: int) -> None:
@@ -187,15 +203,20 @@ def _distance_tile_counts_cuda(pts, scal, *, tq, tc):
     """Launch the count kernel on the current stream (no sync)."""
     global COUNTS_LAUNCHES
     npts, n = pts.shape
-    _check_tiles(tq, tc, tc * (n + 1) * _acc_item(pts.dtype))
-    counts = torch.empty(npts, dtype=torch.int32, device=pts.device)
+    _check_tiles(tq, tc, counts_shared_bytes(n, pts.dtype, tc))
+    tiles = -(-npts // COUNTS_TILE)
+    if tiles * (tiles + 1) // 2 > _GRID_X_MAX:
+        raise ValueError(f"{npts} points need more than {_GRID_X_MAX} tile "
+                         f"pairs of {COUNTS_TILE} rows")
+    # the kernel adds each block's credits to the counts
+    counts = torch.zeros(npts, dtype=torch.int32, device=pts.device)
     if npts:
         lib = _kernel_library()
         with torch.cuda.device(pts.device):
             stream = torch.cuda.current_stream(pts.device).cuda_stream
             err = lib.distance_tile_counts_launch(
                 DTYPE_CODES[pts.dtype], n, pts.data_ptr(),
-                scal.data_ptr(), counts.data_ptr(), npts, tq, tc, stream)
+                scal.data_ptr(), counts.data_ptr(), npts, tc, stream)
         if err != 0:
             raise RuntimeError(f"distance_tile count kernel launch failed: "
                                f"CUDA error {err}")
@@ -242,9 +263,17 @@ def distance_tile_hits(q, pts, eps, *, tq: int = TQ_DEFAULT,
 
 def distance_tile_counts(pts, eps, *, tq: int = TQ_DEFAULT,
                          tc: int = TC_DEFAULT, method=None):
-    """(N, n) -> (N,) int32 epsilon-neighbour counts, excluding self: the
-    full O(N^2) evaluation with an O(N) output. ``method`` as in
-    ``distance_tile_hits``."""
+    """(N, n) -> (N,) int32 epsilon-neighbour counts, excluding self: every
+    pair evaluated, with an O(N) output. ``method`` as in
+    ``distance_tile_hits``.
+
+    The plain version evaluates all N^2 ordered pairs. The kernel evaluates
+    each unordered pair once, over the upper triangle of tile pairs of
+    ``COUNTS_TILE`` rows, and credits a hit to both points; d2 is symmetric
+    bit for bit, so the counts are the same. Its tiles are its own: ``tc``
+    is the number of candidate rows it stages in shared memory at a time
+    (two such chunks must fit the 48 KiB default), and ``tq`` is only
+    checked to be positive. The counts depend on neither."""
     _check_dtype(pts.dtype)
     _check_rows("pts", pts)
     scal = metric_lib.device_refine_scalar("l2", eps, pts.dtype, pts.device)

@@ -25,6 +25,10 @@ Two implementations of the same function live here:
     counterpart of the JAX package's ``_fused_join_hits_reference``. The CPU
     runs it, and the kernel is held to it bit for bit on the card.
 
+The kernel's Jaccard refine reads the token words packed two to a 32-bit
+word (``pack_words``), the plain version the 16-bit words as they ride
+the float lanes; the popcounts are the same integers.
+
 ``fused_join_hits`` picks by where the tensors lie: the kernel for CUDA
 tensors, the plain version for CPU tensors. There is no fallback: a kernel
 that fails to build or launch raises.
@@ -111,6 +115,31 @@ def pad_points(points_sorted: torch.Tensor, tail: int,
     return out
 
 
+def packed_width(n_feat: int) -> int:
+    """int32 words a row of ``pack_words``: ceil(n_feat / 2), rounded up to
+    a multiple of 4, at least 4."""
+    return max(4, -(-int(n_feat) // 8) * 4)
+
+
+def pack_words(rows: torch.Tensor, n_real: int, n_feat: int) -> torch.Tensor:
+    """The jaccard metric's 16-bit token words of ``rows`` (float lanes
+    [n_real, n_real + n_feat), as ``pad_points(feats=)`` lays them out)
+    packed two to a 32-bit word: (R, W) int32, word k = lane n_real + 2k in
+    the low half and lane n_real + 2k + 1 in the high half, zero past
+    n_feat, W = ceil(n_feat / 2) rounded up to a multiple of 4 (at least 4)
+    so that a row is whole 16-byte vectors. The popcount of an AND over the
+    packed words is the sum of the 16-bit popcounts, exactly. B1 (e) reads
+    its candidates' words here; plain torch glue, on any device."""
+    width = packed_width(n_feat)
+    halves = torch.zeros((rows.shape[0], 2 * width), dtype=torch.int64,
+                         device=rows.device)
+    halves[:, :n_feat] = rows[:, n_real:n_real + n_feat].to(torch.int64)
+    packed = halves[:, 0::2] | (halves[:, 1::2] << 16)
+    # into int32's range, two's complement: the bits stay as they are
+    packed = packed - ((packed >> 31) << 32)
+    return packed.to(torch.int32).contiguous()
+
+
 def _mask_hits(hit, cand_pos, q_pos, zero, unicomp: bool,
                external: bool = False, gq=None, gc=None, ldiff=None):
     """UNICOMP triangle on the zero offset, else the self-pair mask.
@@ -186,8 +215,8 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
     return hits, counts, base
 
 
-_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 11
-             + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 12
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 # Shared memory the run loop stages windows in. With the query tile and the
 # per-row tables a 128-row f64 block then needs ~25 KiB, so eight 256-thread
 # blocks fit on an SM, as for the row loop; a 32 KiB stage let five fit.
@@ -224,17 +253,28 @@ def smem_limit(device: torch.device) -> int:
     return limit
 
 
-def shared_bytes(tq: int, lanes: int, item: int, run_loop: bool) -> int:
-    """Dynamic shared memory of one block: the query tile, four per-row
-    int tables and, for the run loop, the window stage and its run tables
-    (``csrc/fused_join.cu``'s layout)."""
-    smem = tq * lanes * item + 4 * tq * 4
+def jaccard_record_bytes(word_lanes: int) -> int:
+    """Bytes of one Jaccard record in shared memory (a query row or a
+    staged slot): its packed words, then its size in one more 16-byte
+    vector, an odd number of vectors in all (``csrc/fused_join.cu``)."""
+    return ((word_lanes // 4 + 1) | 1) * 16
+
+
+def shared_bytes(tq: int, lanes: int, item: int, run_loop: bool,
+                 word_lanes: int | None = None) -> int:
+    """Dynamic shared memory of one block: the query tile (rows of
+    ``lanes`` values, or Jaccard records of ``word_lanes`` packed words),
+    four per-row int tables and, for the run loop, the window stage and its
+    run tables (``csrc/fused_join.cu``'s layout)."""
+    tile = (tq * lanes * item if word_lanes is None
+            else tq * jaccard_record_bytes(word_lanes))
+    smem = tile + 4 * tq * 4
     if run_loop:
         smem += RUN_STAGE_BYTES + (2 * tq + 2) * 4
     return smem
 
 
-def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
+def _launch(points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
             run_ord, scal, hits, counts, slot_base, merged, unicomp,
             external, keep_hits, c, n_real, tq, metric, n_feat, gid_pairs):
     """The kernel launch on the current stream, as the CUDA implementation
@@ -250,12 +290,13 @@ def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
              else MASK_UNICOMP if unicomp else MASK_SELF),
             int(keep_hits), int(run_ord is not None),
             int(metric == "jaccard"), int(gid_pairs), points_pad.data_ptr(),
-            q_batch.data_ptr(), win_start.data_ptr(), win_count.data_ptr(),
-            is_zero.data_ptr(), q_pos.data_ptr(),
-            0 if run_ord is None else run_ord.data_ptr(), scal.data_ptr(),
-            hits.data_ptr(), counts.data_ptr(), slot_base.data_ptr(), n_off,
-            qp, c, n_real, n_feat, points_pad.shape[1], tq, RUN_STAGE_BYTES,
-            stream)
+            0 if words is None else words.data_ptr(), q_batch.data_ptr(),
+            win_start.data_ptr(), win_count.data_ptr(), is_zero.data_ptr(),
+            q_pos.data_ptr(), 0 if run_ord is None else run_ord.data_ptr(),
+            scal.data_ptr(), hits.data_ptr(), counts.data_ptr(),
+            slot_base.data_ptr(), n_off, qp, c, n_real, n_feat,
+            points_pad.shape[1], 0 if words is None else words.shape[1], tq,
+            RUN_STAGE_BYTES, stream)
     if err != 0:
         raise RuntimeError(f"fused_join kernel launch failed: CUDA error {err}")
 
@@ -264,8 +305,9 @@ def _launch(points_pad, q_batch, win_start, win_count, is_zero, q_pos,
 # device time to the op that launched it, and through the op to every
 # profiler span around it; a launch made outside any op is tied to nothing.
 _OPS = torch.library.Library("repro_torch", "FRAGMENT")
-_OPS.define("fused_join(Tensor points_pad, Tensor q_batch, Tensor win_start, "
-            "Tensor win_count, Tensor is_zero, Tensor q_pos, Tensor? run_ord, "
+_OPS.define("fused_join(Tensor points_pad, Tensor? words, Tensor q_batch, "
+            "Tensor win_start, Tensor win_count, Tensor is_zero, "
+            "Tensor q_pos, Tensor? run_ord, "
             "Tensor scal, Tensor(a!) hits, Tensor(b!) counts, "
             "Tensor(c!) slot_base, bool merged, bool unicomp, bool external, "
             "bool keep_hits, int c, int n_real, int tq, str metric, "
@@ -276,9 +318,11 @@ _OPS.impl("fused_join", _launch, "CUDA")
 def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                           q_pos, run_ord, scal, *, c, tq, n_real, unicomp,
                           external, merged, keep_hits, metric, n_feat,
-                          gid_pairs):
+                          gid_pairs, words=None):
     """Launch ``csrc/fused_join.cu`` on the current stream (no sync);
-    ``run_ord`` None runs the row loop, a (Qp,) plan the run loop."""
+    ``run_ord`` None runs the row loop, a (Qp,) plan the run loop.
+    ``words``: jaccard's ``pack_words(points_pad, n_real, n_feat)``, packed
+    here when not given."""
     global KERNEL_LAUNCHES, RUN_LOOP_LAUNCHES, EXTERNAL_LAUNCHES
     global JACCARD_LAUNCHES, GID_LAUNCHES
     dev = points_pad.device
@@ -321,21 +365,36 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                          f"{f' and {n_feat} feature lanes' if n_feat else ''}"
                          f"{' and the merged lane' if merged else ''}"
                          f"{' and the global-id lane' if gid_pairs else ''}")
+    word_lanes = None
+    if jaccard:
+        word_lanes = packed_width(n_feat)
+        if words is not None and (
+                words.device != dev or words.dtype != torch.int32
+                or tuple(words.shape) != (points_pad.shape[0], word_lanes)
+                or not words.is_contiguous() or words.data_ptr() % 16):
+            raise ValueError(
+                f"words: expected a contiguous 16-byte aligned int32 "
+                f"({points_pad.shape[0]}, {word_lanes}) tensor on {dev} "
+                f"(pack_words), got {words.dtype} {tuple(words.shape)} on "
+                f"{words.device}")
     smem = shared_bytes(tq, lanes, points_pad.element_size(),
-                        run_ord is not None)
+                        run_ord is not None, word_lanes)
     if smem > SMEM_DEFAULT and smem > smem_limit(dev):
         raise ValueError(f"tile of {tq} rows x {lanes} lanes needs {smem} B "
                          f"of shared memory, above the {smem_limit(dev)} B "
                          f"a block of {dev} may opt in to")
+    if jaccard and words is None:
+        words = pack_words(points_pad, n_real, n_feat)
     counts = torch.empty(qp, dtype=torch.int32, device=dev)
     base = torch.empty(qp, dtype=torch.int32, device=dev)
     hits = (torch.empty((n_off, qp, c), dtype=torch.int8, device=dev)
             if keep_hits else
             torch.zeros((1, qp, c), dtype=torch.int8, device=dev))
     torch.ops.repro_torch.fused_join(
-        points_pad, q_batch, win_start, win_count, is_zero, q_pos, run_ord,
-        scal, hits, counts, base, merged, unicomp, external, keep_hits, c,
-        n_real, tq, metric, n_feat, gid_pairs)
+        points_pad, words if jaccard else None, q_batch, win_start,
+        win_count, is_zero, q_pos, run_ord, scal, hits, counts, base, merged,
+        unicomp, external, keep_hits, c, n_real, tq, metric, n_feat,
+        gid_pairs)
     KERNEL_LAUNCHES += 1
     RUN_LOOP_LAUNCHES += run_ord is not None
     EXTERNAL_LAUNCHES += external
@@ -348,7 +407,7 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                     q_pos, eps, *, c, n_real, unicomp, external=False,
                     merged=False, gid_pairs=False, tq=TQ_DEFAULT,
                     keep_hits=True, run_ord=None, run_loop=False,
-                    method=None, metric="l2", n_feat=0):
+                    method=None, metric="l2", n_feat=0, words=None):
     """Fused gather-refine sweep over all stencil offsets in one launch.
 
     Args:
@@ -387,6 +446,11 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                   sweep only on the kernel).
       n_feat:     feature lanes after the ``n_real`` coordinates (jaccard's
                   packed words; ``pad_points(feats=)`` lays them out).
+      words:      jaccard only: ``pack_words(points_pad, n_real, n_feat)``,
+                  the kernel's 32-bit copy of the candidates' words, which
+                  the drivers make once with ``points_pad``; the kernel
+                  path packs it per call when it is None, the plain version
+                  never reads it.
       gid_pairs:  the lane after the coordinates and the merged lane holds
                   global point ids (``pad_points(gid=)``), and the UNICOMP
                   and self masks compare them instead of sorted positions
@@ -425,7 +489,7 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
         return _fused_join_hits_cuda(
             points_pad, q_batch, win_start, win_count,
             is_zero.to(torch.int32), q_pos.to(torch.int32),
-            run_ord if run_loop else None, scal, **kw)
+            run_ord if run_loop else None, scal, words=words, **kw)
     if method == "reference":
         # the plan is ignored: each row against its own descriptors is the
         # run loop's result whenever the plan keeps its contract

@@ -34,11 +34,12 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
                     q_pos, eps, *, c, n_real, unicomp, external=False,
                     merged=False, gid_pairs=False, tq=_fused_join.TQ_DEFAULT,
                     keep_hits=True, run_ord=None, run_loop=False, metric="l2",
-                    n_feat=0):
+                    n_feat=0, words=None):
     """Fused gather-refine sweep (all offsets, one launch) -> hits, counts,
     slot_base; see ``kernels.fused_join.fused_join_hits``."""
     return _fused_join.fused_join_hits(
         points_pad, q_batch, win_start, win_count, is_zero, q_pos, eps,
         c=c, n_real=n_real, unicomp=unicomp, external=external,
         merged=merged, gid_pairs=gid_pairs, tq=tq, keep_hits=keep_hits,
-        run_ord=run_ord, run_loop=run_loop, metric=metric, n_feat=n_feat)
+        run_ord=run_ord, run_loop=run_loop, metric=metric, n_feat=n_feat,
+        words=words)

@@ -186,6 +186,61 @@ def test_distance_tile_kernels_match_plain_version(cuda_device, dtype, n):
             assert torch.equal(a, b)
 
 
+def count_rows(kind, npts, n, dtype, seed):
+    """Seeded rows for B3 at the row dtype: "dups" uniform in [0, 10) with a
+    tenth of the rows copies of earlier ones, "lattice" small integers (d2
+    exactly on eps^2 = 1 for many pairs), "extreme" rows at the largest
+    magnitude whose norms stay finite, 1 or an underflowing one, random
+    signs, and "overflow" those at 1e5 times (norms of +inf; float16 rows,
+    which widen to float32, stay at their extremes)."""
+    big, tiny = {torch.float64: (1e150, 1e-160), torch.float32: (1e18, 1e-22),
+                 torch.float16: (65504.0, 6e-8),
+                 torch.bfloat16: (1e18, 1e-22)}[dtype]
+    rng = np.random.default_rng(seed)
+    if kind == "lattice":
+        x = rng.integers(0, 4, (npts, n)).astype(np.float64)
+    else:
+        x = rng.uniform(0, 10, (npts, n))
+    if kind == "dups" and npts > 1:
+        dup = rng.choice(np.arange(1, npts), max(npts // 10, 1))
+        x[dup] = x[rng.integers(0, dup)]
+    if kind in ("extreme", "overflow"):
+        scale = rng.choice([big, 1.0, tiny], (npts, 1))
+        if kind == "overflow" and dtype != torch.float16:
+            scale = scale * 1e5
+        x = (rng.choice([-1.0, 1.0], x.shape) * rng.uniform(0.5, 1.0, x.shape)
+             * scale)
+    return torch.as_tensor(x).to(dtype)
+
+
+# point counts around B3's 1,024-row tile and its 64- and 256-row tests of
+# old; the data, each at an eps (a huge one makes eps^2 +inf in the row
+# dtype, where the kernel leaves the fused d2)
+B3_SIZES = [1, 2, 255, 256, 257, 1000, 1023, 1024, 1025, 2049, 3000]
+B3_DATA = [("dups", 1.5), ("lattice", 1.0), ("extreme", 1.5),
+           ("overflow", 1.0), ("overflow", 1e160)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", range(1, 9))
+def test_distance_tile_counts_triangle_matches_plain(cuda_device, dtype, n):
+    """B3, which evaluates each unordered pair once over the upper triangle,
+    against its plain version's full N^2 evaluation: N below, on and past
+    the kernel's tile, duplicates, a lattice with d2 on eps^2, extreme rows
+    and rows whose norms overflow, at each (tq, tc) the tests use."""
+    for npts in B3_SIZES:
+        for kind, eps in B3_DATA:
+            p = count_rows(kind, npts, n, dtype, seed=npts + 10 * n).to(
+                cuda_device)
+            want = tdt.distance_tile_counts(p, eps, method="reference")
+            for tq, tc in ((256, 256), (64, 128)):
+                before = tdt.COUNTS_LAUNCHES
+                got = tdt.distance_tile_counts(p, eps, tq=tq, tc=tc,
+                                               method="kernel")
+                assert tdt.COUNTS_LAUNCHES == before + 1
+                assert torch.equal(got, want), (npts, kind, eps, tq, tc)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 3, 6, 8])
 @pytest.mark.parametrize("b,c", [(1, 8), (57, 24), (600, 40), (70000, 32)])
@@ -439,10 +494,13 @@ def jaccard_launches(canon, device, unicomp, run_loop):
         yield launch, (points_pad, qb, ws, wc, is_zero, qpos), plan
 
 
-# (vocabulary, most tokens a set): 64 words of 1,024 tokens make the run
-# loop's block need more than 48 KiB of shared memory, 128 of 2,048 the
-# row loop's too, so both opt in past the default
-JACCARD_DATA = {"v60": (60, 24), "v1024": (1024, 200), "v2048": (2048, 300)}
+# (vocabulary, most tokens a set): 1 and 3 words (n_feat odd) of 16 and 40
+# tokens; 128 words of 2,048 tokens make the run loop's block need more
+# than 48 KiB of shared memory, and 256 of 4,096 the query tile alone (64
+# packed words a row), so both loops opt in past the default
+JACCARD_DATA = {"v16": (16, 8), "v40": (40, 16), "v60": (60, 24),
+                "v1024": (1024, 200), "v2048": (2048, 300),
+                "v4096": (4096, 400)}
 
 
 @pytest.mark.parametrize("data", list(JACCARD_DATA))
@@ -455,6 +513,8 @@ def test_jaccard_kernel_matches_plain_version(cuda_device, data, unicomp,
     vocab, hi = JACCARD_DATA[data]
     canon = tmetric.canonicalize(token_sets(3000, vocab, 1, hi=hi), 0.6,
                                  metric="jaccard", vocab=vocab)
+    tile = 128 * tfj.jaccard_record_bytes(tfj.packed_width(canon.n_feat))
+    assert (tile > 48 * 1024) == (data == "v4096")
     before = tfj.JACCARD_LAUNCHES
     hits = 0
     for launch, args, plan in jaccard_launches(canon, cuda_device, unicomp,
@@ -514,11 +574,15 @@ def test_jaccard_kernel_refuses_what_it_cannot_run(cuda_device):
                             0.5, **kw)
     limit = tfj.smem_limit(args[0].device)
     assert limit >= 48 * 1024
-    lanes = -(-limit // (4 * 128)) + 8
+    # the query tile holds 128 records of the packed words (two 16-bit
+    # words to an int32): this many feature lanes pass the limit
+    n_feat = 16 * (limit // (16 * 128))
+    lanes = tfj.pad_width(1 + n_feat)
     wide = torch.zeros((args[0].shape[0], lanes), device=cuda_device)
     qwide = torch.zeros((args[1].shape[0], lanes), device=cuda_device)
     with pytest.raises(ValueError, match=str(limit)):
-        tfj.fused_join_hits(wide, qwide, *args[2:], 0.5, **kw)
+        tfj.fused_join_hits(wide, qwide, *args[2:], 0.5,
+                            **dict(kw, n_feat=n_feat))
     with pytest.raises(ValueError, match="Jaccard kernel only"):
         tfj.fused_join_hits(*args, 0.5, **dict(kw, metric="l2"))
 
