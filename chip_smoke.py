@@ -106,6 +106,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -283,6 +284,14 @@ def sync():
     torch.cuda.synchronize()
 
 
+def _host_s(fn) -> float:
+    """Seconds of ``fn()`` by the host clock, ending in a synchronize."""
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return time.perf_counter() - t0
+
+
 def event_ms(fn, repeats: int = 1) -> float:
     """Device ms of ``fn()`` by CUDA events, averaged over ``repeats``."""
     start = torch.cuda.Event(enable_timing=True)
@@ -401,11 +410,12 @@ def timed_launches(prepared, method: str, run_loop: bool = False,
     return event_ms(one_pass, reps)
 
 
-def profiled_device_ms(fn, reps: int = 5) -> float:
+def profiled_device_ms(fn, reps: int = 5, kernel: str = "") -> float:
     """Device ms of ``fn()`` by torch.profiler: the device time of every
-    kernel, copy and fill it queued, over ``reps`` calls, per call. For
-    launches too small to keep the card busy while the host queues the
-    next, where CUDA events around a pass also count the idle gaps."""
+    kernel, copy and fill it queued (only the kernels whose name holds
+    ``kernel``, when given), over ``reps`` calls, per call. For launches
+    too small to keep the card busy while the host queues the next, where
+    CUDA events around a pass also count the idle gaps."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
@@ -417,7 +427,8 @@ def profiled_device_ms(fn, reps: int = 5) -> float:
     total = sum(getattr(e, "self_device_time_total", 0) or 0
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith("Activity Buffer"))
+                and not e.key.startswith("Activity Buffer")
+                and kernel in e.key)
     return total / 1e3 / reps
 
 
@@ -469,16 +480,94 @@ def bound(nbytes: int, flops: int, dtype: str):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def hits_tile_work(nq: int, npts: int, n: int, item: int, tq=256, tc=256):
-    """B2's work for one (nq, N) call, counted from the kernel: bytes = the
-    query and candidate rows read once, the int8 plane written once;
-    operations = (2n + 2) per pair (n multiplies and n - 1 adds of the dot
-    product, then add, multiply by 2, subtract) plus each block's norms of
-    its tq + tc rows (2n - 1 each)."""
-    blocks = -(-nq // tq) * -(-npts // tc)
+def hits_tile_work(nq: int, npts: int, n: int, item: int):
+    """B2's work for one (nq, N) call: bytes = the query and candidate rows
+    read once, the int8 plane written once; operations = (2n + 2) per pair
+    (n multiplies and n - 1 adds of the dot product, then add, multiply by
+    2, subtract) plus each row's norm once ((2n - 1) each)."""
     nbytes = (nq + npts) * n * item + nq * npts
-    flops = nq * npts * (2 * n + 2) + blocks * (tq + tc) * (2 * n - 1)
+    flops = nq * npts * (2 * n + 2) + (nq + npts) * (2 * n - 1)
     return nbytes, flops
+
+
+def hits_issue_ms(pairs: int, n: int, unit: str) -> float:
+    """B2's issue floor: the (2n + 2) instructions a pair (n multiplies,
+    n - 1 adds, the norms' add, the fused multiply-subtract, the compare)
+    at ``ISSUE_RATE[unit]``."""
+    return pairs * (2 * n + 2) / ISSUE_RATE[unit] * 1e3
+
+
+B2_KERNEL = "distance_tile_hits_kernel"
+BRUTE_TILE = 256   # query rows of one B2 launch on the brute path
+
+
+def b2_sweep(p, eps, method=None):
+    """The brute path's B2 launches over ``p``: BRUTE_TILE query rows a
+    call against all of ``p``, the planes dropped."""
+    from repro_torch.kernels import distance_tile as dt
+    for r0 in range(0, p.shape[0], BRUTE_TILE):
+        dt.distance_tile_hits(p[r0:r0 + BRUTE_TILE], p, eps, method=method)
+
+
+def b2_times(p, eps, library: bool = True) -> dict:
+    """B2 over the brute sweep of ``p`` (eps built once, a tensor on the
+    card): its device time by name under the profiler, the sweep's time by
+    CUDA events (median of 3, after a warm-up), its bytes and operations
+    bound and issue floor, and the yardstick the port never calls,
+    ``torch.cdist(compute_mode="use_mm_for_euclid_dist")`` over the same
+    tiles: the same expanded form through a library product, then a clamp
+    and a square root, so not bit-equal (None where the card's torch
+    refuses the dtype)."""
+    npts, n = p.shape
+    item = p.element_size()
+    unit = OPS_DTYPE[str(p.dtype).replace("torch.", "")]
+    nbytes = flops = 0
+    for r0 in range(0, npts, BRUTE_TILE):
+        nb, nf = hits_tile_work(min(BRUTE_TILE, npts - r0), npts, n, item)
+        nbytes += nb
+        flops += nf
+    b = bound(nbytes, flops, unit)
+    b2_sweep(p, eps)
+    events = statistics.median(event_ms(lambda: b2_sweep(p, eps))
+                               for _ in range(3))
+
+    def cdist():
+        for r0 in range(0, npts, BRUTE_TILE):
+            torch.cdist(p[r0:r0 + BRUTE_TILE], p,
+                        compute_mode="use_mm_for_euclid_dist")
+
+    cdist_ms = cdist_note = None
+    if library:
+        try:
+            cdist()
+            cdist_ms = statistics.median(event_ms(cdist) for _ in range(3))
+            cdist_note = ("torch.cdist(compute_mode='use_mm_for_euclid_"
+                          "dist') over the same tiles: distances, not hits, "
+                          "and not bit-equal (library product, clamp, "
+                          "square root)")
+        except RuntimeError as err:
+            cdist_note = f"torch.cdist refused: {err}"[:200]
+    return dict(device_ms=profiled_device_ms(lambda: b2_sweep(p, eps),
+                                             reps=3, kernel=B2_KERNEL),
+                events_ms=events, launches=-(-npts // BRUTE_TILE),
+                bound_ms=b[0], bound_by=b[1], bound_bytes=nbytes,
+                bound_flops=flops,
+                issue_floor_ms=hits_issue_ms(npts * npts, n, unit),
+                cdist_ms=cdist_ms, cdist_note=cdist_note)
+
+
+def b2_checksum(p, eps) -> tuple[int, int]:
+    """The brute sweep's hit total and a checksum of the hit positions: the
+    sum of ``row * npts + col`` over the hits, mod 2^61."""
+    from repro_torch.kernels import distance_tile as dt
+    npts = p.shape[0]
+    total = pos = 0
+    for r0 in range(0, npts, BRUTE_TILE):
+        hit = torch.nonzero(dt.distance_tile_hits(p[r0:r0 + BRUTE_TILE], p,
+                                                  eps))
+        total += hit.shape[0]
+        pos += int(((hit[:, 0] + r0) * npts + hit[:, 1]).sum())
+    return total, pos % 2 ** 61
 
 
 def counts_tile_work(npts: int, n: int, item: int):
@@ -567,6 +656,94 @@ def oracle_counts(pts_gpu, pairs_first, eps: float, where: str):
 
 # --- phases -----------------------------------------------------------------
 
+_MANGLED_TYPES = {"d": "f64", "f": "f32", "6__half": "f16",
+                  "13__nv_bfloat16": "bf16"}
+
+
+def ptxas_by_kernel(log: str, kernel: str) -> dict:
+    """Registers and spilled bytes (stores plus loads) of each instance of
+    ``kernel`` in nvcc's ``-Xptxas -v`` output, keyed by its template
+    arguments (B2's: row type, n, store width, as "f64_n2_w16")."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if not name or kernel not in name:
+            continue
+        rest = name.split(kernel, 1)[1]
+        t = re.match(r"I(\w+?)Li(\d+)ELi(\d+)E", rest)
+        key = (f"{_MANGLED_TYPES.get(t[1], t[1])}_n{t[2]}_w{t[3]}" if t
+               else rest)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(key, {})["spill_bytes"] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m[1])
+    return out
+
+
+def sync_check() -> dict:
+    """Which kernel wrappers wait for the device: one call each of B1 (one
+    pass of ``timed_launches`` over the launches of a 20,000-point join),
+    B2, B3 and B4 (one offset of the unfused join) under
+    ``torch.cuda.set_sync_debug_mode("error")``, at each row dtype, with
+    eps a Python float ("python_eps") and with eps as the phases pass it
+    ("as_passed": B1 and B4 the index's eps tensor, B2 and B3 a Python
+    float). True where the call synchronised."""
+    from repro_torch.core import grid
+    from repro_torch.kernels import cell_join as cj, distance_tile as dt
+    from repro_torch.kernels import fused_join as fj
+    out = {}
+    for dname, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32),
+                         ("float16", torch.float16),
+                         ("bfloat16", torch.bfloat16)):
+        pts = torch.as_tensor(syn(20000, 2)).to(DEVICE, dtype)
+        index = grid.build_grid(pts, 1.0, device=DEVICE)
+        prepared = prepared_launches(index, merged=True, unicomp=True)
+        (q, cand, valid), = unfused_launches(index)[:1]
+        calls = {
+            "b1": lambda e: [fj.fused_join_hits(*p["args"][:-1], e,
+                                                method="kernel", **p["kw"])
+                             for p in prepared],
+            "b2": lambda e: dt.distance_tile_hits(pts[:256], pts, e,
+                                                  method="kernel"),
+            "b3": lambda e: dt.distance_tile_counts(pts, e, method="kernel"),
+            "b4": lambda e: cj.cell_join_hits(q, cand, valid, e,
+                                              method="kernel"),
+        }
+        passed = {"b1": index.eps, "b2": 1.0, "b3": 1.0, "b4": index.eps}
+        out[dname] = {}
+        for name, fn in calls.items():
+            for key, e in (("python_eps", 1.0), ("as_passed", passed[name])):
+                fn(e)                      # loads the library, untimed
+                sync()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn(e)
+                    synced = False
+                except RuntimeError as err:
+                    if "synchroniz" not in str(err):
+                        raise
+                    synced = True
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                out[dname][f"{name}_{key}"] = synced
+        sync()
+    return out
+
+
+def phase_syncs():
+    """No kernel wrapper waits for the device (``sync_check``)."""
+    syncs = sync_check()
+    emit("syncs", **syncs)
+    check(not any(v for d in syncs.values() for v in d.values()),
+          f"a kernel wrapper synchronised: {syncs}")
+
+
 def phase_env():
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, numpy=np.__version__,
@@ -584,7 +761,14 @@ def phase_build():
     dt._kernel_library()
     cj._kernel_library()
     seconds = time.perf_counter() - t0
-    emit("build", seconds=seconds, libraries={
+    b2 = ptxas_by_kernel(built["distance_tile"][1], B2_KERNEL)
+    emit("build", seconds=seconds, b2_ptxas=dict(
+        instances=len(b2),
+        max_registers=max((v["registers"] for v in b2.values()), default=None),
+        spilled={k: v["spill_bytes"] for k, v in b2.items()
+                 if v.get("spill_bytes")},
+        timed={k: b2.get(k) for k in ("f64_n2_w16", "f16_n2_w16",
+                                      "bf16_n2_w16")}), libraries={
         name: dict(path=str(path.relative_to(ROOT)), built=bool(log),
                    ptxas=sorted({ln.split(":", 1)[-1].strip()
                                  for ln in log.splitlines()
@@ -1142,6 +1326,7 @@ def phase_batched(main):
 
 def phase_brute(workloads):
     import repro_torch
+    from repro_torch.core import metric
     from repro_torch.kernels import distance_tile as dt
     worst = 0
     shapes = {}
@@ -1186,45 +1371,51 @@ def phase_brute(workloads):
               f"{BENCH_TOTALS[name]} with no band point")
         band[name] = n_differ
 
-    # times at the uniform-2d shapes: the brute sweep's B2 launches, and B3
+    # times at the uniform-2d shapes: the brute path itself (host clock,
+    # and its device time under the profiler: B2's and the rest, the torch
+    # mask and sums), the brute sweep's B2 launches, and B3
     p, eps, n = shapes["uniform-2d"]
     npts = p.shape[0]
 
-    def sweep(method):
-        for r0 in range(0, npts, 256):
-            dt.distance_tile_hits(p[r0:r0 + 256], p, eps, method=method)
+    def brute():
+        repro_torch.brute_force_count(p, eps, distance_impl="pallas",
+                                      device=DEVICE)
 
+    brute()
+    path_s = statistics.median(_host_s(brute) for _ in range(3))
+    path_device_ms = profiled_device_ms(brute, reps=3)
+    path_b2_ms = profiled_device_ms(brute, reps=3, kernel=B2_KERNEL)
+    eps_t = metric.scalar_as(eps, p.dtype, DEVICE)
+    b2 = b2_times(p, eps_t)
     timed = {}
-    for key, fn in (("b2", lambda: sweep("kernel")),
-                    ("b2_plain", lambda: sweep("reference")),
+    for key, fn in (("b2_plain", lambda: b2_sweep(p, eps_t, "reference")),
                     ("b3", lambda: dt.distance_tile_counts(
                         p, eps, method="kernel")),
                     ("b3_plain", lambda: dt.distance_tile_counts(
                         p, eps, method="reference"))):
         fn()                                              # warm-up
         timed[key] = statistics.median(event_ms(fn) for _ in range(3))
-    b2_bytes = b2_flops = 0
-    for r0 in range(0, npts, 256):
-        nb, nf = hits_tile_work(min(256, npts - r0), npts, n, 8)
-        b2_bytes += nb
-        b2_flops += nf
-    b2_bound = bound(b2_bytes, b2_flops, "float64")
     b3_bound = bound(*counts_tile_work(npts, n, 8), "float64")
     b3_issue = counts_issue_ms(npts, n, "float64")
     emit("brute", workloads=list(BRUTE_WORKLOADS), totals=totals,
          band_points=band, brute_count_s=brute_s,
+         uniform_brute_count_s=path_s,
+         uniform_brute_device_ms=path_device_ms,
+         uniform_brute_b2_device_ms=path_b2_ms,
+         uniform_brute_busy_share=path_device_ms / (path_s * 1e3),
          b2_launches=hits_launches, b2_equals_plain=True,
          b3_equals_plain=True, timed_on="uniform-2d", timed_points=npts,
-         b2_ms=timed["b2"], b2_plain_ms=timed["b2_plain"],
-         b2_bound_ms=b2_bound[0], b2_bound_by=b2_bound[1],
-         b2_bound_bytes=b2_bytes, b2_bound_flops=b2_flops,
-         b2_launches_timed=-(-npts // 256),
+         b2_device_ms=b2["device_ms"], b2_events_ms=b2["events_ms"],
+         b2_plain_ms=timed["b2_plain"],
+         b2_bound_ms=b2["bound_ms"], b2_bound_by=b2["bound_by"],
+         b2_bound_bytes=b2["bound_bytes"], b2_bound_flops=b2["bound_flops"],
+         b2_issue_floor_ms=b2["issue_floor_ms"], b2_cdist_ms=b2["cdist_ms"],
+         b2_cdist_note=b2["cdist_note"], b2_launches_timed=b2["launches"],
          b3_ms=timed["b3"], b3_plain_ms=timed["b3_plain"],
          b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
          b3_issue_floor_ms=b3_issue)
-    return dict(b2=dict(launches=hits_launches, ms=timed["b2"],
-                        plain_ms=timed["b2_plain"], bound_ms=b2_bound[0],
-                        bound_by=b2_bound[1]),
+    return dict(b2=dict(b2, launches=hits_launches,
+                        plain_ms=timed["b2_plain"]),
                 b3=dict(ms=timed["b3"], plain_ms=timed["b3_plain"],
                         bound_ms=b3_bound[0], bound_by=b3_bound[1],
                         issue_ms=b3_issue),
@@ -2538,10 +2729,12 @@ def half_brute(workloads) -> dict:
     """Kernel B2-bf16: brute force on HALF_BRUTE_WORKLOAD at bfloat16 and
     float16. B2 and B3 against their plain versions, bit for bit, on every
     launch of the sweep; B3's per-point counts against B2's row sums; the
-    brute path (brute_force_count, "pallas") counted; each kernel timed by
-    CUDA events over back-to-back passes beside its plain version and its
+    brute path (brute_force_count, "pallas") counted; B2 timed by its device
+    time under the profiler and by CUDA events over the sweep
+    (``b2_times``), B3 by events, each beside its plain version and its
     bound at 2 bytes an element."""
     import repro_torch
+    from repro_torch.core import metric
     from repro_torch.kernels import distance_tile as dt
     raw, eps = workloads[HALF_BRUTE_WORKLOAD]
     out = {}
@@ -2578,30 +2771,28 @@ def half_brute(workloads) -> dict:
         check(total == int(counts.sum(dtype=torch.int64)), f"{dname}: "
               f"brute_force_count {total} != B3's total")
 
-        def sweep(method):
-            for r0 in range(0, npts, 256):
-                dt.distance_tile_hits(p[r0:r0 + 256], p, eps, method=method)
-
+        eps_t = metric.scalar_as(eps, dtype, DEVICE)
+        b2 = b2_times(p, eps_t)
         timed = {}
-        for key, fn in (("b2", lambda: sweep("kernel")),
-                        ("b2_plain", lambda: sweep("reference")),
+        for key, fn in (("b2_plain", lambda: b2_sweep(p, eps_t,
+                                                      "reference")),
                         ("b3", lambda: dt.distance_tile_counts(
                             p, eps, method="kernel")),
                         ("b3_plain", lambda: dt.distance_tile_counts(
                             p, eps, method="reference"))):
             fn()                                          # warm-up
             timed[key] = statistics.median(event_ms(fn) for _ in range(3))
-        b2_bytes = b2_flops = 0
-        for r0 in range(0, npts, 256):
-            nb, nf = hits_tile_work(min(256, npts - r0), npts, n, 2)
-            b2_bytes += nb
-            b2_flops += nf
-        b2_bound = bound(b2_bytes, b2_flops, "float32")
         b3_bound = bound(*counts_tile_work(npts, n, 2), "float32")
         out[dname] = dict(points=npts, eps=eps, total_pairs=total,
                           b2_launches=b2_launches, b3_launches=b3_launches,
-                          b2_ms=timed["b2"], b2_plain_ms=timed["b2_plain"],
-                          b2_bound_ms=b2_bound[0], b2_bound_by=b2_bound[1],
+                          b2_device_ms=b2["device_ms"],
+                          b2_events_ms=b2["events_ms"],
+                          b2_plain_ms=timed["b2_plain"],
+                          b2_bound_ms=b2["bound_ms"],
+                          b2_bound_by=b2["bound_by"],
+                          b2_issue_floor_ms=b2["issue_floor_ms"],
+                          b2_cdist_ms=b2["cdist_ms"],
+                          b2_cdist_note=b2["cdist_note"],
                           b3_ms=timed["b3"], b3_plain_ms=timed["b3_plain"],
                           b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
                           b3_issue_floor_ms=counts_issue_ms(npts, n,
@@ -2874,10 +3065,14 @@ def half_kernels(half) -> list:
             "source": f"{csrc}/distance_tile.cu",
             "replaces": "src/repro/kernels/distance_tile.py:45",
             "launches": b["b2_launches"], "max_abs_err": 0,
-            "ms": b["b2_ms"], "plain_ms": b["b2_plain_ms"],
+            "ms": b["b2_device_ms"], "events_ms": b["b2_events_ms"],
+            "plain_ms": b["b2_plain_ms"],
             "bound_ms": b["b2_bound_ms"], "bound_by": b["b2_bound_by"],
-            "library_ms": None, "matched_plain": True,
-            "timed_on": f"{HALF_BRUTE_WORKLOAD} brute sweep at {dname}"})
+            "issue_floor_ms": b["b2_issue_floor_ms"],
+            "library_ms": b["b2_cdist_ms"], "library": b["b2_cdist_note"],
+            "matched_plain": True,
+            "timed_on": f"{HALF_BRUTE_WORKLOAD} brute sweep at {dname}, "
+                        f"device time by name"})
         out.append({
             "name": f"distance_tile_counts_{dname}", "route": "cuda",
             "source": f"{csrc}/distance_tile.cu",
@@ -2925,19 +3120,27 @@ def record_half_totals() -> dict:
 
 
 def kernel_times() -> dict:
-    """B3 and B1 (e) alone, timed by CUDA events from the ``repro_torch``
-    first on ``sys.path``: B3 on the main path's 2,000,000 points (f64) and
-    on uniform-2d's 100,000 at f64, float16 and bfloat16; B1 (e) on the
-    launches of the 100,000-set Jaccard join (run loop), back to back. Each
-    with its integer total, so two versions can be seen to agree."""
+    """B3, B1 (e) and B2 alone, from the ``repro_torch`` first on
+    ``sys.path``: B3 by CUDA events on the main path's 2,000,000 points
+    (f64) and on uniform-2d's 100,000 at f64, float16 and bfloat16; B1 (e)
+    by events on the launches of the 100,000-set Jaccard join (run loop),
+    back to back; B2 on uniform-2d's brute sweep (391 launches of 256 rows)
+    at f64, float16 and bfloat16, with eps built once by the package's
+    ``metric.scalar_as``: its device time by name under the profiler, the
+    sweep's time by events, and ``brute_force_count``'s time by the host
+    clock. Each with its integers (totals; B2's hit positions' checksum),
+    so two versions can be seen to agree; and ``sync_check`` of the
+    package's wrappers."""
     import repro_torch
     from repro_torch.core import metric, selfjoin as sj
     from repro_torch.kernels import build, distance_tile as dt
     from repro_torch.kernels import fused_join as fj
     t0 = time.perf_counter()
-    build.build_all()
+    built = build.build_all()
     out = dict(package=str(Path(repro_torch.__file__).resolve().parents[1]),
-               build_s=time.perf_counter() - t0)
+               build_s=time.perf_counter() - t0,
+               b2_ptxas=ptxas_by_kernel(built["distance_tile"][1],
+                                        B2_KERNEL))
 
     def b3(pts, eps, reps):
         counts = dt.distance_tile_counts(pts, eps)               # warm-up
@@ -2952,7 +3155,23 @@ def kernel_times() -> dict:
     for dname, dtype in (("float64", torch.float64),
                          ("float16", torch.float16),
                          ("bfloat16", torch.bfloat16)):
-        out[f"b3_100k_{dname}"] = b3(as_half(raw, dtype).to(DEVICE), eps, 5)
+        p = as_half(raw, dtype).to(DEVICE)
+        out[f"b3_100k_{dname}"] = b3(p, eps, 5)
+        eps_t = metric.scalar_as(eps, dtype, DEVICE)
+        b2 = b2_times(p, eps_t, library=False)
+        total, checksum = b2_checksum(p, eps_t)
+        runs = []
+        for _ in range(4):                    # the first is the warm-up
+            t1 = time.perf_counter()
+            count = repro_torch.brute_force_count(p, eps,
+                                                  distance_impl="pallas",
+                                                  device=DEVICE)
+            runs.append(time.perf_counter() - t1)
+        out[f"b2_100k_{dname}"] = dict(
+            device_ms=b2["device_ms"], events_ms=b2["events_ms"],
+            launches=b2["launches"], total=total, checksum=checksum,
+            brute_count_s=statistics.median(runs[1:]),
+            brute_count_runs_s=runs[1:], brute_total=count)
     mat, _, _ = jaccard_data(JACCARD_POINTS, JACCARD_VOCAB)
     canon = metric.canonicalize(mat, JACCARD_T, metric="jaccard",
                                 vocab=JACCARD_VOCAB)
@@ -2965,6 +3184,7 @@ def kernel_times() -> dict:
             for _ in range(3)]
     out["b1e_100k_sets"] = dict(ms=statistics.median(runs), runs_ms=runs,
                                 launches=len(prepared), total=total)
+    out["syncs"] = sync_check()
     return out
 
 
@@ -2987,6 +3207,7 @@ def main() -> int:
 
     phase_env()
     phase_build()
+    phase_syncs()
     workloads = bench_workloads()
     worst = phase_kernel_vs_plain(workloads)
     phase_bench_totals(workloads)
@@ -3044,10 +3265,15 @@ def main() -> int:
         "source": f"{csrc}/distance_tile.cu",
         "replaces": "src/repro/kernels/distance_tile.py:45",
         "launches": brute["b2"]["launches"], "max_abs_err": 0,
-        "ms": brute["b2"]["ms"], "plain_ms": brute["b2"]["plain_ms"],
+        "ms": brute["b2"]["device_ms"], "events_ms": brute["b2"]["events_ms"],
+        "plain_ms": brute["b2"]["plain_ms"],
         "bound_ms": brute["b2"]["bound_ms"],
-        "bound_by": brute["b2"]["bound_by"], "library_ms": None,
-        "matched_plain": True, "timed_on": "uniform-2d brute sweep",
+        "bound_by": brute["b2"]["bound_by"],
+        "issue_floor_ms": brute["b2"]["issue_floor_ms"],
+        "library_ms": brute["b2"]["cdist_ms"],
+        "library": brute["b2"]["cdist_note"], "matched_plain": True,
+        "timed_on": "uniform-2d brute sweep (391 launches), device time "
+                    "by name",
     }, {
         "name": "distance_tile_counts", "route": "cuda",
         "source": f"{csrc}/distance_tile.cu",

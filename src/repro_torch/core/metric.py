@@ -118,14 +118,38 @@ HALF_DTYPES = (torch.float16, torch.bfloat16)
 FLOAT_DTYPES = (torch.float64, torch.float32) + HALF_DTYPES
 
 
+def _on_device(x: torch.Tensor, device) -> bool:
+    """``x`` lies on ``device`` (None: anywhere; "cuda": any card)."""
+    if device is None:
+        return True
+    device = torch.device(device)
+    return x.device.type == device.type and device.index in (None,
+                                                            x.device.index)
+
+
 def scalar_as(x, dtype, device=None) -> torch.Tensor:
     """A 0-d tensor of the scalar ``x`` in ``dtype``, rounded as numpy and
     XLA round a Python float: float16 in one rounding from float64 (torch's
     own cast goes through float32 and can round twice), everything else as
-    torch casts it (bfloat16 through float32, as ml_dtypes does)."""
+    torch casts it (bfloat16 through float32, as ml_dtypes does).
+
+    No call waits for the device when ``x`` is a number, or a tensor that
+    already has ``dtype`` on ``device``: such a tensor is returned as it is,
+    and a number is rounded on the host and written on the device by a fill
+    of the rounded (exact) value. A copy from host memory would synchronise
+    the stream on every kernel launch that builds its scalar here."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == dtype and _on_device(x, device):
+            return x
+        if dtype == torch.float16:
+            x = float(np.float16(float(x)))
+        return torch.as_tensor(x, dtype=dtype, device=device)
     if dtype == torch.float16:
         x = float(np.float16(float(x)))     # exact in float16 from here
-    return torch.as_tensor(x, dtype=dtype, device=device)
+    host = torch.as_tensor(x, dtype=dtype)
+    if device is None:
+        return host
+    return torch.full((), host.item(), dtype=dtype, device=device)
 
 
 def lane_d2(q: torch.Tensor, cand_lane, n: int) -> torch.Tensor:

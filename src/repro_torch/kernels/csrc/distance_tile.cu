@@ -24,12 +24,35 @@
 // matrix-multiply routine is the wrong tool, and FP64 tensor cores (mma.sync
 // m8n8k4) would need the plain version to follow their order.
 //
-// distance_tile_hits_kernel (B2): one block per (query tile, candidate tile).
-//   It stages both tiles' rows and their squared norms in shared memory, and
-//   neighbouring threads write neighbouring int8 bytes of one query row of
-//   the (nq, N) output. Bound on the H100 by bytes: one output byte per pair
-//   against 2n + 2 FP64 operations, and the byte plane is written once.
-//   Only real rows and columns are computed and written: the TPU kernel's
+// distance_tile_hits_kernel (B2): the (nq, N) int8 plane of hits. A block
+//   takes kHitsRows = 32 query rows against a candidate tile of
+//   kHitsThreads = 128 threads x G candidates; 256 x 100,000 points at f64,
+//   n = 2 (G = 16) is 8 x 49 = 392 blocks, about three an SM. Design:
+//   * a thread owns G consecutive candidates: it loads their lanes once,
+//     widening half rows as Acc::load does, computes their norms once with
+//     sq_norm, and keeps both in registers, so a pair costs no index
+//     arithmetic and no shared-memory read of its candidate. G is 16, halved
+//     (to 8, then 4) while G * (n + 1) values of the compute type would take
+//     more than 96 registers: at f64 16 to n = 2, 8 to n = 5, then 4; at
+//     f32 16 to n = 5, then 8;
+//   * the block's query rows are staged once in shared memory as records
+//     (lanes, then the norm, padded to 16 bytes, as B3 stages them), and all
+//     threads read the same record at the same time: n + 1 broadcast values
+//     for G pairs;
+//   * per query row a thread packs its G hit bytes into 32-bit words and
+//     stores them W bytes at a time, so a warp writes 32 * G contiguous bytes
+//     of one output row. Row i starts at byte i * npts, so the store width W
+//     follows npts: the largest power of two dividing it, at most G (16 at
+//     the brute workloads' 100,000, 30,000 and 20,000 points; byte stores at
+//     an odd npts, which stay exact). A template on W, chosen at launch.
+//   d2 is B3's pair_d2 with the fused last step (and its unfused fall-back
+//   when eps2 is +inf, the one case where they can differ). What bounds it
+//   on the H100: at f64 the FP64 issue rate, 2n + 2 instructions a pair (n
+//   multiplies, n - 1 adds, the norms' add, the fma, the compare) against
+//   one byte written a pair; at the half dtypes (FP32 at twice the rate)
+//   the bytes of the plane. Shared memory (one broadcast record per G pairs)
+//   and the integer pipe (packing, one store per G pairs) stay off the
+//   critical path. Only real rows and columns are written: the TPU kernel's
 //   padding candidates (at 1e9, never a hit; +inf at float16, where their
 //   d2 is inf or NaN and still no hit) are sliced off its output, so they
 //   have no counterpart here.
@@ -135,51 +158,6 @@ __device__ __forceinline__ A pair_d2(const A* q, A qn, const A* p, A pn) {
   const A s = add_rn(qn, pn);
   if (FMA) return fma_rn(A(-2), cross, s);
   return sub_rn(s, mul_rn(A(2), cross));
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads) distance_tile_hits_kernel(
-    const T* __restrict__ q,      // (nq, N)
-    const T* __restrict__ pts,    // (npts, N)
-    const T* __restrict__ scal,   // (1,) eps^2 in T
-    int8_t* __restrict__ out,     // (nq, npts)
-    int nq, int npts, int tq, int tc) {
-  using A = typename Acc<T>::A;
-  extern __shared__ __align__(16) unsigned char smem[];
-  A* q_s = reinterpret_cast<A*>(smem);   // tq * N
-  A* p_s = q_s + (size_t)tq * N;         // tc * N
-  A* qn_s = p_s + (size_t)tc * N;        // tq
-  A* pn_s = qn_s + tq;                   // tc
-  const int i0 = blockIdx.y * tq;
-  const int j0 = blockIdx.x * tc;
-  const int rows = min(tq, nq - i0);
-  const int cols = min(tc, npts - j0);
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    A v[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(q[(size_t)(i0 + r) * N + k]);
-#pragma unroll
-    for (int k = 0; k < N; ++k) q_s[r * N + k] = v[k];
-    qn_s[r] = sq_norm<A, N>(v);
-  }
-  for (int r = threadIdx.x; r < cols; r += blockDim.x) {
-    A v[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = Acc<T>::load(pts[(size_t)(j0 + r) * N + k]);
-#pragma unroll
-    for (int k = 0; k < N; ++k) p_s[r * N + k] = v[k];
-    pn_s[r] = sq_norm<A, N>(v);
-  }
-  __syncthreads();
-  const A eps2 = Acc<T>::load(scal[0]);
-  const int work = rows * cols;
-  for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
-    const int i = idx / cols;
-    const int j = idx - i * cols;
-    const bool hit = pair_d2<A, N, false>(q_s + i * N, qn_s[i], p_s + j * N,
-                                          pn_s[j]) <= eps2;
-    out[(size_t)(i0 + i) * npts + j0 + j] = hit ? 1 : 0;
-  }
 }
 
 // B3's tile: each thread holds kRows query rows in registers, so a block
@@ -348,14 +326,174 @@ __global__ void __launch_bounds__(kThreads) distance_tile_counts_kernel(
   }
 }
 
+// B2's decomposition; kernels/distance_tile.py mirrors each name
+// (HITS_THREADS, HITS_ROWS, HITS_REG_BUDGET, hits_group, hits_width).
+constexpr int kHitsThreads = 128;   // threads a block
+constexpr int kHitsRows = 32;       // query rows a block
+constexpr int kHitsRegBudget = 96;  // 32-bit registers for a thread's candidates
+
+// G, the candidates a thread owns: 16, halved (to no fewer than 4) while
+// their lanes and norms, G * (N + 1) values of A, would take more than
+// kHitsRegBudget registers.
+template <typename A, int N>
+__host__ __device__ constexpr int hits_group() {
+  int g = 16;
+  while (g > 4 && g * (N + 1) * static_cast<int>(sizeof(A) / 4) > kHitsRegBudget)
+    g /= 2;
+  return g;
+}
+
+// W, the bytes of one store: the largest power of two that divides npts, at
+// most G (and so at most 16). Row i of the plane starts at byte i * npts and
+// a thread's G columns at a multiple of G, so every W-byte store is aligned
+// and lies inside one row; the plane's base comes from the allocator, which
+// aligns to far more than 16 bytes.
+inline int hits_width(int npts, int group) {
+  int w = group < 16 ? group : 16;
+  while (npts % w) w /= 2;
+  return w;
+}
+
+// The G hit bytes of one query row, packed four to a word (byte g of the
+// group in byte g % 4 of word g / 4), stored W bytes at a time. The plane's
+// width is a multiple of W, so a W-byte chunk lies wholly before the last
+// column or wholly past it.
+template <int G, int W>
+__device__ __forceinline__ void store_hits(int8_t* dst, const uint32_t (&w)[G / 4],
+                                           long long col, int npts) {
+#pragma unroll
+  for (int s = 0; s < G / W; ++s) {
+    if (col + s * W >= npts) continue;
+    if constexpr (W == 16) {
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(w[4 * s], w[4 * s + 1], w[4 * s + 2], w[4 * s + 3]);
+    } else if constexpr (W == 8) {
+      *reinterpret_cast<uint2*>(dst + 8 * s) = make_uint2(w[2 * s], w[2 * s + 1]);
+    } else if constexpr (W == 4) {
+      *reinterpret_cast<uint32_t*>(dst + 4 * s) = w[s];
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<uint16_t*>(dst + 2 * s) =
+          static_cast<uint16_t>(w[s / 2] >> (16 * (s % 2)));
+    } else {
+      dst[s] = static_cast<int8_t>((w[s / 4] >> (8 * (s % 4))) & 0xFF);
+    }
+  }
+}
+
+// One thread's sweep over the block's staged query rows: per row, one
+// broadcast record read, G pair_d2 against the candidates in registers, the
+// hits packed and stored.
+template <typename A, int N, int G, int W, bool FMA>
+__device__ __forceinline__ void hits_rows(const A* q_s, A (&p)[G][N],
+                                          A (&pn)[G], A eps2,
+                                          int8_t* __restrict__ out, int rows,
+                                          long long row0, int npts,
+                                          long long col) {
+  constexpr int L = Record<A, N>::kLen;
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    A qr[L];
+    load_record<L>(q_s + r * L, qr);   // a broadcast
+    uint32_t w[G / 4];
+#pragma unroll
+    for (int k = 0; k < G / 4; ++k) w[k] = 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const bool hit = pair_d2<A, N, FMA>(qr, qr[N], p[g], pn[g]) <= eps2;
+      w[g / 4] |= static_cast<uint32_t>(hit) << (8 * (g % 4));
+    }
+    store_hits<G, W>(out + (row0 + r) * npts + col, w, col, npts);
+  }
+}
+
+// The candidate tile as a block stages it: thread t's G rows (G * N values
+// of T, consecutive in memory) from value t * kStride, one 4-byte bank (an
+// 8-byte one for double) past the previous thread's, so that the threads
+// of a warp reading their own values at the same offset hit distinct
+// banks.
+template <typename T, int N, int G>
+struct CandTile {
+  static constexpr int kValues = G * N;
+  static constexpr int kStride = kValues + (sizeof(T) >= 4 ? 1 : 2);
+};
+
+// B2: block (x, y) takes query rows [32y, 32y + 32) against the candidate
+// tile of kHitsThreads * G columns at x. The tile's rows are copied to
+// shared memory with coalesced loads (zeros past npts), and a thread takes
+// its G consecutive candidates from there: it widens their lanes as
+// Acc::load does, computes their norms once with sq_norm, and keeps both
+// in registers. The block's query rows are staged once as records (lanes,
+// then the norm), which every thread reads at the same time.
+template <typename T, int N, int W>
+__global__ void __launch_bounds__(kHitsThreads) distance_tile_hits_kernel(
+    const T* __restrict__ q,      // (nq, N)
+    const T* __restrict__ pts,    // (npts, N)
+    const T* __restrict__ scal,   // (1,) eps^2 in T
+    int8_t* __restrict__ out,     // (nq, npts)
+    int nq, int npts) {
+  using A = typename Acc<T>::A;
+  constexpr int G = hits_group<A, N>();
+  constexpr int L = Record<A, N>::kLen;
+  using Tile = CandTile<T, N, G>;
+  static_assert(G % W == 0 && G % 4 == 0, "a store never splits a word");
+  __shared__ __align__(16) A q_s[kHitsRows * L];
+  __shared__ __align__(16) T c_s[kHitsThreads * Tile::kStride];
+  const int i0 = blockIdx.y * kHitsRows;
+  const int rows = min(kHitsRows, nq - i0);
+  stage_records<T, N>(q, q_s, i0, rows);
+  const long long tile0 = (long long)blockIdx.x * (kHitsThreads * G);
+  const long long real = (npts - tile0) * N;   // values of the tile in pts
+  const T* src = pts + tile0 * N;
+  for (int e = threadIdx.x; e < kHitsThreads * Tile::kValues; e += kHitsThreads) {
+    const int t = e / Tile::kValues;
+    c_s[t * Tile::kStride + (e - t * Tile::kValues)] = e < real ? src[e] : T{};
+  }
+  __syncthreads();
+  const long long col = tile0 + (long long)threadIdx.x * G;
+  const T* mine = c_s + threadIdx.x * Tile::kStride;
+  A p[G][N];
+  A pn[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[g][k] = Acc<T>::load(mine[g * N + k]);
+    pn[g] = sq_norm<A, N>(p[g]);
+  }
+  const A eps2 = Acc<T>::load(scal[0]);
+  // eps2 = +inf is the one case where the fused form can differ (the note)
+  if (isinf(eps2))
+    hits_rows<A, N, G, W, false>(q_s, p, pn, eps2, out, rows, i0, npts, col);
+  else
+    hits_rows<A, N, G, W, true>(q_s, p, pn, eps2, out, rows, i0, npts, col);
+}
+
+template <typename T, int N, int W>
+void launch_hits_w(const void* q, const void* pts, const void* scal, void* out,
+                   int nq, int npts, cudaStream_t s) {
+  constexpr int G = hits_group<typename Acc<T>::A, N>();
+  const long long tile = (long long)kHitsThreads * G;
+  const dim3 grid((unsigned)((npts + tile - 1) / tile),
+                  (unsigned)((nq + kHitsRows - 1) / kHitsRows));
+  distance_tile_hits_kernel<T, N, W><<<grid, kHitsThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pts),
+      static_cast<const T*>(scal), static_cast<int8_t*>(out), nq, npts);
+}
+
 template <typename T, int N>
 void launch_hits(const void* q, const void* pts, const void* scal, void* out,
-                 int nq, int npts, int tq, int tc, cudaStream_t s) {
-  const size_t smem = (size_t)(tq + tc) * (N + 1) * sizeof(typename Acc<T>::A);
-  const dim3 grid((npts + tc - 1) / tc, (nq + tq - 1) / tq);
-  distance_tile_hits_kernel<T, N><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pts),
-      static_cast<const T*>(scal), static_cast<int8_t*>(out), nq, npts, tq, tc);
+                 int nq, int npts, cudaStream_t s) {
+  constexpr int G = hits_group<typename Acc<T>::A, N>();
+  switch (hits_width(npts, G)) {
+    case 16:
+      if constexpr (G >= 16) launch_hits_w<T, N, 16>(q, pts, scal, out, nq, npts, s);
+      break;
+    case 8:
+      if constexpr (G >= 8) launch_hits_w<T, N, 8>(q, pts, scal, out, nq, npts, s);
+      break;
+    case 4: launch_hits_w<T, N, 4>(q, pts, scal, out, nq, npts, s); break;
+    case 2: launch_hits_w<T, N, 2>(q, pts, scal, out, nq, npts, s); break;
+    default: launch_hits_w<T, N, 1>(q, pts, scal, out, nq, npts, s); break;
+  }
 }
 
 template <typename T, int N>
@@ -373,16 +511,16 @@ void launch_counts(const void* pts, const void* scal, void* counts, int npts,
 
 template <typename T>
 int dispatch_hits(int n, const void* q, const void* pts, const void* scal,
-                  void* out, int nq, int npts, int tq, int tc, cudaStream_t s) {
+                  void* out, int nq, int npts, cudaStream_t s) {
   switch (n) {
-    case 1: launch_hits<T, 1>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 2: launch_hits<T, 2>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 3: launch_hits<T, 3>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 4: launch_hits<T, 4>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 5: launch_hits<T, 5>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 6: launch_hits<T, 6>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 7: launch_hits<T, 7>(q, pts, scal, out, nq, npts, tq, tc, s); break;
-    case 8: launch_hits<T, 8>(q, pts, scal, out, nq, npts, tq, tc, s); break;
+    case 1: launch_hits<T, 1>(q, pts, scal, out, nq, npts, s); break;
+    case 2: launch_hits<T, 2>(q, pts, scal, out, nq, npts, s); break;
+    case 3: launch_hits<T, 3>(q, pts, scal, out, nq, npts, s); break;
+    case 4: launch_hits<T, 4>(q, pts, scal, out, nq, npts, s); break;
+    case 5: launch_hits<T, 5>(q, pts, scal, out, nq, npts, s); break;
+    case 6: launch_hits<T, 6>(q, pts, scal, out, nq, npts, s); break;
+    case 7: launch_hits<T, 7>(q, pts, scal, out, nq, npts, s); break;
+    case 8: launch_hits<T, 8>(q, pts, scal, out, nq, npts, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -413,14 +551,14 @@ int dispatch_counts(int n, const void* pts, const void* scal, void* counts,
 // grid limits and shared memory.
 extern "C" int distance_tile_hits_launch(
     int dtype, int n, const void* q, const void* pts, const void* scal,
-    void* out, int nq, int npts, int tq, int tc, void* stream) {
+    void* out, int nq, int npts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return dispatch_hits<float>(n, q, pts, scal, out, nq, npts, tq, tc, s);
-    case kFloat64: return dispatch_hits<double>(n, q, pts, scal, out, nq, npts, tq, tc, s);
-    case kFloat16: return dispatch_hits<__half>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+    case kFloat32: return dispatch_hits<float>(n, q, pts, scal, out, nq, npts, s);
+    case kFloat64: return dispatch_hits<double>(n, q, pts, scal, out, nq, npts, s);
+    case kFloat16: return dispatch_hits<__half>(n, q, pts, scal, out, nq, npts, s);
     case kBFloat16:
-      return dispatch_hits<__nv_bfloat16>(n, q, pts, scal, out, nq, npts, tq, tc, s);
+      return dispatch_hits<__nv_bfloat16>(n, q, pts, scal, out, nq, npts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -43,6 +43,13 @@ _GRID_X_MAX = 2 ** 31 - 1
 # The count kernel's own tile (csrc/distance_tile.cu kTile): 256 threads x 4
 # query rows each, on both sides of a tile pair.
 COUNTS_TILE = 1024
+# The hits kernel's decomposition (csrc/distance_tile.cu, the same names in
+# its constants kHitsThreads, kHitsRows, kHitsRegBudget and its functions
+# hits_group, hits_width): a block of HITS_THREADS threads takes HITS_ROWS
+# query rows against HITS_THREADS * G candidates, G a thread.
+HITS_THREADS = 128
+HITS_ROWS = 32
+HITS_REG_BUDGET = 96   # 32-bit registers for a thread's candidates
 _SMEM_DEFAULT = 48 * 1024
 
 # Launches of each CUDA kernel since import (or since a caller reset them):
@@ -140,7 +147,7 @@ def _kernel_library():
 
     lib = build.load("distance_tile")
     lib.distance_tile_hits_launch.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
         + [ctypes.c_void_p])
     lib.distance_tile_hits_launch.restype = ctypes.c_int
     lib.distance_tile_counts_launch.argtypes = (
@@ -153,17 +160,59 @@ def _kernel_library():
 def _acc_item(dtype) -> int:
     """Bytes of one staged value: the kernels stage rows and norms in the
     accumulator dtype."""
-    return torch.empty((), dtype=_acc_dtype(dtype)).element_size()
+    return _acc_dtype(dtype).itemsize
+
+
+def _record_len(n: int, dtype) -> int:
+    """Values of one staged record (csrc ``Record::kLen``): a row's ``n``
+    lanes and its norm in the accumulator dtype, padded to 16 bytes."""
+    per16 = 16 // _acc_item(dtype)
+    return -(-(n + 1) // per16) * per16
 
 
 def counts_shared_bytes(n: int, dtype, tc: int) -> int:
     """Shared memory of one count-kernel block: the tile's candidate
-    credits (int32) and two chunks of ``tc`` staged records, each the row's
-    ``n`` lanes and its norm in the accumulator dtype, padded to 16 bytes."""
-    item = _acc_item(dtype)
-    per16 = 16 // item
-    record = -(-(n + 1) // per16) * per16
-    return COUNTS_TILE * 4 + 2 * tc * record * item
+    credits (int32) and two chunks of ``tc`` staged records."""
+    return COUNTS_TILE * 4 + 2 * tc * _record_len(n, dtype) * _acc_item(dtype)
+
+
+def hits_group(n: int, dtype) -> int:
+    """G, the candidates one thread of the hits kernel owns: 16, halved (to
+    no fewer than 4) while their lanes and norms, G * (n + 1) values of the
+    accumulator dtype, would take more than HITS_REG_BUDGET 32-bit
+    registers."""
+    words = _acc_item(dtype) // 4
+    g = 16
+    while g > 4 and g * (n + 1) * words > HITS_REG_BUDGET:
+        g //= 2
+    return g
+
+
+def hits_width(npts: int, group: int) -> int:
+    """W, the bytes of one store of the hits kernel: the largest power of
+    two that divides ``npts`` (the plane's row length), at most ``group``."""
+    w = min(group, 16)
+    while npts % w:
+        w //= 2
+    return w
+
+
+def hits_grid(nq: int, npts: int, n: int, dtype) -> tuple:
+    """The hits kernel's grid (x: candidate tiles, y: blocks of HITS_ROWS
+    query rows)."""
+    tile = HITS_THREADS * hits_group(n, dtype)
+    return -(-npts // tile), -(-nq // HITS_ROWS)
+
+
+def hits_shared_bytes(n: int, dtype) -> int:
+    """Shared memory of one hits-kernel block: its HITS_ROWS query rows as
+    staged records, and its candidate tile in the row dtype, each thread's
+    G * n values at a stride one bank (4 bytes; 8 for float64) longer
+    (csrc ``CandTile``)."""
+    item = dtype.itemsize
+    stride = hits_group(n, dtype) * n + max(4 // item, 1)
+    return (HITS_ROWS * _record_len(n, dtype) * _acc_item(dtype)
+            + HITS_THREADS * stride * item)
 
 
 def _check_tiles(tq: int, tc: int, smem: int) -> None:
@@ -175,14 +224,16 @@ def _check_tiles(tq: int, tc: int, smem: int) -> None:
 
 
 def _distance_tile_hits_cuda(q, pts, scal, *, tq, tc):
-    """Launch the hits kernel on the current stream (no sync)."""
+    """Launch the hits kernel on the current stream (no sync). ``tq`` and
+    ``tc`` are only checked: the kernel's tile is its own."""
     global HITS_LAUNCHES
     nq, n = q.shape
     npts = pts.shape[0]
-    _check_tiles(tq, tc, (tq + tc) * (n + 1) * _acc_item(q.dtype))
-    if -(-nq // tq) > _GRID_Y_MAX:
+    _check_tiles(tq, tc, hits_shared_bytes(n, q.dtype))
+    if hits_grid(nq, npts, n, q.dtype)[1] > _GRID_Y_MAX:
         raise ValueError(f"{nq} query rows need more than {_GRID_Y_MAX} "
-                         f"tiles of {tq}")
+                         f"blocks of {HITS_ROWS}")
+    # a fresh allocation: aligned far past the kernel's 16-byte stores
     out = torch.empty((nq, npts), dtype=torch.int8, device=q.device)
     if nq and npts:
         lib = _kernel_library()
@@ -191,7 +242,7 @@ def _distance_tile_hits_cuda(q, pts, scal, *, tq, tc):
             err = lib.distance_tile_hits_launch(
                 DTYPE_CODES[q.dtype], n, q.data_ptr(),
                 pts.data_ptr(), scal.data_ptr(), out.data_ptr(), nq, npts,
-                tq, tc, stream)
+                stream)
         if err != 0:
             raise RuntimeError(f"distance_tile hits kernel launch failed: "
                                f"CUDA error {err}")
@@ -244,9 +295,14 @@ def distance_tile_hits(q, pts, eps, *, tq: int = TQ_DEFAULT,
     """(nq, n) x (N, n) -> (nq, N) bool epsilon hits in the expanded form.
 
     ``pts`` is cast to ``q``'s dtype; eps is cast to it, then squared.
-    ``tq`` x ``tc`` is the kernel's tile. ``method`` None picks the CUDA
-    kernel for CUDA tensors and the plain version for CPU tensors;
-    "kernel" and "reference" force one.
+    ``method`` None picks the CUDA kernel for CUDA tensors and the plain
+    version for CPU tensors; "kernel" and "reference" force one.
+
+    The kernel's tiles are its own: a block takes HITS_ROWS query rows
+    against HITS_THREADS * ``hits_group(n, dtype)`` candidates, held in
+    registers, and stores the plane ``hits_width`` bytes at a time. ``tq``
+    and ``tc`` are only checked to be positive; the hits depend on
+    neither.
     """
     _check_dtype(q.dtype)
     _check_rows("q", q)

@@ -241,6 +241,87 @@ def test_distance_tile_counts_triangle_matches_plain(cuda_device, dtype, n):
                 assert torch.equal(got, want), (npts, kind, eps, tq, tc)
 
 
+# plane widths of every residue mod 16 (so every store width of B2), and
+# around its 16-byte stores; query counts around its 32-row blocks
+B2_SIZES = [3000 + k for k in range(16)] + [1, 15, 16, 17, 255, 257, 3001]
+B2_QUERIES = [1, 7, 256, 700]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", range(1, 9))
+def test_distance_tile_hits_matches_plain(cuda_device, dtype, n):
+    """B2 against its plain version, bit for bit: the plane's width at
+    every store width, query rows from a slice that starts at an odd row
+    (or rows of their own when the points are too few), duplicates, a
+    lattice with d2 exactly on eps^2, extreme rows and rows whose norms
+    overflow, eps^2 of +inf; one launch a call."""
+    for npts in B2_SIZES:
+        for kind, eps in B3_DATA:
+            seed = npts + 10 * n
+            p = count_rows(kind, npts, n, dtype, seed=seed).to(cuda_device)
+            for nq in B2_QUERIES:
+                r0 = 2 * (seed % 50) + 1
+                q = (p[r0:r0 + nq] if r0 + nq <= npts else count_rows(
+                    kind, nq, n, dtype, seed=seed + 1).to(cuda_device))
+                want = tdt.distance_tile_hits(q, p, eps, method="reference")
+                before = tdt.HITS_LAUNCHES
+                got = tdt.distance_tile_hits(q, p, eps, method="kernel")
+                assert tdt.HITS_LAUNCHES == before + 1
+                assert torch.equal(got, want), (npts, nq, kind, eps)
+
+
+def _one_call_of_each_kernel(dtype, device):
+    """Inputs of one call of B1, B2, B3 and B4, made before the calls (the
+    grid build and the launch planning synchronise; the calls must not)."""
+    pts = torch.as_tensor(
+        np.random.default_rng(4).uniform(0, 30, (3000, 2))).to(device, dtype)
+    index = tgrid.build_grid(pts, 1.0, device=device)
+    deltas, is_zero = tsj._merged_offset_tables(index, True)
+    launches, points_pad, _ = tsj._fused_launches(index, merged=True)
+    ws, wc, _, qb, qpos = tsj._launch_prep(index, points_pad, deltas,
+                                           launches[0], merged=True)
+    b1 = ((points_pad, qb, ws, wc, is_zero, qpos),
+          dict(c=launches[0][4], tq=launches[0][5], n_real=2, unicomp=True,
+               merged=True))
+    # each query row against itself and the next row
+    cand = pts[torch.arange(300, device=device)[:, None]
+               + torch.arange(2, device=device)]
+    valid = torch.ones((300, 2), dtype=torch.bool, device=device)
+    return pts, b1, cand, valid
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("eps_on", ["host", "device"])
+def test_kernel_wrappers_do_not_synchronise(cuda_device, dtype, eps_on):
+    """One call of each of B1, B2, B3 and B4 under
+    ``torch.cuda.set_sync_debug_mode("error")``, with eps a Python float and
+    with eps a tensor of the points' dtype on the card: none waits for the
+    device (the refine scalar is filled in on the card, not copied from
+    host memory), and each equals its plain version."""
+    pts, (b1_args, b1_kw), cand, valid = _one_call_of_each_kernel(
+        dtype, cuda_device)
+    eps = 1.0 if eps_on == "host" else tmetric.scalar_as(1.0, dtype,
+                                                         cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b1 = tfj.fused_join_hits(*b1_args, eps, method="kernel", **b1_kw)
+        b2 = tdt.distance_tile_hits(pts[:256], pts, eps)
+        b3 = tdt.distance_tile_counts(pts, eps)
+        b4 = tcj.cell_join_hits(pts[:300], cand, valid, eps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, y in zip(b1, tfj.fused_join_hits(*b1_args, 1.0,
+                                            method="reference", **b1_kw)):
+        assert torch.equal(x, y)
+    assert torch.equal(b2, tdt.distance_tile_hits(pts[:256], pts, 1.0,
+                                                  method="reference"))
+    assert torch.equal(b3, tdt.distance_tile_counts(pts, 1.0,
+                                                    method="reference"))
+    assert torch.equal(b4, tcj.cell_join_hits(pts[:300], cand, valid, 1.0,
+                                              method="reference"))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 3, 6, 8])
 @pytest.mark.parametrize("b,c", [(1, 8), (57, 24), (600, 40), (70000, 32)])

@@ -1,4 +1,4 @@
-"""The two premises of the redesigned kernels B3 and B1 (e), on the CPU.
+"""The premises of the redesigned kernels B3, B1 (e) and B2, on the CPU.
 
 B3 (``csrc/distance_tile.cu``) evaluates each unordered pair once, over the
 upper triangle of tile pairs, and credits a hit to both points. That gives
@@ -15,7 +15,20 @@ words packed two to a 32-bit word (``kernels.fused_join.pack_words``). The
 popcount of an AND over the packed words must be the per-slot intersection
 the plain version sums over the float lanes with ``popcount16``, and the
 hits it gives must be the JAX package's.
+
+B2 (``csrc/distance_tile.cu``, ``distance_tile_hits_kernel``) writes the
+(nq, npts) int8 plane from blocks of HITS_ROWS query rows against
+HITS_THREADS * G candidates, G a thread, each thread storing its G hit bytes
+of a row W bytes at a time. A model of that decomposition, built from the
+wrapper's mirror of the kernel's rules (``hits_group``, ``hits_width``,
+``hits_grid``), must write every byte of the plane exactly once with
+aligned stores inside one row, stay inside CUDA's grid limits, and give the
+plain version's hits when the hits are computed block by block and group
+by group.
 """
+import re
+from pathlib import Path
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -239,3 +252,122 @@ def test_packed_refine_equals_jax(vocab):
         n_real=1, n_feat=canon.n_feat)
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert bool(got[5, 7]) and not bool(got[3, 3])
+
+
+# B2's write map: the plane widths of the brute workloads (100,000, 30,000,
+# 20,000 points), every width 1..70 and two more of each parity
+HITS_NPTS = list(range(1, 71)) + [1000, 3001, 20000, 30000, 100000]
+HITS_NQ = (1, 7, 256)
+ACC = {"f64": torch.float64, "f32": torch.float32}
+CUDA_GRID = dict(x=2 ** 31 - 1, y=65535, threads=1024, smem=48 * 1024)
+
+
+def hits_map(nq: int, npts: int, n: int, dtype):
+    """B2's stores as its blocks and threads make them: block (x, y) takes
+    query rows [y * HITS_ROWS, ...) up to nq and, in thread t, the G
+    columns from (x * HITS_THREADS + t) * G; store s of a row covers W
+    bytes from that column plus s * W, and is made when its column lies
+    before npts. Returns the rows written (one entry a block row), the
+    store columns (one entry a store of a row), W and G."""
+    g = tdt.hits_group(n, dtype)
+    w = tdt.hits_width(npts, g)
+    gx, gy = tdt.hits_grid(nq, npts, n, dtype)
+    rows = np.concatenate([
+        y * tdt.HITS_ROWS + np.arange(min(tdt.HITS_ROWS,
+                                          nq - y * tdt.HITS_ROWS))
+        for y in range(gy)])
+    col = ((np.arange(gx, dtype=np.int64)[:, None, None] * tdt.HITS_THREADS
+            + np.arange(tdt.HITS_THREADS)[None, :, None]) * g
+           + np.arange(g // w)[None, None, :] * w).ravel()
+    return rows, col[col < npts], w, g
+
+
+@pytest.mark.parametrize("acc", list(ACC))
+@pytest.mark.parametrize("n", range(1, 9))
+def test_hits_stores_cover_the_plane_once(acc, n):
+    """Every byte of the (nq, npts) plane is written by exactly one store;
+    no store crosses a row or starts off a W-byte boundary (a row starts at
+    byte row * npts); the grid, block and shared memory stay inside CUDA's
+    limits. Each written row gets the same column stores, so the plane is
+    covered once when the rows are and one row's columns are."""
+    dtype = ACC[acc]
+    for npts in HITS_NPTS:
+        for nq in HITS_NQ:
+            rows, col, w, g = hits_map(nq, npts, n, dtype)
+            assert w in (1, 2, 4, 8, 16) and g % w == 0 and g % 4 == 0
+            assert np.array_equal(np.bincount(rows, minlength=nq),
+                                  np.ones(nq, dtype=np.int64))
+            written = (col[:, None] + np.arange(w)).ravel()
+            assert written.max() < npts       # inside the row
+            assert np.array_equal(np.bincount(written, minlength=npts),
+                                  np.ones(npts, dtype=np.int64))
+            starts = rows[:, None] * npts + col[None, :]
+            assert not np.any(starts % w), (npts, nq)
+            gx, gy = tdt.hits_grid(nq, npts, n, dtype)
+            assert gx <= CUDA_GRID["x"] and gy <= CUDA_GRID["y"]
+            assert tdt.HITS_THREADS <= CUDA_GRID["threads"]
+            assert tdt.hits_shared_bytes(n, dtype) <= CUDA_GRID["smem"]
+    # the brute workloads take 16-byte stores where G allows them
+    for npts in (100000, 30000, 20000):
+        assert tdt.hits_width(npts, tdt.hits_group(n, dtype)) == min(
+            16, tdt.hits_group(n, dtype))
+
+
+def test_hits_rules_mirror_the_source():
+    """The wrapper's constants and rules are the kernel's, by name; G keeps
+    a thread's candidates within the register budget, and 256 query rows of
+    100,000 f64 2-D points fill the card (about three blocks an SM)."""
+    src = (Path(tdt.__file__).parent / "csrc" / "distance_tile.cu").read_text()
+    for name, value in (("kHitsThreads", tdt.HITS_THREADS),
+                        ("kHitsRows", tdt.HITS_ROWS),
+                        ("kHitsRegBudget", tdt.HITS_REG_BUDGET)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    for fn in ("hits_group", "hits_width"):
+        assert re.search(rf"\b{fn}\(", src), fn
+    want = {torch.float64: [16, 16, 8, 8, 8, 4, 4, 4],
+            torch.float32: [16, 16, 16, 16, 16, 8, 8, 8]}
+    for dtype, groups in want.items():
+        assert [tdt.hits_group(n, dtype) for n in range(1, 9)] == groups
+    assert tdt.hits_group(4, torch.float16) == tdt.hits_group(4,
+                                                              torch.float32)
+    gx, gy = tdt.hits_grid(256, 100000, 2, torch.float64)
+    assert (gx, gy) == (49, 8) and gx * gy >= 2 * 132
+
+
+def hits_by_groups(q, pts, scal) -> torch.Tensor:
+    """The plane as the kernel's blocks compute it: each block's query rows
+    against each thread's G candidates, through ``_expanded_d2`` on the
+    accumulator rows, placed at the model's stores."""
+    nq, n = q.shape
+    npts = pts.shape[0]
+    g = tdt.hits_group(n, q.dtype)
+    rows, col, w, _ = hits_map(nq, npts, n, q.dtype)
+    qa, pa, sa = tdt._acc_rows(q, pts, scal)
+    plane = torch.full((nq, npts), 7, dtype=torch.int8)
+    for y in range(0, nq, tdt.HITS_ROWS):
+        r = slice(y, min(y + tdt.HITS_ROWS, nq))
+        for c0 in range(0, npts, g):
+            c = slice(c0, min(c0 + g, npts))
+            hit = tdt._expanded_d2(qa[r], pa[c]) <= sa.reshape(())
+            plane[r, c] = hit.to(torch.int8)
+    assert set(col.tolist()) == set(range(0, npts, w))
+    return plane
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", range(1, 9))
+def test_hits_by_groups_equal_the_plain_version(dtype, n):
+    """Block by block and group by group, the hits equal the plain
+    version's (nq, npts) plane: random rows with duplicates, a lattice with
+    d2 exactly on eps^2 and extreme rows, eps^2 of +inf included, on a
+    query slice that starts at an odd row."""
+    for kind, eps in (("dups", 2.5), ("lattice", 1.0), ("extreme", 1.5),
+                      ("extreme", 1e160)):
+        for npts, nq in ((1, 1), (17, 7), (70, 33), (1001, 40)):
+            x = rows(kind, npts, n, dtype, seed=npts + n)
+            q = x[npts // 2:npts // 2 + nq]
+            scal = tmetric.device_refine_scalar("l2", eps, x.dtype,
+                                                torch.device("cpu"))
+            want = tdt._distance_tile_hits_reference(q, x, scal)
+            got = hits_by_groups(q, x, scal)
+            assert torch.equal(got, want.to(torch.int8)), (kind, npts, nq)
