@@ -55,7 +55,8 @@ each printing one JSON line:
                   lists against a direct evaluation, a counts-only service
                   alike), B1 (b) timed beside its bound, a profiled window of
                   requests by stage span; index B (1 M skewed 3-D points)
-                  through the capacity classes; the batching service over
+                  through the capacity classes, B1 (b) on one request's
+                  launches against its plain version and timed by name; the batching service over
                   256 requests against the solo answers and one closed loop
                   of the load generator; a reindex halfway through 16
                   requests; boundary queries on a lattice
@@ -89,10 +90,13 @@ each printing one JSON line:
                   forced halo overflow
   kernels         one line: every kernel with launches, agreement and times
 
-``python3 chip_smoke.py --kernel-times [SRC]`` times B3 and B1 (e) alone
-(``kernel_times``), from the package in SRC (another checkout's ``src``,
-the parent commit's say) or this checkout's, so that two versions can be
-compared in one chip call, in turns.
+``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
+B1 (b) and B4 alone (``kernel_times``), and ``--e2e-times [SRC]`` the
+paths around B1 (b) and B4 (``e2e_times``: B1 (c), (a) and (d), the
+main path's "pallas" and fused joins, serving p50 and p99), from the
+package in SRC (another checkout's ``src``, the parent commit's say) or
+this checkout's, so that two versions can be compared in one chip call,
+in turns.
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
@@ -688,12 +692,14 @@ def ptxas_by_kernel(log: str, kernel: str) -> dict:
 def sync_check() -> dict:
     """Which kernel wrappers wait for the device: one call each of B1 (one
     pass of ``timed_launches`` over the launches of a 20,000-point join),
-    B2, B3 and B4 (one offset of the unfused join) under
-    ``torch.cuda.set_sync_debug_mode("error")``, at each row dtype, with
-    eps a Python float ("python_eps") and with eps as the phases pass it
-    ("as_passed": B1 and B4 the index's eps tensor, B2 and B3 a Python
-    float). True where the call synchronised."""
-    from repro_torch.core import grid
+    B1 (b) (the launches of a 1,024-query request on that index, planned
+    beforehand: planning syncs once, by design), B2, B3 and B4 (one offset
+    of the unfused join) under ``torch.cuda.set_sync_debug_mode("error")``,
+    at each row dtype, with eps a Python float ("python_eps") and with eps
+    as the phases pass it ("as_passed": B1 and B4 the index's eps tensor,
+    B1 (b) the request's scalar, B2 and B3 a Python float). True where the
+    call synchronised."""
+    from repro_torch.core import grid, query_join as qj
     from repro_torch.kernels import cell_join as cj, distance_tile as dt
     from repro_torch.kernels import fused_join as fj
     out = {}
@@ -701,21 +707,28 @@ def sync_check() -> dict:
                          ("float32", torch.float32),
                          ("float16", torch.float16),
                          ("bfloat16", torch.bfloat16)):
-        pts = torch.as_tensor(syn(20000, 2)).to(DEVICE, dtype)
+        raw = syn(20000, 2)
+        pts = torch.as_tensor(raw).to(DEVICE, dtype)
         index = grid.build_grid(pts, 1.0, device=DEVICE)
         prepared = prepared_launches(index, merged=True, unicomp=True)
+        ext = external_launches(qj.prepare(index),
+                                external_queries(raw, 1.0, 1024))
         (q, cand, valid), = unfused_launches(index)[:1]
         calls = {
             "b1": lambda e: [fj.fused_join_hits(*p["args"][:-1], e,
                                                 method="kernel", **p["kw"])
                              for p in prepared],
+            "b1b": lambda e: [fj.fused_join_hits(*p["args"][:-1], e,
+                                                 method="kernel", **p["kw"])
+                              for p in ext],
             "b2": lambda e: dt.distance_tile_hits(pts[:256], pts, e,
                                                   method="kernel"),
             "b3": lambda e: dt.distance_tile_counts(pts, e, method="kernel"),
             "b4": lambda e: cj.cell_join_hits(q, cand, valid, e,
                                               method="kernel"),
         }
-        passed = {"b1": index.eps, "b2": 1.0, "b3": 1.0, "b4": index.eps}
+        passed = {"b1": index.eps, "b1b": ext[0]["args"][-1], "b2": 1.0,
+                  "b3": 1.0, "b4": index.eps}
         out[dname] = {}
         for name, fn in calls.items():
             for key, e in (("python_eps", 1.0), ("as_passed", passed[name])):
@@ -1730,12 +1743,23 @@ def phase_serve():
         for key, method in (("kernel", "kernel"), ("plain", "reference"))}
     check(min(b1b_device.values()) > 0, "the profiler recorded no device "
           "time for B1 (b) or its plain version")
+    # the kernel alone, by name (the above adds each launch's eps^2 kernel)
+    b1b_named = profiled_device_ms(lambda: [
+        fj.fused_join_hits(*p["args"], method="kernel", **p["kw"])
+        for p in ext], reps=20, kernel="fused_join_kernel")
     b1b_bound = kernel_bound(ext)
     prof = profile_requests(svc, requests[:8])
 
     # index B: the capacity classes
     n_classes = len(skew.prepared.launch_inputs(skew_requests[0])[1])
     check(n_classes > 1, f"index B launched {n_classes} class(es)")
+    ext_b = external_launches(skew.prepared, skew_requests[0])
+    err_b = compare_external(ext_b)
+    check(err_b == 0, f"serve: B1 (b) on index B differs from plain by "
+          f"{err_b}")
+    b1b_b_named = profiled_device_ms(lambda: [
+        fj.fused_join_hits(*p["args"], method="kernel", **p["kw"])
+        for p in ext_b], reps=20, kernel="fused_join_kernel")
     skew_results = [skew.query(q) for q in skew_requests]
     s50, s99 = skew.percentiles()
     skew_gpu = torch.as_tensor(skew_pts).to(DEVICE)
@@ -1787,7 +1811,7 @@ def phase_serve():
          b2_band_queries=band_a, sampled_queries_checked=32,
          counts_only_p50_ms=c50, counts_only_p99_ms=c99,
          b1b_ms=b1b["kernel"], b1b_plain_ms=b1b["plain"],
-         b1b_device_ms=b1b_device["kernel"],
+         b1b_device_ms=b1b_device["kernel"], b1b_named_ms=b1b_named,
          b1b_plain_device_ms=b1b_device["plain"],
          b1b_bound_ms=b1b_bound[0], b1b_bound_by=b1b_bound[1],
          b1b_bound_bytes=b1b_bound[2], b1b_launches_timed=len(ext),
@@ -1795,6 +1819,7 @@ def phase_serve():
          skew=dict(points=SKEW_POINTS, eps=SKEW_EPS,
                    requests=SKEW_REQUESTS, c=skew.prepared.c,
                    classes_launched_first=n_classes,
+                   b1b_named_ms=b1b_b_named, b1b_launches_timed=len(ext_b),
                    p50_ms=s50, p99_ms=s99,
                    neighbors_found=int(sum(r.total for r in skew_results)),
                    b2_band_queries=band_b),
@@ -1806,9 +1831,10 @@ def phase_serve():
                       answers_equal=True),
          lattice=lattice, phase_s=time.perf_counter() - t_phase)
     return dict(launches=launches[2], ms=b1b_device["kernel"],
+                named_ms=b1b_named, index_b_named_ms=b1b_b_named,
                 enqueue_ms=b1b["kernel"], plain_ms=b1b["plain"],
                 plain_device_ms=b1b_device["plain"], bound_ms=b1b_bound[0],
-                bound_by=b1b_bound[1], worst=err)
+                bound_by=b1b_bound[1], worst=max(err, err_b))
 
 
 # --- metrics: the cosine and Jaccard joins ---------------------------------
@@ -3119,8 +3145,71 @@ def record_half_totals() -> dict:
                 HALF_COSINE_TOTALS=cosine)
 
 
+def b1b_checksum(outs) -> list:
+    """Integers of B1 (b)'s outputs over a request's launches: the hits, the
+    sum of their flat positions, the counts' total and the slot bases
+    weighted by their position."""
+    out = [0, 0, 0, 0]
+    for hits, counts, base in outs:
+        flat = torch.nonzero(hits.reshape(-1)).reshape(-1)
+        weight = torch.arange(1, base.numel() + 1, device=base.device)
+        out = [out[0] + int(flat.numel()), out[1] + int(flat.sum()),
+               out[2] + int(counts.sum(dtype=torch.int64)),
+               out[3] + int((base.to(torch.int64) * weight).sum())]
+    return out
+
+
+def b1b_times(launches) -> dict:
+    """B1 (b) on one request's launches: device time by kernel name under
+    the profiler (no host gap reaches it), the pass by CUDA events over
+    back-to-back passes, and the outputs' integers."""
+    from repro_torch.kernels import fused_join as fj
+
+    def one_pass():
+        return [fj.fused_join_hits(*p["args"], method="kernel", **p["kw"])
+                for p in launches]
+
+    checksum = b1b_checksum(one_pass())
+    device = [profiled_device_ms(one_pass, reps=20,
+                                 kernel="fused_join_kernel")
+              for _ in range(3)]
+    events = [timed_launches(launches, "kernel", reps=20) for _ in range(3)]
+    return dict(launches=len(launches), c=[p["kw"]["c"] for p in launches],
+                rows=[int(p["args"][1].shape[0]) for p in launches],
+                device_ms=statistics.median(device), device_runs_ms=device,
+                events_ms=statistics.median(events), events_runs_ms=events,
+                checksum=checksum)
+
+
+def b4_times(pts, eps) -> dict:
+    """B4 on the unfused join's launches over ``pts`` (one per stencil
+    offset): ms a launch by CUDA events over back-to-back passes and by
+    kernel name under the profiler (a small launch's events follow the
+    host), and the hits' integers (count and position checksum)."""
+    from repro_torch.core import grid
+    from repro_torch.kernels import cell_join as cj
+    index = grid.build_grid(pts, eps, device=DEVICE)
+    launches = unfused_launches(index)
+    hits = pos = 0
+    for q, cand, valid in launches:
+        flat = torch.nonzero(cj.cell_join_hits(q, cand, valid, index.eps)
+                             .reshape(-1)).reshape(-1)
+        hits += int(flat.numel())
+        pos += int(flat.sum())
+    runs = [b4_ms(launches, index.eps, "kernel", reps=10) for _ in range(3)]
+    device = [profiled_device_ms(lambda: [
+        cj.cell_join_hits(q, cand, valid, index.eps)
+        for q, cand, valid in launches], reps=10, kernel="cell_join_kernel")
+        / len(launches) for _ in range(3)]
+    b, c, n = launches[0][1].shape
+    return dict(shape=[b, c, n], launches=len(launches),
+                ms=statistics.median(runs), runs_ms=runs,
+                device_ms=statistics.median(device), device_runs_ms=device,
+                hits=hits, checksum=pos)
+
+
 def kernel_times() -> dict:
-    """B3, B1 (e) and B2 alone, from the ``repro_torch`` first on
+    """B3, B1 (e), B2, B1 (b) and B4 alone, from the ``repro_torch`` first on
     ``sys.path``: B3 by CUDA events on the main path's 2,000,000 points
     (f64) and on uniform-2d's 100,000 at f64, float16 and bfloat16; B1 (e)
     by events on the launches of the 100,000-set Jaccard join (run loop),
@@ -3128,9 +3217,12 @@ def kernel_times() -> dict:
     at f64, float16 and bfloat16, with eps built once by the package's
     ``metric.scalar_as``: its device time by name under the profiler, the
     sweep's time by events, and ``brute_force_count``'s time by the host
-    clock. Each with its integers (totals; B2's hit positions' checksum),
-    so two versions can be seen to agree; and ``sync_check`` of the
-    package's wrappers."""
+    clock; B1 (b) on the first request of the serve phase on index A and
+    on index B (``b1b_times``); B4 on the unfused sweep's launches of the
+    main path at f64 and float16 and of uniform-2d at bfloat16
+    (``b4_times``). Each with its integers (totals; B2's hit positions'
+    checksum; B1 (b)'s and B4's checksums), so two versions can be seen to
+    agree; and ``sync_check`` of the package's wrappers."""
     import repro_torch
     from repro_torch.core import metric, selfjoin as sj
     from repro_torch.kernels import build, distance_tile as dt
@@ -3184,7 +3276,81 @@ def kernel_times() -> dict:
             for _ in range(3)]
     out["b1e_100k_sets"] = dict(ms=statistics.median(runs), runs_ms=runs,
                                 launches=len(prepared), total=total)
+    del prepared, canon
+    # B1 (b): the first request of the serve phase on index A and on index B
+    from repro_torch.launch import serve
+    pts = syn(MAIN_POINTS, MAIN_DIMS)
+    request = serve_requests(1, np.random.default_rng(21))[0]
+    svc = serve.JoinService(pts, MAIN_EPS, return_pairs=True, device=DEVICE)
+    out["b1b_index_a"] = b1b_times(external_launches(svc.prepared, request))
+    del svc
+    skew = serve.JoinService(expo(SKEW_POINTS, 3), SKEW_EPS,
+                             return_pairs=True, device=DEVICE)
+    request = np.split(expo(SKEW_REQUESTS * SERVE_BATCH, 3, seed=7),
+                       SKEW_REQUESTS)[0]
+    out["b1b_index_b"] = b1b_times(external_launches(skew.prepared, request))
+    del skew
+    # B4: the main path's unfused sweep at f64 and f16, uniform-2d's at bf16
+    out["b4_main_float64"] = b4_times(torch.as_tensor(pts).to(DEVICE),
+                                      MAIN_EPS)
+    out["b4_main_float16"] = b4_times(
+        as_half(pts, torch.float16).to(DEVICE), MAIN_EPS)
+    out["b4_uniform2d_bfloat16"] = b4_times(
+        as_half(raw, torch.bfloat16).to(DEVICE), eps)
     out["syncs"] = sync_check()
+    return out
+
+
+def e2e_times() -> dict:
+    """The paths around this round's kernels, from the ``repro_torch`` first
+    on ``sys.path``, so that two versions can be compared in one call in
+    turns (``--e2e-times [SRC]``): B1 (c) and (a) on the main path's
+    launches and B1 (d) on slab 1 of the 4-slab join, instances B1 (b)'s
+    and B4's kernels do not share (CUDA events over back-to-back passes,
+    median of three); the main path's joins through "pallas" (B4) and
+    "fused" (host clock ending in a synchronize, median of three after a
+    warm-up); and serving on index A, 64 requests of 1,024 queries, with
+    pairs and counts only (the services' p50 and p99)."""
+    import repro_torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch import serve
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    index = repro_torch.build_grid(pts, eps, device=DEVICE)
+    prepared = prepared_launches(index, merged=True, unicomp=True,
+                                 run_loop=True)
+    out = {key: statistics.median(timed_launches(prepared, "kernel", loop)
+                                  for _ in range(3))
+           for key, loop in (("b1c_ms", True), ("b1a_ms", False))}
+    del index, prepared
+    slab, = [s_ for s_ in dist.slab_indexes(pts, eps, SLAB_HELD[0],
+                                            device=DEVICE)
+             if s_.slab == SLAB_HELD[1]]
+    gid = prepared_launches(slab.index, merged=True, unicomp=True,
+                            run_loop=True, slab=slab)
+    out["b1d_ms"] = statistics.median(timed_launches(gid, "kernel", True)
+                                      for _ in range(3))
+    del slab, gid
+    for impl in ("pallas", "fused"):
+        def join(impl=impl):
+            return repro_torch.self_join(pts, eps, distance_impl=impl,
+                                         device=DEVICE)
+        join()
+        sync()
+        runs = [_host_s(join) for _ in range(3)]
+        out[f"{impl}_join_s"] = statistics.median(runs)
+        out[f"{impl}_join_runs_s"] = runs
+    requests = serve_requests(SERVE_REQUESTS, np.random.default_rng(21))
+    svc = serve.JoinService(pts, eps, return_pairs=True, device=DEVICE)
+    counts_svc = serve.JoinService(pts, eps, index=svc.index)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # warmup() marks steady
+        for s_ in (svc, counts_svc):
+            s_.warmup(SERVE_BATCH)
+    for s_, key in ((svc, "serve"), (counts_svc, "serve_counts")):
+        for q in requests:
+            s_.query(q)
+        out[f"{key}_p50_ms"], out[f"{key}_p99_ms"] = s_.percentiles()
+    out["package"] = str(Path(repro_torch.__file__).resolve().parents[1])
     return out
 
 
@@ -3196,12 +3362,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--kernel-times"]:
+    timers = {"--kernel-times": ("kernel_times", kernel_times),
+              "--e2e-times": ("e2e_times", e2e_times)}
+    if sys.argv[1:2] and sys.argv[1] in timers:
         # another checkout's src (the parent commit's, say) goes first
         for src in sys.argv[2:3]:
             sys.path.insert(0, str(Path(src).resolve()))
+        key, timer = timers[sys.argv[1]]
         print(nvidia_smi_line(), flush=True)
-        print(json.dumps({"kernel_times": kernel_times()}), flush=True)
+        print(json.dumps({key: timer()}), flush=True)
         return 0
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -3244,7 +3413,9 @@ def main() -> int:
         "row_loop_ms": b1["row_loop_ms"],
         "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": b1["bound_by"], "library_ms": None,
-        "external_ms": served["ms"], "external_events_ms": served["enqueue_ms"],
+        "external_ms": served["ms"], "external_named_ms": served["named_ms"],
+        "external_index_b_named_ms": served["index_b_named_ms"],
+        "external_events_ms": served["enqueue_ms"],
         "external_plain_ms": served["plain_ms"],
         "external_plain_device_ms": served["plain_device_ms"],
         "external_bound_ms": served["bound_ms"],

@@ -17,7 +17,9 @@ the squares add in float32 and the sum rounds once (``metric.lane_d2_sum``).
 Two implementations of the same function live here:
 
   * ``_cell_join_hits_cuda`` launches ``csrc/cell_join.cu`` (the port of the
-    Pallas kernel ``_cell_join_kernel``) on CUDA tensors;
+    Pallas kernel ``_cell_join_kernel``) on CUDA tensors: a thread owns
+    ``slot_width(C)`` consecutive slots of a row, its warp refines them in
+    coalesced steps, and a large batch launches in ``launch_chunks``;
   * ``_cell_join_hits_reference`` is the plain PyTorch version: d^2 summed
     lane by lane in lane order, one eager op per subtract, multiply and add
     (``metric.lane_d2_sum``). The CPU runs it, and the kernel is held to it
@@ -39,6 +41,33 @@ from repro_torch.kernels.fused_join import DTYPE_CODES
 # Launches of the CUDA kernel since import (or since a caller reset it): one
 # per call that reaches the kernel, and nowhere else.
 KERNEL_LAUNCHES = 0
+# The kernel's decomposition (csrc/cell_join.cu; ``slot_width``,
+# ``launch_chunks``): a thread owns W consecutive slots of a row, a block
+# THREADS threads, and a launch at most MAX_SLOTS slots (32-bit indexes).
+THREADS = 256
+MAX_WIDTH = 8
+MAX_SLOTS = 1 << 31
+
+
+def slot_width(c: int) -> int:
+    """W, the slots one thread owns and the bytes of its valid load and
+    hit store: the largest power of two dividing ``c``, at most MAX_WIDTH."""
+    w = MAX_WIDTH
+    while c % w:
+        w //= 2
+    return w
+
+
+def launch_chunks(rows: int, c: int, max_slots: int = MAX_SLOTS) -> list:
+    """The kernel's launches for a (rows, c) batch: (first row, rows,
+    blocks) each, in row chunks of at most ``max_slots`` slots."""
+    chunk = max_slots // c
+    w = slot_width(c)
+    out = []
+    for r0 in range(0, rows, chunk):
+        nr = min(chunk, rows - r0)
+        out.append((r0, nr, -(-(nr * c // w) // THREADS)))
+    return out
 
 
 def _cell_join_hits_reference(q, cand, valid, scal):
@@ -85,8 +114,11 @@ def _cell_join_hits_cuda(q, cand, valid, scal):
     """Launch ``csrc/cell_join.cu`` on the current stream (no sync)."""
     global KERNEL_LAUNCHES
     rows, c, _ = cand.shape
+    # a fresh allocation: aligned far past the kernel's W-byte stores
     out = torch.empty((rows, c), dtype=torch.int8, device=q.device)
     if rows and c:
+        if valid.data_ptr() % slot_width(c):
+            valid = valid.clone()      # a view off the W-byte boundary
         torch.ops.repro_torch.cell_join(q, cand, valid, scal, out)
         KERNEL_LAUNCHES += 1
     return out.view(torch.bool)

@@ -71,10 +71,35 @@
 // loop's, bit for bit. Runs are found from changes of run_ord inside the
 // tile, whatever its values.
 //
-// External queries (the external-query join of core/query_join.py) take
-// both loops unchanged apart from the mask: a query row is read only from
-// q_batch, staged in shared memory, and points_pad only at window rows, so
-// queries that are not rows of points_pad (and q_pos of zeros) are safe.
+// External queries (the external-query join of core/query_join.py; B1 (b))
+// with the l2 refine run their own kernel, fused_join_kernel_external
+// (below), which launch_mask picks for the external mask: a request of
+// 1,024 queries split over a few capacity classes is a few 128-row tiles,
+// and one block a tile would run 8 blocks on 132 SMs, each a serial chain
+// of run staging and barriers. There a block holds kExtWarps warps and a
+// query row takes one warp, or P of them (ext_row_warps: where windows pass
+// kExtSlots slots, as a skewed index's wide classes do), so a tile
+// spreads over tq * P / kExtWarps blocks. Each warp walks its row's
+// offsets itself: its lanes load up to 32 offsets' descriptors at once and
+// stride over its share of the window's slots, storing neighbouring hit
+// bytes, and count with __ballot_sync and __popc in registers, with no
+// shared atomics and no barrier inside the offset loop (P warps add their
+// counts once, through shared memory). Runs are not staged:
+// the windows are read through L1/L2, where the rows of one run find the
+// same lines; the run plan is accepted and not read, and every row masks
+// with its own descriptors, so the result is both loops' bit for bit. The
+// per-tile scan of the counts runs in the same launch: the last block of a
+// tile to finish (a per-tile arrival counter, after __threadfence) scans
+// the tile's counts with warp shuffles and sets its counter back to 0, so
+// the next launch on the stream finds it zeroed with no memset. The
+// wrapper keeps one counter buffer a (device, stream). A query row is read
+// only from q_batch and points_pad only at window rows, so queries that
+// are not rows of points_pad (and q_pos of zeros) are safe. What bounds it
+// at a request's size is latency, not bytes: a 1,024-query request moves
+// about 2 MB (under a microsecond at 3.35 TB/s), and a launch costs its
+// ramp plus each warp's few dependent descriptor and window loads. The
+// Jaccard refine keeps the external mask of the kernel above (its query
+// words are packed as the tile is staged).
 //
 // Jaccard (JACCARD, the TPU kernel's metric="jaccard"; refine in
 // repro/core/metric.py::tile_refine_hits; B1 (e)). Rows hold the set size in
@@ -134,6 +159,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+// the external-query kernel: warps a block, and the window slots a warp
+// takes an offset before a row spreads over more warps (ext_row_warps)
+constexpr int kExtWarps = 8;
+constexpr int kExtThreads = 32 * kExtWarps;
+constexpr int kExtSlots = 128;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // Row dtypes, as kernels/fused_join.py numbers them (DTYPE_CODES).
 constexpr int kFloat32 = 0;
@@ -465,13 +496,149 @@ __global__ void __launch_bounds__(kThreads) fused_join_kernel(
   }
 }
 
+// The sum of v over lanes 0..lane of the warp.
+__device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, v, d);
+    if (lane >= d) v += y;
+  }
+  return v;
+}
+
+// P, the warps a query row of B1 (b) spreads over: the smallest power of
+// two with P * kExtSlots >= c, at most kExtWarps
+// (kernels/fused_join.py::external_row_warps mirrors it).
+int ext_row_warps(int c) {
+  int p = 1;
+  while (p < kExtWarps && p * kExtSlots < c) p *= 2;
+  return p;
+}
+
+// B1 (b), external queries with the l2 refine (the note at the top):
+// block (x, y) takes rows [y * R, + R) of query tile x, R = kExtWarps / P,
+// P warps a row, warp `sub` of a row taking its slots [sub * 32, + 32)
+// of every 32 * P; the last block of a tile to arrive writes its
+// slot_base.
+template <typename T, bool MERGED, bool KEEP_HITS>
+__global__ void __launch_bounds__(kExtThreads) fused_join_kernel_external(
+    const T* __restrict__ points_pad,   // (rows, lanes)
+    const T* __restrict__ q_batch,      // (qp, lanes)
+    const int* __restrict__ win_start,  // (n_off, qp)
+    const int* __restrict__ win_count,  // (n_off, qp)
+    const T* __restrict__ scal,         // (1,) eps^2 in T
+    int8_t* __restrict__ hits,          // (n_off, qp, c), KEEP_HITS only
+    int* counts,                        // (qp,)
+    int* __restrict__ slot_base,        // (qp,)
+    unsigned* __restrict__ arrivals,    // (>= qp / tq,), zero between launches
+    int n_off, int qp, int c, int n_real, int lanes, int tq, int p_warps) {
+  __shared__ int warp_tot[kExtWarps];
+  __shared__ int chunk_tot;
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  const int sub = warp % p_warps;  // this warp's share of its row's slots
+  const int r_in = blockIdx.y * (kExtWarps / p_warps) + warp / p_warps;
+  const int row = tile * tq + r_in;
+  int cnt = 0;
+  if (r_in < tq) {  // the whole warp takes this branch
+    const T* q = q_batch + (size_t)row * lanes;
+    const T eps2 = scal[0];
+    for (int j0 = 0; j0 < n_off; j0 += 32) {
+      // the descriptors of up to 32 offsets, one a lane, loaded together
+      int ws = 0, wc = 0;
+      if (j0 + lane < n_off) {
+        ws = win_start[(size_t)(j0 + lane) * qp + row];
+        wc = win_count[(size_t)(j0 + lane) * qp + row];
+      }
+      const int jn = min(32, n_off - j0);
+      for (int jj = 0; jj < jn; ++jj) {
+        const int start = __shfl_sync(kFullMask, ws, jj);
+        const int count = min(__shfl_sync(kFullMask, wc, jj), c);
+        int8_t* h = hits + ((size_t)(j0 + jj) * qp + row) * c;
+        // without the plane, slots past the window are not visited
+        const int end = KEEP_HITS ? c : count;
+        for (int s0 = sub * 32; s0 < end; s0 += 32 * p_warps) {
+          const int s = s0 + lane;
+          bool hit = false;
+          if (s < count)
+            hit = refine_slot<T, MERGED, kMaskExternal, false>(
+                points_pad + (size_t)(start + s) * lanes, q, eps2, n_real,
+                false, 0, 0);
+          if (KEEP_HITS && s < c) h[s] = hit ? 1 : 0;
+          cnt += __popc(__ballot_sync(kFullMask, hit));
+        }
+      }
+    }
+  }
+  if (p_warps > 1) {
+    // the row's first warp adds its P warps' counts
+    if (lane == 0) warp_tot[warp] = cnt;
+    __syncthreads();
+    for (int k = 1; k < p_warps; ++k) cnt += warp_tot[warp + k];
+  }
+  if (r_in < tq && sub == 0 && lane == 0) {
+    counts[row] = cnt;
+    __threadfence();  // seen by the tile's last block before it arrives
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(arrivals + tile, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the tile's exclusive scan, kExtThreads counts at a time; the counts
+  // are read from L2 (__ldcg): other blocks wrote them
+  const int* tile_counts = counts + (size_t)tile * tq;
+  int carry = 0;
+  for (int r0 = 0; r0 < tq; r0 += kExtThreads) {
+    const int r = r0 + threadIdx.x;
+    const int v = r < tq ? __ldcg(tile_counts + r) : 0;
+    const int incl = warp_inclusive_sum(v, lane);
+    if (lane == 31) warp_tot[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int t = lane < kExtWarps ? warp_tot[lane] : 0;
+      const int ti = warp_inclusive_sum(t, lane);
+      if (lane < kExtWarps) warp_tot[lane] = ti - t;  // exclusive
+      if (lane == 31) chunk_tot = ti;
+    }
+    __syncthreads();
+    if (r < tq)
+      slot_base[(size_t)tile * tq + r] = carry + warp_tot[warp] + incl - v;
+    carry += chunk_tot;
+    __syncthreads();  // warp_tot and chunk_tot are read before they change
+  }
+  if (threadIdx.x == 0) arrivals[tile] = 0;
+}
+
 struct Args {
   const void* points_pad; const void* words; const void* q_batch;
   const void* win_start; const void* win_count; const void* is_zero;
   const void* q_pos; const void* run_ord; const void* scal;
-  void* hits; void* counts; void* slot_base;
+  void* hits; void* counts; void* slot_base; void* arrivals;
   int n_off, qp, c, n_real, n_feat, lanes, wl, tq, stage_bytes;
 };
+
+// B1 (b): grid (tiles, row groups of a tile).
+template <typename T, bool MERGED, bool KEEP_HITS>
+int launch_external(const Args& a, cudaStream_t stream) {
+  if (a.arrivals == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int p_warps = ext_row_warps(a.c);
+  const int rows = kExtWarps / p_warps;  // query rows a block
+  const dim3 grid(a.qp / a.tq, (a.tq + rows - 1) / rows);
+  fused_join_kernel_external<T, MERGED, KEEP_HITS>
+      <<<grid, kExtThreads, 0, stream>>>(
+          static_cast<const T*>(a.points_pad),
+          static_cast<const T*>(a.q_batch),
+          static_cast<const int*>(a.win_start),
+          static_cast<const int*>(a.win_count),
+          static_cast<const T*>(a.scal), static_cast<int8_t*>(a.hits),
+          static_cast<int*>(a.counts), static_cast<int*>(a.slot_base),
+          static_cast<unsigned*>(a.arrivals), a.n_off, a.qp, a.c, a.n_real,
+          a.lanes, a.tq, p_warps);
+  return 0;
+}
 
 template <typename T, bool MERGED, int MASK, bool KEEP_HITS, bool RUN_LOOP,
           bool JACCARD, bool GID>
@@ -543,7 +710,14 @@ int launch_mask(const Args& a, int mask, bool gid, bool keep_hits,
     case kMaskUnicomp:
       return launch_keep<T, MERGED, kMaskUnicomp, JACCARD>(a, keep_hits, run_loop, s);
     case kMaskExternal:
-      return launch_keep<T, MERGED, kMaskExternal, JACCARD>(a, keep_hits, run_loop, s);
+      if constexpr (JACCARD) {
+        return launch_keep<T, MERGED, kMaskExternal, true>(a, keep_hits,
+                                                           run_loop, s);
+      } else {
+        // B1 (b): the run plan is accepted and not read
+        if (keep_hits) return launch_external<T, MERGED, true>(a, s);
+        return launch_external<T, MERGED, false>(a, s);
+      }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -562,7 +736,9 @@ int launch_merged(const Args& a, bool merged, int mask, bool gid,
 // launch was accepted), or cudaErrorInvalidValue for an unknown dtype code
 // (0 float32, 1 float64, 2 float16, 3 bfloat16) or mask mode (0 self,
 // 1 UNICOMP, 2 external), a Jaccard launch that is not float32 per-cell, or
-// a global-id launch with the external mask or Jaccard. The Python wrapper
+// a global-id launch with the external mask or Jaccard, or an l2 external
+// launch without `arrivals`, its per-tile counters (at least qp / tq
+// uint32 zeros, zero again when the launch ends). The Python wrapper
 // validates shapes and dtypes (qp % tq == 0, lanes >= n_real + n_feat +
 // merged + gid, run_ord with run_loop, Jaccard's words as (rows,
 // word_lanes) int32 with word_lanes a multiple of 4) and the
@@ -574,12 +750,12 @@ extern "C" int fused_join_launch(
     int jaccard, int gid, const void* points_pad, const void* words,
     const void* q_batch, const void* win_start, const void* win_count,
     const void* is_zero, const void* q_pos, const void* run_ord,
-    const void* scal, void* hits, void* counts, void* slot_base, int n_off,
-    int qp, int c, int n_real, int n_feat, int lanes, int word_lanes, int tq,
-    int stage_bytes, void* stream) {
+    const void* scal, void* hits, void* counts, void* slot_base,
+    void* arrivals, int n_off, int qp, int c, int n_real, int n_feat,
+    int lanes, int word_lanes, int tq, int stage_bytes, void* stream) {
   Args a{points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
-         run_ord, scal, hits, counts, slot_base, n_off, qp, c, n_real,
-         n_feat, lanes, word_lanes, tq, stage_bytes};
+         run_ord, scal, hits, counts, slot_base, arrivals, n_off, qp, c,
+         n_real, n_feat, lanes, word_lanes, tq, stage_bytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int bad;
   if (jaccard) {

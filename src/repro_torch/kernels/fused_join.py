@@ -38,6 +38,12 @@ rows of one run share their windows, so the kernel stages each run's window
 once per offset and refines all the run's rows against that copy. Every row
 still masks with its own descriptors, so the result is the row loop's; the
 plain version ignores the plan, as the JAX package's does.
+
+External queries with the l2 refine (B1 (b)) launch a kernel of their own,
+``fused_join_kernel_external``: P warps a query row (``external_row_warps``)
+so a request's few tiles spread over the card, and the per-tile scan in
+the launch's last block of each tile (per-stream arrival counters,
+``_tile_arrivals``). It accepts the run plan and does not read it.
 """
 from __future__ import annotations
 
@@ -215,7 +221,7 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
     return hits, counts, base
 
 
-_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 12
+_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 13
              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 # Shared memory the run loop stages windows in. With the query tile and the
 # per-row tables a 128-row f64 block then needs ~25 KiB, so eight 256-thread
@@ -225,6 +231,20 @@ RUN_STAGE_BYTES = 14 * 1024
 # vocabulary's query tile) the launch opts in, up to the device's limit.
 SMEM_DEFAULT = 48 * 1024
 _SMEM_OPTIN: dict = {}
+# B1 (b), the external-query kernel (``fused_join_kernel_external``): a
+# block of EXT_WARPS warps takes EXT_WARPS / P query rows of one tile, P
+# warps a row (``external_row_warps``: more where windows pass EXT_SLOTS
+# slots), so a tile of tq rows spreads over ``external_grid``'s row groups.
+EXT_WARPS = 8
+EXT_THREADS = 32 * EXT_WARPS
+EXT_SLOTS = 128
+_GRID_Y_MAX = 65535
+# Its per-tile arrival counters, one uint32 a tile, a buffer per (device,
+# stream): the last block of a tile sets its counter back to 0, so the
+# buffer is zeroed only when it is made or grown, launches on one stream
+# (which run in order) share it, and a launch on another stream never
+# meets a counter in use.
+_ARRIVALS: dict = {}
 
 
 def _kernel_library():
@@ -251,6 +271,32 @@ def smem_limit(device: torch.device) -> int:
                                f"cuda:{idx}")
         _SMEM_OPTIN[idx] = limit
     return limit
+
+
+def external_row_warps(c: int) -> int:
+    """P, the warps one query row of B1 (b) spreads over: the smallest
+    power of two with P * EXT_SLOTS >= c, at most EXT_WARPS."""
+    p = 1
+    while p < EXT_WARPS and p * EXT_SLOTS < c:
+        p *= 2
+    return p
+
+
+def external_grid(qp: int, tq: int, c: int) -> tuple:
+    """B1 (b)'s grid: (query tiles, row groups of a tile), a group the
+    EXT_WARPS / P rows of one block."""
+    return qp // tq, -(-tq // (EXT_WARPS // external_row_warps(c)))
+
+
+def _tile_arrivals(dev: torch.device, stream: int, tiles: int):
+    """The arrival counters of B1 (b)'s launches on ``stream``: at least
+    ``tiles`` zeros when no launch of the stream is in flight."""
+    key = (dev.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 64), dtype=torch.int32, device=dev)
+        _ARRIVALS[key] = buf
+    return buf
 
 
 def jaccard_record_bytes(word_lanes: int) -> int:
@@ -284,6 +330,8 @@ def _launch(points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
     lib = _kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        arrivals = (_tile_arrivals(dev, stream, qp // tq)
+                    if external and metric != "jaccard" else None)
         err = lib.fused_join_launch(
             DTYPE_CODES[points_pad.dtype], int(merged),
             (MASK_EXTERNAL if external
@@ -294,7 +342,9 @@ def _launch(points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
             win_start.data_ptr(), win_count.data_ptr(), is_zero.data_ptr(),
             q_pos.data_ptr(), 0 if run_ord is None else run_ord.data_ptr(),
             scal.data_ptr(), hits.data_ptr(), counts.data_ptr(),
-            slot_base.data_ptr(), n_off, qp, c, n_real, n_feat,
+            slot_base.data_ptr(),
+            0 if arrivals is None else arrivals.data_ptr(), n_off, qp, c,
+            n_real, n_feat,
             points_pad.shape[1], 0 if words is None else words.shape[1], tq,
             RUN_STAGE_BYTES, stream)
     if err != 0:
@@ -359,6 +409,10 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
         raise ValueError("points_pad must be contiguous")
     if tq <= 0 or qp % tq:
         raise ValueError(f"query rows {qp} must be a multiple of tq={tq}")
+    if external and not jaccard and \
+            external_grid(qp, tq, c)[1] > _GRID_Y_MAX:
+        raise ValueError(f"a tile of {tq} rows needs more than {_GRID_Y_MAX} "
+                         f"blocks")
     if n_real + n_feat + (1 if merged else 0) + (1 if gid_pairs else 0) \
             > lanes:
         raise ValueError(f"{lanes} lanes cannot hold {n_real} coordinates"

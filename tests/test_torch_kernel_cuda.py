@@ -323,6 +323,39 @@ def test_kernel_wrappers_do_not_synchronise(cuda_device, dtype, eps_on):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_redesigned_wrappers_do_not_synchronise(cuda_device, dtype):
+    """One call of B1 (b) (on a new stream, so its arrival counters are
+    made inside the call) and one of B4 (with a valid view off its W-byte
+    boundary, which the wrapper copies) under
+    ``torch.cuda.set_sync_debug_mode("error")``; each equals its plain
+    version."""
+    args, run_ord = _external_inputs(dtype, 1024, 33, 3, True, cuda_device,
+                                     seed=2)
+    kw = dict(c=33, n_real=2, unicomp=False, external=True, merged=True,
+              run_ord=run_ord, run_loop=True)
+    pts, _, cand, _ = _one_call_of_each_kernel(dtype, cuda_device)
+    flat = torch.ones(300 * 2 + 1, dtype=torch.bool, device=cuda_device)
+    valid = flat[1:].view(300, 2)
+    eps = tmetric.scalar_as(3.0, dtype, cuda_device)
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(st):
+            b1b = tfj.fused_join_hits(*args, eps, method="kernel", **kw)
+            b4 = tcj.cell_join_hits(pts[:300], cand, valid, eps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    plain = {k: v for k, v in kw.items() if k not in ("run_ord", "run_loop")}
+    for x, y in zip(b1b, tfj.fused_join_hits(*args, 3.0, method="reference",
+                                             **plain)):
+        assert torch.equal(x, y)
+    assert torch.equal(b4, tcj.cell_join_hits(pts[:300], cand, valid, 3.0,
+                                              method="reference"))
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 2, 3, 6, 8])
 @pytest.mark.parametrize("b,c", [(1, 8), (57, 24), (600, 40), (70000, 32)])
 def test_cell_join_kernel_matches_plain_version(cuda_device, dtype, n, b, c):
@@ -362,6 +395,50 @@ def test_cell_join_kernel_on_a_lattice(cuda_device, dtype):
     empty = tcj.cell_join_hits(args[0][:0], args[1][:0], args[2][:0], 2.0)
     assert empty.shape == (0, 16) and tcj.KERNEL_LAUNCHES == before
 
+
+# per row dtype: lattice values whose differences are subnormal, whose
+# squares overflow (to inf at float16) and whose d^2 sit exactly on the
+# integer eps^2 of eps 2
+HALF_EXTREMES = {
+    torch.float16: [0.0, 2.0 ** -24, 3 * 2.0 ** -24, 2.0 ** -14,
+                    2.0 ** -14 + 2.0 ** -24, 1.0, 2.0, 3.0, 255.0, 256.0,
+                    300.0, 65504.0, -65504.0, -2.0],
+    torch.bfloat16: [0.0, 2.0 ** -133, 3 * 2.0 ** -133, 2.0 ** -126, 1.0,
+                     2.0, 3.0, 1e19, 1e38, -1e38, -2.0],
+    torch.float32: [0.0, 2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -126, 1.0,
+                    2.0, 3.0, 1e19, 1e38, -1e38, -2.0],
+    torch.float64: [0.0, 2.0 ** -1074, 3 * 2.0 ** -1074, 2.0 ** -1022, 1.0,
+                    2.0, 3.0, 1e154, 1e308, -1e308, -2.0],
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", range(1, 9))
+def test_cell_join_kernel_on_extremes(cuda_device, dtype, n):
+    """B4 against its plain version for c of every residue mod 8 (a thread
+    owns 1, 2, 4 or 8 slots), on lattices of the dtype's extremes: the
+    native half subtract and multiply must round as the plain version's
+    float32-then-half steps do, at subnormal differences, overflowing
+    squares and d^2 on eps^2; a valid view off its W-byte boundary too."""
+    rng = np.random.default_rng(n)
+    vals = np.array(HALF_EXTREMES[dtype])
+    for c in range(8, 17):
+        b = 37
+        q = torch.as_tensor(rng.choice(vals, (b, n))).to(cuda_device, dtype)
+        cand = torch.as_tensor(rng.choice(vals, (b, c, n))).to(cuda_device,
+                                                               dtype)
+        near = q[:, None, :] + torch.as_tensor(
+            rng.choice([-2.0, 0.0, 1.0, 2.0], (b, c, n))).to(cuda_device,
+                                                             dtype)
+        cand = torch.where(torch.as_tensor(rng.random((b, c, 1)) < 0.3,
+                                           device=cuda_device), near, cand)
+        # one byte into a fresh buffer: off every W-byte boundary
+        valid = torch.as_tensor(rng.random(b * c + 1) < 0.8).to(
+            cuda_device)[1:].view(b, c)
+        for eps in (2.0, 300.0, 1e-3):
+            got = tcj.cell_join_hits(q, cand, valid, eps)
+            want = tcj.cell_join_hits(q, cand, valid, eps, method="reference")
+            assert torch.equal(got, want), (c, eps)
 
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
 def test_unfused_paths_on_card_match_cpu(cuda_device, impl):
@@ -471,6 +548,92 @@ def test_external_kernel_matches_plain_version(cuda_device, data, dtype,
                 assert torch.equal(x, y)
     assert tfj.EXTERNAL_LAUNCHES > before
 
+
+
+def _external_inputs(dtype, qp, c, n_off, merged, device, seed):
+    """B1 (b)'s inputs, made directly at a request shape: 5,000 index rows
+    in [0, 10]^2 padded by c rows, qp query rows, random windows (a tenth
+    of the rows empty, the rest 0..c slots long) shared by runs of three
+    rows inside each 128-row tile (so ``run_ord`` keeps the run plan's
+    contract), and on merged sweeps small integer cell coordinates in lane
+    2 of both."""
+    rng = np.random.default_rng(seed)
+    npts, lanes = 5000, tfj.pad_width(3)
+    pts = np.zeros((npts + c, lanes))
+    pts[:npts, :2] = rng.uniform(0, 10, (npts, 2))
+    q = np.zeros((qp, lanes))
+    q[:, :2] = rng.uniform(0, 10, (qp, 2))
+    if merged:
+        pts[:npts, 2] = rng.integers(0, 4, npts)
+        q[:, 2] = rng.integers(0, 4, qp)
+    local = np.arange(qp) % tfj.TQ_DEFAULT
+    head = np.arange(qp) - local % 3
+    wc = rng.integers(0, c + 1, (n_off, qp))
+    wc[:, rng.random(qp) < 0.1] = 0
+    ws = rng.integers(0, npts, (n_off, qp))[:, head]
+    wc = wc[:, head]
+    run_ord = local // 3
+    args = [torch.as_tensor(a).to(device) for a in (pts, q)]
+    args = [a.to(dtype) for a in args] + [
+        torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32).to(device)
+        for a in (ws, wc, np.zeros(n_off), np.zeros(qp))]
+    return args, torch.as_tensor(run_ord, dtype=torch.int32).to(device)
+
+
+EXTERNAL_SHAPES = [(128, 7, 3), (384, 64, 40), (1024, 33, 3),
+                   (4096, 100, 9)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("qp,c,n_off", EXTERNAL_SHAPES)
+def test_external_kernel_at_request_shapes(cuda_device, dtype, merged, qp,
+                                           c, n_off):
+    """B1 (b) against its plain version at qp 128 to 4,096 rows, c not a
+    multiple of 32, up to 40 offsets (two rounds of descriptors), hits
+    plane on and off, with and without a run plan."""
+    args, run_ord = _external_inputs(dtype, qp, c, n_off, merged,
+                                     cuda_device, seed=qp + c)
+    kw = dict(c=c, n_real=2, unicomp=False, external=True, merged=merged)
+    for keep_hits in (True, False):
+        want = tfj.fused_join_hits(*args, 3.0, method="reference",
+                                   keep_hits=keep_hits, **kw)
+        assert int(want[1].sum()) > 0
+        for loop in ({}, dict(run_ord=run_ord, run_loop=True)):
+            before = tfj.EXTERNAL_LAUNCHES
+            got = tfj.fused_join_hits(*args, 3.0, method="kernel",
+                                      keep_hits=keep_hits, **loop, **kw)
+            assert tfj.EXTERNAL_LAUNCHES == before + 1
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
+
+
+def test_external_kernel_back_to_back_and_on_two_streams(cuda_device):
+    """The per-tile arrival counters: the same launch twice back to back on
+    one stream, then on two streams at once, each equal to the plain
+    version; each stream has its own counters, zero again afterwards."""
+    args, _ = _external_inputs(torch.float64, 4096, 33, 3, True,
+                               cuda_device, seed=5)
+    kw = dict(c=33, n_real=2, unicomp=False, external=True, merged=True)
+    want = tfj.fused_join_hits(*args, 3.0, method="reference", **kw)
+    torch.cuda.synchronize()
+    outs = [tfj.fused_join_hits(*args, 3.0, **kw) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs += [tfj.fused_join_hits(*args, 3.0, **kw)
+                     for _ in range(2)]
+    torch.cuda.synchronize()
+    for got in outs:
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    keys = {(cuda_device.index or torch.cuda.current_device(),
+             st.cuda_stream) for st in streams}
+    assert keys <= set(tfj._ARRIVALS)
+    assert len({tfj._ARRIVALS[k].data_ptr() for k in keys}) == 2
+    for buf in tfj._ARRIVALS.values():
+        assert not buf.any()
 
 def _lattice_data():
     """Points and queries on a 0.1-spaced lattice, eps 0.3: many queries sit
