@@ -91,12 +91,15 @@ each printing one JSON line:
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
-B1 (b) and B4 alone (``kernel_times``), and ``--e2e-times [SRC]`` the
-paths around B1 (b) and B4 (``e2e_times``: B1 (c), (a) and (d), the
-main path's "pallas" and fused joins, serving p50 and p99), from the
-package in SRC (another checkout's ``src``, the parent commit's say) or
-this checkout's, so that two versions can be compared in one chip call,
-in turns.
+B1 (b), B4 and B1's self-join launches alone (``kernel_times``),
+``--b1-times [SRC]`` the self-join launches only (``b1_times``: B1 (c)
+and (a) on the main path, B1 at f16, B1 (d) on a slab, a skewed
+workload's widest class, every bench workload's launches), and
+``--e2e-times [SRC]`` the paths around them (``e2e_times``: B1 (c), (a)
+and (d) by events, the main path's "pallas" and fused joins, serving p50
+and p99), from the package in SRC (another checkout's ``src``, the parent
+commit's say) or this checkout's, so that two versions can be compared in
+one chip call, in turns.
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
@@ -153,8 +156,10 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "int32": 17e12}
 # 1.98 GHz): FP64 on 64 lanes an SM (17e12, the FP64 peak with an FMA as
 # one), FP32 on 128, and POPC at a quarter of the INT32 rate (16 an SM).
 ISSUE_RATE = {"float64": 17e12, "float32": 33.5e12, "popc": 4.2e12}
-# the unit a row dtype's refine runs on: the half kernels compute in float32
-# (each operation rounded to the half dtype), outside the tensor cores
+# the unit a row dtype's operations are counted on: the half ones at the
+# FP32 rate (B1 (b) computes them in float32, each rounded to the half
+# dtype; the other kernels natively, which is no slower), outside the
+# tensor cores
 OPS_DTYPE = {"float64": "float64", "float32": "float32",
              "float16": "float32", "bfloat16": "float32"}
 # the f64 band of the expanded form (tests/test_torch_brute.py::_band)
@@ -502,6 +507,7 @@ def hits_issue_ms(pairs: int, n: int, unit: str) -> float:
 
 
 B2_KERNEL = "distance_tile_hits_kernel"
+B1_KERNEL = "fused_join_kernel_self"
 BRUTE_TILE = 256   # query rows of one B2 launch on the brute path
 
 
@@ -667,7 +673,9 @@ _MANGLED_TYPES = {"d": "f64", "f": "f32", "6__half": "f16",
 def ptxas_by_kernel(log: str, kernel: str) -> dict:
     """Registers and spilled bytes (stores plus loads) of each instance of
     ``kernel`` in nvcc's ``-Xptxas -v`` output, keyed by its template
-    arguments (B2's: row type, n, store width, as "f64_n2_w16")."""
+    arguments (B2's: row type, n, store width, as "f64_n2_w16"; B1's l2
+    kernel: row type, merged, global ids, n_real (0: at run time), narrow
+    steps, as "f64_merged1_gid0_nr2_narrow0")."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)", ln)
@@ -678,7 +686,10 @@ def ptxas_by_kernel(log: str, kernel: str) -> dict:
             continue
         rest = name.split(kernel, 1)[1]
         t = re.match(r"I(\w+?)Li(\d+)ELi(\d+)E", rest)
-        key = (f"{_MANGLED_TYPES.get(t[1], t[1])}_n{t[2]}_w{t[3]}" if t
+        b1 = re.match(r"I(\w+?)Lb(\d)ELb(\d)ELi(\d)ELb(\d)E", rest)
+        key = (f"{_MANGLED_TYPES.get(b1[1], b1[1])}_merged{b1[2]}_"
+               f"gid{b1[3]}_nr{b1[4]}_narrow{b1[5]}" if b1
+               else f"{_MANGLED_TYPES.get(t[1], t[1])}_n{t[2]}_w{t[3]}" if t
                else rest)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -691,7 +702,9 @@ def ptxas_by_kernel(log: str, kernel: str) -> dict:
 
 def sync_check() -> dict:
     """Which kernel wrappers wait for the device: one call each of B1 (one
-    pass of ``timed_launches`` over the launches of a 20,000-point join),
+    pass of ``timed_launches`` over the launches of a 20,000-point join;
+    "b1_tile" the same over a 200,000-point join, whose widest class of
+    ``fused_join.SPREAD_TILES`` tiles or more takes a block a tile),
     B1 (b) (the launches of a 1,024-query request on that index, planned
     beforehand: planning syncs once, by design), B2, B3 and B4 (one offset
     of the unfused join) under ``torch.cuda.set_sync_debug_mode("error")``,
@@ -711,6 +724,13 @@ def sync_check() -> dict:
         pts = torch.as_tensor(raw).to(DEVICE, dtype)
         index = grid.build_grid(pts, 1.0, device=DEVICE)
         prepared = prepared_launches(index, merged=True, unicomp=True)
+        big = grid.build_grid(torch.as_tensor(syn(200000, 2)).to(
+            DEVICE, dtype), 1.0, device=DEVICE)
+        tiled = prepared_launches(big, merged=True, unicomp=True)
+        # (a package from before the threshold, timed in turns, has none)
+        check(max(p["args"][1].shape[0] // p["kw"]["tq"] for p in tiled)
+              >= getattr(fj, "SPREAD_TILES", 0),
+              "sync_check: no launch a block a tile")
         ext = external_launches(qj.prepare(index),
                                 external_queries(raw, 1.0, 1024))
         (q, cand, valid), = unfused_launches(index)[:1]
@@ -718,6 +738,9 @@ def sync_check() -> dict:
             "b1": lambda e: [fj.fused_join_hits(*p["args"][:-1], e,
                                                 method="kernel", **p["kw"])
                              for p in prepared],
+            "b1_tile": lambda e: [
+                fj.fused_join_hits(*p["args"][:-1], e, method="kernel",
+                                   **p["kw"]) for p in tiled],
             "b1b": lambda e: [fj.fused_join_hits(*p["args"][:-1], e,
                                                  method="kernel", **p["kw"])
                               for p in ext],
@@ -727,7 +750,8 @@ def sync_check() -> dict:
             "b4": lambda e: cj.cell_join_hits(q, cand, valid, e,
                                               method="kernel"),
         }
-        passed = {"b1": index.eps, "b1b": ext[0]["args"][-1], "b2": 1.0,
+        passed = {"b1": index.eps, "b1_tile": big.eps,
+                  "b1b": ext[0]["args"][-1], "b2": 1.0,
                   "b3": 1.0, "b4": index.eps}
         out[dname] = {}
         for name, fn in calls.items():
@@ -775,7 +799,13 @@ def phase_build():
     cj._kernel_library()
     seconds = time.perf_counter() - t0
     b2 = ptxas_by_kernel(built["distance_tile"][1], B2_KERNEL)
-    emit("build", seconds=seconds, b2_ptxas=dict(
+    b1 = ptxas_by_kernel(built["fused_join"][1], B1_KERNEL)
+    emit("build", seconds=seconds, b1_ptxas=dict(
+        instances=len(b1),
+        max_registers=max((v["registers"] for v in b1.values()), default=None),
+        spilled={k: v["spill_bytes"] for k, v in b1.items()
+                 if v.get("spill_bytes")},
+        main_path=b1.get("f64_merged1_gid0_nr2_narrow0")), b2_ptxas=dict(
         instances=len(b2),
         max_registers=max((v["registers"] for v in b2.values()), default=None),
         spilled={k: v["spill_bytes"] for k, v in b2.items()
@@ -2267,8 +2297,7 @@ def metric_jaccard_scale():
                 launch_caps=[p["kw"]["c"] for p in prepared],
                 launch_rows=[p["args"][1].shape[0] for p in prepared],
                 smem_bytes=fj.shared_bytes(
-                    128, int(prepared[0]["args"][0].shape[1]), 4, True,
-                    fj.packed_width(canon.n_feat)),
+                    128, fj.packed_width(canon.n_feat), True),
                 total_pairs=npairs, planted_pairs=int(dup.size),
                 planted_found=True, data_s=data_s, canonicalize_s=canon_s,
                 join_canonical_s=e2e, join_canonical_runs_s=runs,
@@ -3159,26 +3188,94 @@ def b1b_checksum(outs) -> list:
     return out
 
 
-def b1b_times(launches) -> dict:
-    """B1 (b) on one request's launches: device time by kernel name under
-    the profiler (no host gap reaches it), the pass by CUDA events over
-    back-to-back passes, and the outputs' integers."""
+def b1_launch_times(launches, run_loop: bool = False, reps: int = 20) -> dict:
+    """B1 on ``launches`` (``prepared_launches``' form), run loop or row
+    loop: device time by kernel name under the profiler (no host gap
+    reaches it), the pass by CUDA events over back-to-back passes, and the
+    outputs' integers (``b1b_checksum``)."""
     from repro_torch.kernels import fused_join as fj
 
     def one_pass():
-        return [fj.fused_join_hits(*p["args"], method="kernel", **p["kw"])
+        return [fj.fused_join_hits(*p["args"], method="kernel",
+                                   **_loop_kw(p, run_loop), **p["kw"])
                 for p in launches]
 
     checksum = b1b_checksum(one_pass())
-    device = [profiled_device_ms(one_pass, reps=20,
+    device = [profiled_device_ms(one_pass, reps=reps,
                                  kernel="fused_join_kernel")
               for _ in range(3)]
-    events = [timed_launches(launches, "kernel", reps=20) for _ in range(3)]
+    events = [timed_launches(launches, "kernel", run_loop, reps=reps)
+              for _ in range(3)]
     return dict(launches=len(launches), c=[p["kw"]["c"] for p in launches],
                 rows=[int(p["args"][1].shape[0]) for p in launches],
                 device_ms=statistics.median(device), device_runs_ms=device,
                 events_ms=statistics.median(events), events_runs_ms=events,
                 checksum=checksum)
+
+
+# The bench workloads whose every B1 launch ``b1_times`` times, and at
+# which row dtypes.
+BENCH_B1_DTYPES = {
+    "uniform-2d": ("float64", "float32", "float16", "bfloat16"),
+    "clustered-2d": ("float64",), "expo-3d": ("float64", "bfloat16"),
+    "uniform-4d": ("float64",), "clustered-4d": ("float64",),
+    "uniform-6d": ("float64",), "clustered-6d": ("float64",)}
+
+
+def b1_times() -> dict:
+    """B1's self-join launches alone, from the ``repro_torch`` first on
+    ``sys.path`` (``--b1-times [SRC]``, and within ``--kernel-times``):
+    B1 (c) and (a) on the main path's launches at f64 (run and row loop),
+    B1 on the float16 main path's launches, B1 (d) on slab SLAB_HELD[1] of
+    the SLAB_HELD[0]-slab join (run loop), the widest self-join launch
+    of the skewed expo-3d bench workload, and every launch of the bench
+    workloads' joins (``BENCH_B1_DTYPES``), each by ``b1_launch_times``
+    with its byte bound (``kernel_bound``)."""
+    import repro_torch
+    from repro_torch.core import distributed as dist, selfjoin as sj
+    pts = syn(MAIN_POINTS, MAIN_DIMS)
+    out = {}
+
+    def join_launches(points, eps):
+        index = repro_torch.build_grid(points, eps, device=DEVICE)
+        run = sj._join_run_loop(index)
+        return prepared_launches(index, merged=sj._resolve_merge(index, None),
+                                 unicomp=True, run_loop=run), run
+
+    prepared, run = join_launches(pts, MAIN_EPS)
+    out["b1c_main_float64"] = b1_launch_times(prepared, run, reps=10)
+    out["b1a_main_float64"] = b1_launch_times(prepared, False, reps=10)
+    out["main_float64_bound_ms"] = kernel_bound(prepared)[0]
+    prepared, run = join_launches(as_half(pts, torch.float16), MAIN_EPS)
+    out["b1_main_float16"] = b1_launch_times(prepared, run, reps=10)
+    out["main_float16_bound_ms"] = kernel_bound(prepared)[0]
+    del prepared
+    slab, = [s_ for s_ in dist.slab_indexes(pts, MAIN_EPS, SLAB_HELD[0],
+                                            device=DEVICE)
+             if s_.slab == SLAB_HELD[1]]
+    gid = prepared_launches(slab.index, merged=True, unicomp=True,
+                            run_loop=True, slab=slab)
+    out["b1d_slab"] = b1_launch_times(gid, True)
+    out["b1d_slab_bound_ms"] = kernel_bound(gid)[0]
+    del slab, gid
+    work = bench_workloads()
+    prepared, run = join_launches(*work["expo-3d"])
+    widest = [max(prepared, key=lambda p_: p_["kw"]["c"])]
+    out["b1_expo3d_widest"] = b1_launch_times(widest, run)
+    out["expo3d_widest_bound_ms"] = kernel_bound(widest)[0]
+    # every launch of each bench workload's join, at f64 and at the
+    # other row dtypes on uniform-2d and expo-3d
+    out["bench"] = {}
+    for name, dtypes in BENCH_B1_DTYPES.items():
+        raw, eps = work[name]
+        for dname in dtypes:
+            pts_ = (as_half(raw, HALF_DTYPES[dname]) if dname in HALF_DTYPES
+                    else torch.as_tensor(raw, dtype=getattr(torch, dname)))
+            prepared, run = join_launches(pts_, eps)
+            out["bench"][f"{name}_{dname}"] = dict(
+                b1_launch_times(prepared, run, reps=10),
+                bound_ms=kernel_bound(prepared)[0])
+    return out
 
 
 def b4_times(pts, eps) -> dict:
@@ -3209,20 +3306,23 @@ def b4_times(pts, eps) -> dict:
 
 
 def kernel_times() -> dict:
-    """B3, B1 (e), B2, B1 (b) and B4 alone, from the ``repro_torch`` first on
-    ``sys.path``: B3 by CUDA events on the main path's 2,000,000 points
-    (f64) and on uniform-2d's 100,000 at f64, float16 and bfloat16; B1 (e)
-    by events on the launches of the 100,000-set Jaccard join (run loop),
-    back to back; B2 on uniform-2d's brute sweep (391 launches of 256 rows)
-    at f64, float16 and bfloat16, with eps built once by the package's
-    ``metric.scalar_as``: its device time by name under the profiler, the
-    sweep's time by events, and ``brute_force_count``'s time by the host
-    clock; B1 (b) on the first request of the serve phase on index A and
-    on index B (``b1b_times``); B4 on the unfused sweep's launches of the
-    main path at f64 and float16 and of uniform-2d at bfloat16
-    (``b4_times``). Each with its integers (totals; B2's hit positions'
-    checksum; B1 (b)'s and B4's checksums), so two versions can be seen to
-    agree; and ``sync_check`` of the package's wrappers."""
+    """B3, B1 (e), B2, B1 (b), B4 and B1's self-join launches alone, from
+    the ``repro_torch`` first on ``sys.path``: B3 by CUDA events on the
+    main path's 2,000,000 points (f64) and on uniform-2d's 100,000 at f64,
+    float16 and bfloat16; B1 (e) by events on the launches of the
+    100,000-set Jaccard join (run loop), back to back; B2 on uniform-2d's
+    brute sweep (391 launches of 256 rows) at f64, float16 and bfloat16,
+    with eps built once by the package's ``metric.scalar_as``: its device
+    time by name under the profiler, the sweep's time by events, and
+    ``brute_force_count``'s time by the host clock; B1 (b) on the first
+    request of the serve phase on index A and on index B
+    (``b1_launch_times``); B4 on the unfused sweep's launches of the main
+    path at f64 and float16 and of uniform-2d at bfloat16 (``b4_times``);
+    B1 (c), (a), (d), f16, a wide class and the bench workloads' launches
+    (``b1_times``) with the self-join kernel's ptxas registers and spills.
+    Each with its integers (totals; B2's hit positions' checksum; B1's and
+    B4's checksums), so two versions can be seen to agree; and
+    ``sync_check`` of the package's wrappers."""
     import repro_torch
     from repro_torch.core import metric, selfjoin as sj
     from repro_torch.kernels import build, distance_tile as dt
@@ -3282,13 +3382,15 @@ def kernel_times() -> dict:
     pts = syn(MAIN_POINTS, MAIN_DIMS)
     request = serve_requests(1, np.random.default_rng(21))[0]
     svc = serve.JoinService(pts, MAIN_EPS, return_pairs=True, device=DEVICE)
-    out["b1b_index_a"] = b1b_times(external_launches(svc.prepared, request))
+    out["b1b_index_a"] = b1_launch_times(external_launches(svc.prepared,
+                                                           request))
     del svc
     skew = serve.JoinService(expo(SKEW_POINTS, 3), SKEW_EPS,
                              return_pairs=True, device=DEVICE)
     request = np.split(expo(SKEW_REQUESTS * SERVE_BATCH, 3, seed=7),
                        SKEW_REQUESTS)[0]
-    out["b1b_index_b"] = b1b_times(external_launches(skew.prepared, request))
+    out["b1b_index_b"] = b1_launch_times(external_launches(skew.prepared,
+                                                           request))
     del skew
     # B4: the main path's unfused sweep at f64 and f16, uniform-2d's at bf16
     out["b4_main_float64"] = b4_times(torch.as_tensor(pts).to(DEVICE),
@@ -3297,6 +3399,8 @@ def kernel_times() -> dict:
         as_half(pts, torch.float16).to(DEVICE), MAIN_EPS)
     out["b4_uniform2d_bfloat16"] = b4_times(
         as_half(raw, torch.bfloat16).to(DEVICE), eps)
+    out["b1"] = b1_times()
+    out["b1_ptxas"] = ptxas_by_kernel(built["fused_join"][1], B1_KERNEL)
     out["syncs"] = sync_check()
     return out
 
@@ -3305,12 +3409,11 @@ def e2e_times() -> dict:
     """The paths around this round's kernels, from the ``repro_torch`` first
     on ``sys.path``, so that two versions can be compared in one call in
     turns (``--e2e-times [SRC]``): B1 (c) and (a) on the main path's
-    launches and B1 (d) on slab 1 of the 4-slab join, instances B1 (b)'s
-    and B4's kernels do not share (CUDA events over back-to-back passes,
-    median of three); the main path's joins through "pallas" (B4) and
-    "fused" (host clock ending in a synchronize, median of three after a
-    warm-up); and serving on index A, 64 requests of 1,024 queries, with
-    pairs and counts only (the services' p50 and p99)."""
+    launches and B1 (d) on slab 1 of the 4-slab join (CUDA events over
+    back-to-back passes, median of three); the main path's joins through
+    "pallas" (B4) and "fused" (host clock ending in a synchronize, median
+    of three after a warm-up); and serving on index A, 64 requests of
+    1,024 queries, with pairs and counts only (the services' p50 and p99)."""
     import repro_torch
     from repro_torch.core import distributed as dist
     from repro_torch.launch import serve
@@ -3363,7 +3466,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     timers = {"--kernel-times": ("kernel_times", kernel_times),
-              "--e2e-times": ("e2e_times", e2e_times)}
+              "--e2e-times": ("e2e_times", e2e_times),
+              "--b1-times": ("b1_times", b1_times)}
     if sys.argv[1:2] and sys.argv[1] in timers:
         # another checkout's src (the parent commit's, say) goes first
         for src in sys.argv[2:3]:

@@ -187,20 +187,45 @@ def host_grid_geometry(points: np.ndarray,
     numpy's float16, as the reference's do; there ``(gmax - gmin) / eps``
     can pass float16's largest value (65,504) on a wide extent with a small
     eps, and the build refuses what the reference would turn into a
-    garbage cell count."""
+    garbage cell count.
+
+    The build also refuses an eps that is not finite and positive, and
+    (over finite points) a cell count that is not finite or reaches 2^63:
+    the int64 cast of such a count gives -2^63 in both packages, and the
+    port's join then emitted (i, i) pairs and doubled pairs (ROADMAP §C,
+    C4)."""
     points = np.asarray(points)
+    if not (np.isfinite(eps) and eps > 0):
+        raise ValueError(_degenerate_geometry(
+            f"eps {eps} is not finite and positive"))
     gmin = points.min(axis=0) - eps
     gmax = points.max(axis=0) + eps
     cells = np.ceil((gmax - gmin) / eps)
-    if (points.dtype == np.float16 and np.isfinite(points).all()
+    finite_points = np.isfinite(points).all()
+    if (points.dtype == np.float16 and finite_points
             and not np.isfinite(cells).all()):
         raise ValueError(
             f"float16 grid geometry overflows: (max - min + 2 eps) / eps "
             f"passes 65,504 cells at eps {eps} over extents "
             f"{(points.max(axis=0) - points.min(axis=0)).tolist()} "
             f"(ROADMAP §C, C1); join these points at float32")
+    if finite_points and not (np.isfinite(cells).all()
+                              and (cells.astype(np.float64) < 2.0 ** 63)
+                              .all()):
+        raise ValueError(_degenerate_geometry(
+            f"(max - min + 2 eps) / eps gives {cells.tolist()} cells at "
+            f"eps {eps}, past int64's 2^63"))
     dims = cells.astype(np.int64) + 1
     return gmin, dims
+
+
+def _degenerate_geometry(what: str) -> str:
+    """The message of a grid build refused under ROADMAP §C, C4."""
+    return (f"degenerate grid geometry: {what} (ROADMAP §C, C4). The JAX "
+            f"package casts such a cell count to -2^63; its join still "
+            f"answers eps inf, and eps 0 on distinct points, rightly, but "
+            f"the port refuses them, as it refuses integer points (C2) and "
+            f"half-precision ids past their exact range (C3)")
 
 
 def host_points(x, dtype: torch.dtype) -> torch.Tensor:

@@ -34,8 +34,9 @@ tensors, the plain version for CPU tensors. There is no fallback: a kernel
 that fails to build or launch raises.
 
 With ``run_loop`` the kernel takes a cell-run plan (``grid.cell_run_plan``):
-rows of one run share their windows, so the kernel stages each run's window
-once per offset and refines all the run's rows against that copy. Every row
+rows of one run share their windows, so the Jaccard kernel stages each
+run's window once per offset and refines all the run's rows against that
+copy; the l2 kernels below accept the plan and do not read it. Every row
 still masks with its own descriptors, so the result is the row loop's; the
 plain version ignores the plan, as the JAX package's does.
 
@@ -44,6 +45,16 @@ External queries with the l2 refine (B1 (b)) launch a kernel of their own,
 so a request's few tiles spread over the card, and the per-tile scan in
 the launch's last block of each tile (per-stream arrival counters,
 ``_tile_arrivals``). It accepts the run plan and does not read it.
+
+Self-join launches with the l2 refine (B1 (a), (c), (d), at every dtype)
+launch ``fused_join_kernel_self``: a block stages its query rows in shared
+memory (``self_stage_bytes``), a warp takes a chunk of consecutive query
+rows, 32 slots of one row a step or, where windows hold at most 16 slots,
+SW slots of each of 32 / SW rows, and each lane holds its window slot's
+lanes in registers while the rows of a run share the window, so it too
+accepts the run plan and does not read it. Launches of few tiles spread a
+tile's rows over blocks as B1 (b) does; ``self_layout`` mirrors how it lays
+a launch out.
 """
 from __future__ import annotations
 
@@ -223,9 +234,7 @@ def _fused_join_hits_reference(points_pad, q_batch, win_start, win_count,
 
 _ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 13
              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-# Shared memory the run loop stages windows in. With the query tile and the
-# per-row tables a 128-row f64 block then needs ~25 KiB, so eight 256-thread
-# blocks fit on an SM, as for the row loop; a 32 KiB stage let five fit.
+# Shared memory the Jaccard run loop stages windows in.
 RUN_STAGE_BYTES = 14 * 1024
 # Shared memory a launch gets without opting in; past it (a wide Jaccard
 # vocabulary's query tile) the launch opts in, up to the device's limit.
@@ -235,6 +244,7 @@ _SMEM_OPTIN: dict = {}
 # block of EXT_WARPS warps takes EXT_WARPS / P query rows of one tile, P
 # warps a row (``external_row_warps``: more where windows pass EXT_SLOTS
 # slots), so a tile of tq rows spreads over ``external_grid``'s row groups.
+# The self-join kernel's blocks and spread launches are alike.
 EXT_WARPS = 8
 EXT_THREADS = 32 * EXT_WARPS
 EXT_SLOTS = 128
@@ -288,8 +298,53 @@ def external_grid(qp: int, tq: int, c: int) -> tuple:
     return qp // tq, -(-tq // (EXT_WARPS // external_row_warps(c)))
 
 
+# Self-join launches of fewer tiles than SPREAD_TILES (``kSpreadTiles`` in
+# ``csrc/fused_join.cu``) spread each tile's rows over blocks; a larger one
+# gives each block a tile (on the H100 the bench workloads' launches of 111
+# tiles and more ran faster a block a tile, of 79 and fewer spread:
+# scripts/b1_variants.py). A lane holds a window slot's coordinates in
+# registers, up to HELD_LANES of them where n_real is not an instance's
+# constant (1-4).
+SPREAD_TILES = 96
+HELD_LANES = 8
+
+
+def self_layout(qp: int, tq: int, c: int, gid_pairs: bool = False) -> tuple:
+    """How B1's self-join kernel lays a launch out: (P warps a row, RW
+    rows a chunk, rows a warp, blocks a tile, SW slots a row takes a step).
+    A window of at most 16 slots takes SW, the smallest power of two that
+    holds it, so a step of 32 lanes refines 32 / SW rows; wider ones, and
+    every global-id launch, take 32. Fewer than SPREAD_TILES tiles: a warp
+    takes one step's rows (one row, P = ``external_row_warps(c)``, past 16
+    slots), the tile over row groups of blocks, scanned by the last block
+    to arrive. Else one block a tile, each of its EXT_WARPS warps
+    ceil(tq / EXT_WARPS) consecutive rows in chunks of RW, the smallest
+    power of two that holds them (at most 32), SW at least 32 / RW, and the
+    block scans its own tile."""
+    cw = 5 if c > 16 or gid_pairs else (int(c) - 1).bit_length()
+    if qp // tq < SPREAD_TILES:
+        p = external_row_warps(c)
+        rows = EXT_WARPS // p * (32 >> cw)
+        return p, 32 >> cw, 32 >> cw, -(-tq // rows), 1 << cw
+    per = -(-tq // EXT_WARPS)
+    rw = min(32, 1 << (per - 1).bit_length())
+    return 1, rw, -(-per // rw) * rw, 1, max(1 << cw, 32 // rw)
+
+
+def self_stage_bytes(qp: int, tq: int, c: int, n_real: int, merged: bool,
+                   gid_pairs: bool, item: int) -> int:
+    """Shared memory of one block of B1's self-join kernel: its query
+    rows (a tile, or a spread block's share of one), each n_real
+    coordinates, the merged lane and the id lane (``csrc/fused_join.cu``'s
+    ``self_stage_bytes``)."""
+    p, _, rows_a_warp, _, _ = self_layout(qp, tq, c, gid_pairs)
+    rows = min(EXT_WARPS // p * rows_a_warp, tq)
+    return rows * (n_real + int(merged) + int(gid_pairs)) * item
+
+
 def _tile_arrivals(dev: torch.device, stream: int, tiles: int):
-    """The arrival counters of B1 (b)'s launches on ``stream``: at least
+    """The arrival counters of the launches on ``stream`` that spread a
+    tile over blocks (B1 (b), B1's spread self-join launches): at least
     ``tiles`` zeros when no launch of the stream is in flight."""
     key = (dev.index, stream)
     buf = _ARRIVALS.get(key)
@@ -306,15 +361,12 @@ def jaccard_record_bytes(word_lanes: int) -> int:
     return ((word_lanes // 4 + 1) | 1) * 16
 
 
-def shared_bytes(tq: int, lanes: int, item: int, run_loop: bool,
-                 word_lanes: int | None = None) -> int:
-    """Dynamic shared memory of one block: the query tile (rows of
-    ``lanes`` values, or Jaccard records of ``word_lanes`` packed words),
-    four per-row int tables and, for the run loop, the window stage and its
-    run tables (``csrc/fused_join.cu``'s layout)."""
-    tile = (tq * lanes * item if word_lanes is None
-            else tq * jaccard_record_bytes(word_lanes))
-    smem = tile + 4 * tq * 4
+def shared_bytes(tq: int, word_lanes: int, run_loop: bool) -> int:
+    """Dynamic shared memory of one block of the Jaccard kernel: the query
+    tile's records of ``word_lanes`` packed words, four per-row int tables
+    and, for the run loop, the window stage and its run tables
+    (``csrc/fused_join.cu``'s layout)."""
+    smem = tq * jaccard_record_bytes(word_lanes) + 4 * tq * 4
     if run_loop:
         smem += RUN_STAGE_BYTES + (2 * tq + 2) * 4
     return smem
@@ -331,7 +383,8 @@ def _launch(points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         arrivals = (_tile_arrivals(dev, stream, qp // tq)
-                    if external and metric != "jaccard" else None)
+                    if _spreads(external, metric, gid_pairs, qp, tq, c)
+                    else None)
         err = lib.fused_join_launch(
             DTYPE_CODES[points_pad.dtype], int(merged),
             (MASK_EXTERNAL if external
@@ -349,6 +402,16 @@ def _launch(points_pad, words, q_batch, win_start, win_count, is_zero, q_pos,
             RUN_STAGE_BYTES, stream)
     if err != 0:
         raise RuntimeError(f"fused_join kernel launch failed: CUDA error {err}")
+
+
+def _spreads(external: bool, metric: str, gid_pairs: bool, qp: int,
+             tq: int, c: int) -> bool:
+    """Whether a launch spreads a tile over blocks, which then need the
+    per-stream arrival counters: every l2 external launch, and the l2
+    self-join launches ``self_layout`` spreads."""
+    if metric == "jaccard":
+        return False
+    return external or self_layout(qp, tq, c, gid_pairs)[3] > 1
 
 
 # The launch runs inside a torch op because torch.profiler ties a kernel's
@@ -409,8 +472,8 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
         raise ValueError("points_pad must be contiguous")
     if tq <= 0 or qp % tq:
         raise ValueError(f"query rows {qp} must be a multiple of tq={tq}")
-    if external and not jaccard and \
-            external_grid(qp, tq, c)[1] > _GRID_Y_MAX:
+    if not jaccard and (external_grid(qp, tq, c)[1] if external else
+                        self_layout(qp, tq, c, gid_pairs)[3]) > _GRID_Y_MAX:
         raise ValueError(f"a tile of {tq} rows needs more than {_GRID_Y_MAX} "
                          f"blocks")
     if n_real + n_feat + (1 if merged else 0) + (1 if gid_pairs else 0) \
@@ -419,6 +482,14 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                          f"{f' and {n_feat} feature lanes' if n_feat else ''}"
                          f"{' and the merged lane' if merged else ''}"
                          f"{' and the global-id lane' if gid_pairs else ''}")
+    if not jaccard and not external:
+        smem = self_stage_bytes(qp, tq, c, n_real, merged, gid_pairs,
+                              points_pad.element_size())
+        if smem > SMEM_DEFAULT and smem > smem_limit(dev):
+            raise ValueError(f"{tq} query rows of {n_real} coordinates need "
+                             f"{smem} B of shared memory, above the "
+                             f"{smem_limit(dev)} B a block of {dev} may opt "
+                             f"in to")
     word_lanes = None
     if jaccard:
         word_lanes = packed_width(n_feat)
@@ -431,14 +502,14 @@ def _fused_join_hits_cuda(points_pad, q_batch, win_start, win_count, is_zero,
                 f"({points_pad.shape[0]}, {word_lanes}) tensor on {dev} "
                 f"(pack_words), got {words.dtype} {tuple(words.shape)} on "
                 f"{words.device}")
-    smem = shared_bytes(tq, lanes, points_pad.element_size(),
-                        run_ord is not None, word_lanes)
-    if smem > SMEM_DEFAULT and smem > smem_limit(dev):
-        raise ValueError(f"tile of {tq} rows x {lanes} lanes needs {smem} B "
-                         f"of shared memory, above the {smem_limit(dev)} B "
-                         f"a block of {dev} may opt in to")
-    if jaccard and words is None:
-        words = pack_words(points_pad, n_real, n_feat)
+        smem = shared_bytes(tq, word_lanes, run_ord is not None)
+        if smem > SMEM_DEFAULT and smem > smem_limit(dev):
+            raise ValueError(f"tile of {tq} rows x {lanes} lanes needs "
+                             f"{smem} B of shared memory, above the "
+                             f"{smem_limit(dev)} B a block of {dev} may opt "
+                             f"in to")
+        if words is None:
+            words = pack_words(points_pad, n_real, n_feat)
     counts = torch.empty(qp, dtype=torch.int32, device=dev)
     base = torch.empty(qp, dtype=torch.int32, device=dev)
     hits = (torch.empty((n_off, qp, c), dtype=torch.int8, device=dev)

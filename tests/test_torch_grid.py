@@ -12,6 +12,8 @@ import torch
 import jax.numpy as jnp
 
 import repro.core.grid as jgrid
+import repro_torch
+import repro_torch.core
 import repro_torch.core.grid as tgrid
 from repro.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.core import stencil as tstencil
@@ -199,3 +201,44 @@ def test_capacity_plans_match_jax(planned, merged):
         assert (a is None) == (b is None)
         if a is not None:
             assert np.array_equal(a, b)
+
+
+# ROADMAP §C, C4: an eps that is not finite and positive, or a cell count
+# past int64, used to reach an unchecked int64 cast (-2^63), and the port's
+# join then emitted (i, i) pairs and doubled pairs. The probe's data.
+C4_POINTS = np.random.default_rng(2).random((40, 2)) * 3
+C4_REFUSED = [0.0, 1e-300, 1e-19, float("inf"), -0.5, float("nan")]
+C4_ENTRIES = {
+    "build_grid": lambda p, e: tgrid.build_grid(p, e, device=CPU),
+    "self_join": lambda p, e: repro_torch.self_join(p, e, device=CPU),
+    "self_join_count": lambda p, e: repro_torch.self_join_count(
+        p, e, device=CPU),
+    "distributed_self_join": lambda p, e: repro_torch.core.
+    distributed_self_join(p, e, 2, device=CPU),
+    "distributed_self_join_count": lambda p, e: repro_torch.core.
+    distributed_self_join_count(p, e, 2, device=CPU),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(C4_ENTRIES))
+@pytest.mark.parametrize("eps", C4_REFUSED, ids=str)
+def test_degenerate_geometry_is_refused(entry, eps):
+    with pytest.raises(ValueError, match="C4"):
+        C4_ENTRIES[entry](C4_POINTS, eps)
+
+
+@pytest.mark.parametrize("duplicates", [0, 5])
+def test_cell_count_below_int64_still_joins(tmp_path, duplicates):
+    """eps 1e-18 puts ~3e18 cells on a side, below 2^63: the join runs and
+    gives JAX's pairs (the duplicated rows' pairs, at d = 0)."""
+    import repro.core.selfjoin as jsj
+    from torch_workloads import jax_default_tables
+
+    pts = np.concatenate([C4_POINTS, C4_POINTS[:duplicates]])
+    with jax_default_tables(tmp_path):
+        want = np.asarray(jsj.self_join(pts, 1e-18, distance_impl="fused"))
+    got = repro_torch.self_join(pts, 1e-18, device=CPU).numpy()
+    assert want.shape[0] == 2 * duplicates
+    assert np.array_equal(got, want)
+    assert (repro_torch.self_join_count(pts, 1e-18, device=CPU).total_pairs
+            == want.shape[0])

@@ -1029,3 +1029,205 @@ def test_gid_kernel_refuses_what_it_cannot_run(cuda_device):
             c=launch[4], tq=launch[5], n_real=3, unicomp=False,
             external=True, merged=True, keep_hits=True, metric="l2",
             n_feat=0, gid_pairs=True)
+
+
+# --- B1's self-join kernel (the l2 refine with the SELF and UNICOMP masks:
+# B1 (a), (c), (d) and their half instances), in both of its layouts: one
+# block a tile on a launch of SPREAD_TILES tiles or more, and the spread of
+# a launch of fewer tiles over blocks
+
+# query rows a launch in each layout, at tq = 128
+SELF_ROWS = {"tile": tfj.SPREAD_TILES * tfj.TQ_DEFAULT, "spread": 1024}
+SELF_LAYOUTS = list(SELF_ROWS)
+
+
+def _tiles_for(layout: str, qp: int, tq: int) -> int:
+    """The tile height a launch of ``qp`` rows takes in ``layout``: its own
+    ``tq`` to spread (asserting it has fewer than SPREAD_TILES tiles), or,
+    for the tile layout, the largest power of two up to ``tq`` that gives
+    SPREAD_TILES tiles or more (``tq`` itself on a launch that has them)."""
+    if layout == "spread":
+        assert qp // tq < tfj.SPREAD_TILES
+        return tq
+    t = tq
+    while t > 1 and (qp % t or qp // t < tfj.SPREAD_TILES):
+        t //= 2
+    assert qp // t >= tfj.SPREAD_TILES
+    return t
+
+
+def _lattice(side: int, dtype) -> torch.Tensor:
+    """A 3-D integer lattice: at eps 2 many d^2 sit exactly on eps^2 = 4,
+    and the cells of width 2 hold 8 points (the run loop)."""
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
+    return torch.as_tensor(g.reshape(-1, 3).astype(np.float64)).to(dtype)
+
+
+@pytest.mark.parametrize("layout", SELF_LAYOUTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("unicomp", [True, False])
+@pytest.mark.parametrize("gid", [False, True])
+def test_self_kernel_on_a_lattice(cuda_device, layout, dtype, merged,
+                                  unicomp, gid):
+    """Every launch of a lattice join (with ``gid``: of each slab's join at
+    2 slabs, the half dtypes at point counts with exact ids), hits plane on
+    and off, row and run loop: hits, counts and slot_base equal the plain
+    version's bit for bit. The spread layout takes the drivers' 128-row
+    tiles; the tile layout tiles of the height that gives each launch
+    SPREAD_TILES tiles (128 rows where it has them). Per-cell windows of 8
+    slots take the narrow steps."""
+    side = {torch.float16: 12, torch.bfloat16: 6}.get(dtype, 14) if gid \
+        else 14
+    pts = _lattice(side, dtype)
+    if gid:
+        work = [(s_.index, _gid_launches(s_, merged, unicomp, True))
+                for s_ in tdist.slab_indexes(pts, 2.0, 2, device=cuda_device)]
+    else:
+        index = tgrid.build_grid(pts, 2.0, device=cuda_device)
+        work = [(index, _run_loop_launches(index, merged, unicomp))]
+    hits = 0
+    for index, launches in work:
+        for launch, args, plan in launches:
+            for keep_hits in (True, False):
+                tq = _tiles_for(layout, args[1].shape[0], launch[5])
+                kw = dict(c=launch[4], n_real=3, unicomp=unicomp,
+                          merged=merged, gid_pairs=gid, tq=tq,
+                          keep_hits=keep_hits)
+                want = tfj.fused_join_hits(*args, index.eps,
+                                           method="reference", **kw)
+                for loop in ({}, dict(run_ord=plan.run_ord, run_loop=True)):
+                    got = tfj.fused_join_hits(*args, index.eps,
+                                              method="kernel", **loop, **kw)
+                    for x, y in zip(got, want):
+                        assert torch.equal(x, y)
+                hits += int(want[1].sum())
+    assert hits > 0
+
+
+def _self_inputs(dtype, n, c, merged, gid, device, seed, qp=1024,
+                 n_off=3, npts=2000):
+    """The self-join kernel's inputs made directly: ``npts`` rows of the
+    dtype's extremes (HALF_EXTREMES, and neighbours 0-2 away) in ``n``
+    lanes, the merged lane's small integer cell coordinates, the id lane
+    (row ids, -1 in the tail); ``qp`` query rows that are rows of the
+    points (q_pos); windows of 0..c slots shared by runs of three rows,
+    the zero offset's around each row's own position."""
+    rng = np.random.default_rng(seed)
+    vals = np.array(HALF_EXTREMES[dtype])
+    lanes = tfj.pad_width(n + merged + gid)
+    pts = np.zeros((npts + c, lanes))
+    pts[:npts, :n] = rng.choice(vals, (npts, n))
+    near = rng.random(npts) < 0.5
+    pts[1:npts][near[1:], :n] = (pts[:npts - 1][near[1:], :n]
+                                 + rng.choice([-2.0, 0.0, 1.0, 2.0],
+                                              (int(near[1:].sum()), n)))
+    if merged:
+        pts[:npts, n] = rng.integers(0, 4, npts)
+    if gid:
+        pts[:, n + merged] = np.concatenate([np.arange(npts),
+                                             -np.ones(c)])
+    q_pos = rng.integers(0, npts, qp)
+    head = np.arange(qp) - np.arange(qp) % 3
+    ws = rng.integers(0, npts, (n_off, qp))[:, head]
+    ws[0] = np.maximum(q_pos[head] - rng.integers(0, c, qp), 0)
+    wc = rng.integers(0, c + 1, (n_off, qp))[:, head]
+    wc[:, rng.random(qp) < 0.1] = 0
+    points = torch.as_tensor(pts).to(device, dtype)
+    qpos = torch.as_tensor(q_pos, dtype=torch.int32).to(device)
+    ints = [torch.as_tensor(np.ascontiguousarray(a),
+                            dtype=torch.int32).to(device)
+            for a in (ws, wc, np.arange(n_off) == 0)]
+    args = [points, points[qpos.long()].contiguous()] + ints + [qpos]
+    run_ord = torch.as_tensor((np.arange(qp) % tfj.TQ_DEFAULT) // 3,
+                              dtype=torch.int32).to(device)
+    return args, run_ord
+
+
+@pytest.mark.parametrize("layout", SELF_LAYOUTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 6, 9])
+def test_self_kernel_on_extremes(cuda_device, layout, dtype, n):
+    """The native half arithmetic (``__hsub_rn``, ``__hmul_rn``,
+    ``__hadd_rn``, compares in the half type) against the plain version's
+    rule P, bit for bit, on rows of each dtype's extremes: subnormal
+    differences, squares that overflow, d^2 on eps^2; at c 1-100 (narrow
+    steps of 1, 8 and 16 slots, a window past one warp step), merged and
+    per-cell, UNICOMP and self, with and without ids, hits plane on and
+    off, row and run loop, on launches of SPREAD_TILES tiles (one block a
+    tile) and of 8 (spread); n = 9 reads the coordinates past HELD_LANES
+    from memory."""
+    for i, (c, merged, gid) in enumerate([(7, True, False), (32, False, True),
+                                          (33, True, True),
+                                          (100, False, False),
+                                          (1, False, False),
+                                          (16, True, False)]):
+        if n + merged + gid > 8 and merged:
+            continue
+        args, run_ord = _self_inputs(dtype, n, c, merged, gid, cuda_device,
+                                     seed=10 * n + i, qp=SELF_ROWS[layout])
+        for eps in (2.0, 300.0, 1e-3):
+            for unicomp in (True, False):
+                for keep_hits in (True, False):
+                    kw = dict(c=c, n_real=n, unicomp=unicomp, merged=merged,
+                              gid_pairs=gid, keep_hits=keep_hits)
+                    want = tfj.fused_join_hits(*args, eps,
+                                               method="reference", **kw)
+                    for loop in ({}, dict(run_ord=run_ord, run_loop=True)):
+                        got = tfj.fused_join_hits(*args, eps,
+                                                  method="kernel", **loop,
+                                                  **kw)
+                        for x, y in zip(got, want):
+                            assert torch.equal(x, y), (c, eps, unicomp)
+
+
+def test_self_kernel_back_to_back_and_on_two_streams(cuda_device):
+    """The spread layout's arrival counters (a launch of 32 tiles): a
+    launch twice back to back on one stream, then on two streams at once,
+    each equal to the plain version; each stream's counters are zero again
+    afterwards."""
+    args, _ = _self_inputs(torch.float64, 2, 300, True, False, cuda_device,
+                           seed=5, qp=4096)
+    kw = dict(c=300, n_real=2, unicomp=True, merged=True)
+    want = tfj.fused_join_hits(*args, 3.0, method="reference", **kw)
+    torch.cuda.synchronize()
+    outs = [tfj.fused_join_hits(*args, 3.0, **kw) for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs += [tfj.fused_join_hits(*args, 3.0, **kw)
+                     for _ in range(2)]
+    torch.cuda.synchronize()
+    for got in outs:
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    for buf in tfj._ARRIVALS.values():
+        assert not buf.any()
+
+
+@pytest.mark.parametrize("layout", SELF_LAYOUTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_self_kernel_does_not_synchronise(cuda_device, layout, dtype):
+    """One call of the self-join kernel in each layout, on
+    a new stream (the spread layout's counters are made inside the call),
+    under ``torch.cuda.set_sync_debug_mode("error")``; equal to its plain
+    version."""
+    args, run_ord = _self_inputs(dtype, 2, 33, True, True, cuda_device,
+                                 seed=2, qp=SELF_ROWS[layout])
+    kw = dict(c=33, n_real=2, unicomp=True, merged=True, gid_pairs=True)
+    eps = tmetric.scalar_as(3.0, dtype, cuda_device)
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(st):
+            got = tfj.fused_join_hits(*args, eps, method="kernel",
+                                      run_ord=run_ord, run_loop=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for x, y in zip(got, tfj.fused_join_hits(*args, 3.0, method="reference",
+                                             **kw)):
+        assert torch.equal(x, y)
