@@ -47,8 +47,10 @@ each printing one JSON line:
                   brute_force_count(distance_impl="pallas") against the
                   recorded totals; each kernel's time and bound
   profile         one main-path join under torch.profiler: host and device
-                  time per stage span, B1's device time by name, device time
-                  by kernel name and the device's busy share
+                  time per stage span (and of the run plans its l2 run-loop
+                  launches are given and do not read, ``run_plan.launch``),
+                  B1's device time by name, device time by kernel name and
+                  the device's busy share
   serve           the join services on the card: index A (the main path's
                   2 M points) serves 64 requests of 1,024 external queries
                   with pairs (counts against B2 row sums, sampled neighbour
@@ -88,6 +90,17 @@ each printing one JSON line:
                   slabs (a 2-hop halo) and cosine at the 1 M embeddings,
                   each equal to self_join's pairs; a float16 refusal and a
                   forced halo overflow
+  routes          every count route of self_join_count (dense, dense-run,
+                  dense-flat, sparse, sparse-flat, compact, jnp) on the main
+                  path against MAIN_TOTAL, timed by events, with the
+                  counters each route's contract gives; dense, sparse,
+                  sparse-flat and dense-flat on the bench workloads against
+                  BENCH_TOTALS; sparse and dense on index B's 1 M skewed
+                  points; route=None's label (and the join's sweep) with an
+                  empty measured table; the measured route race and B1's
+                  measured tiles for the main path's classes, into a table
+                  in a temporary directory; B1 at tq 64 and 256 against its
+                  plain version on the main path's launches and one request
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -111,6 +124,7 @@ without a CUDA device the script exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -974,10 +988,11 @@ def phase_main_path():
         torch.cuda.reset_peak_memory_stats()
         fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
         dt.COUNTS_LAUNCHES = 0
-        t0 = time.perf_counter()
-        pairs = repro_torch.self_join(pts, eps, device=DEVICE)
-        sync()
-        e2e.append(time.perf_counter() - t0)
+        with recorded_tiles() as tiles:
+            t0 = time.perf_counter()
+            pairs = repro_torch.self_join(pts, eps, device=DEVICE)
+            sync()
+            e2e.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
         if rep == 2:
             # the path's full-scale oracle: B3 over all points
@@ -992,6 +1007,9 @@ def phase_main_path():
           f"main path launched B1 (total, run loop) {launches} times, "
           f"scheduled {expected} run-loop launches per run")
     check(launches[-1][2] == 1, "the oracle did not launch B3 once")
+    tiles = sorted(tiles)
+    check(tiles == [fj.TQ_DEFAULT], f"the main path launched B1 at tiles "
+          f"{tiles}, not the empty table's {fj.TQ_DEFAULT}")
 
     stats = repro_torch.self_join_count(pts, eps, device=DEVICE)
     check(stats.total_pairs == pairs.shape[0],
@@ -1016,6 +1034,8 @@ def phase_main_path():
     worst = compare_kernel_and_plain(prepared, keep_hits=True, run_loop=True)
     check(worst == 0, f"main path: run-loop kernel differs from plain by "
           f"{worst}")
+    check(sorted({p["kw"]["tq"] for p in prepared}) == tiles,
+          "the timed launches' tiles differ from the main path's")
     # the variants in turns, three rounds, the median of each
     variants = (("run", "kernel", True), ("row", "kernel", False),
                 ("plain", "reference", False))
@@ -1029,7 +1049,7 @@ def phase_main_path():
     del pts_gpu, b3_counts
     emit("main_path", points=MAIN_POINTS, dims=MAIN_DIMS, eps=eps,
          dtype="float64", total_pairs=int(pairs.shape[0]),
-         run_loop=True, launches=launches[-1][0],
+         run_loop=True, launches=launches[-1][0], tq=tiles,
          launch_caps=[p["kw"]["c"] for p in prepared], launch_rows=rows,
          launch_runs=runs, offsets=stats.offsets,
          candidates_checked=stats.candidates_checked,
@@ -1044,7 +1064,7 @@ def phase_main_path():
          b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
          b3_issue_floor_ms=b3_issue, b3_rows_vs_plain=SAMPLED_QUERIES,
          b3_rows_max_abs_err=b3_err)
-    return dict(b1=dict(launches=launches[-1][0],
+    return dict(b1=dict(launches=launches[-1][0], tq=tiles[0],
                         run_loop_launches=launches[-1][1],
                         ms=timed["run"], row_loop_ms=timed["row"],
                         plain_ms=timed["plain"], bound_ms=bound_ms,
@@ -1472,10 +1492,29 @@ def phase_profile():
     name, device time by kernel name, and the device's busy share of the wall
     time. Reports null device figures when the profiler records no device
     activity."""
+    from torch.profiler import record_function
+
     import repro_torch
+    from repro_torch.core import selfjoin as sj
     pts = syn(MAIN_POINTS, MAIN_DIMS)
-    emit("profile", points=MAIN_POINTS, **profiled_join(
-        lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE)))
+    # the run plans the l2 run-loop launches are given and do not read, in
+    # a span of their own inside self_join.plan
+    real = sj._launch_run_plan
+
+    def spanned(*args, **kw):
+        with record_function("run_plan.launch"):
+            return real(*args, **kw)
+
+    sj._launch_run_plan = spanned
+    try:
+        prof = profiled_join(
+            lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE),
+            spans=("self_join.", "run_plan."))
+    finally:
+        sj._launch_run_plan = real
+    check("run_plan.launch" in prof["stages"], "the profiled join built no "
+          "run plan")
+    emit("profile", points=MAIN_POINTS, **prof)
 
 
 def profiled_join(join, kernel: str = "fused_join_kernel",
@@ -3457,6 +3496,297 @@ def e2e_times() -> dict:
     return out
 
 
+# --- the routes phase -------------------------------------------------------
+
+# Every count route of self_join_count; "dense", "sparse" and "jnp" report
+# the same counters (and the merged / per-cell and run-loop variants too),
+# "compact" reports cells_visited 0.
+COUNT_ROUTES = ("dense", "dense-run", "dense-flat", "sparse", "sparse-flat",
+                "compact", "jnp")
+BENCH_ROUTES = ("dense", "sparse", "sparse-flat", "dense-flat")
+SKEW_ROUTES = ("sparse", "dense")
+# B1's other query tiles, seeded into a table of their own
+OTHER_TILES = (64, 256)
+
+
+TABLE_ENV = ("REPRO_TORCH_AUTOTUNE_CACHE", "REPRO_TORCH_AUTOTUNE")
+
+
+@contextlib.contextmanager
+def pinned_tables():
+    """The whole run reads an empty measured table in a temporary directory
+    with measuring off, whatever the caller's environment says, so B1's
+    tile is the default and ``route=None`` takes the heuristic, and nothing
+    is written into the tree. Yields the directory, where the ``routes``
+    phase writes its own tables; it is removed at the end."""
+    import os
+    import tempfile
+    saved = {k: os.environ.get(k) for k in TABLE_ENV}
+    with tempfile.TemporaryDirectory(prefix="routes-") as d:
+        path = Path(d) / "empty.json"
+        path.write_text(json.dumps({"__schema__": 3}))
+        os.environ[TABLE_ENV[0]] = str(path)
+        os.environ[TABLE_ENV[1]] = "0"
+        try:
+            yield Path(d)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+
+@contextlib.contextmanager
+def recorded_tiles():
+    """The query tiles of the B1 launches the drivers make inside the
+    block, as they pass them to ``ops.fused_join_hits``."""
+    from repro_torch.kernels import ops
+    tiles = set()
+    orig = ops.fused_join_hits
+
+    def record(*args, **kw):
+        tiles.add(kw["tq"])
+        return orig(*args, **kw)
+
+    ops.fused_join_hits = record
+    try:
+        yield tiles
+    finally:
+        ops.fused_join_hits = orig
+
+
+@contextlib.contextmanager
+def route_table(table_dir: Path, rows=None, measure: bool = False):
+    """The port reads its measured table from ``table_dir`` (with ``rows``)
+    and measures when ``measure``; never from or into the tree."""
+    import os
+
+    from repro_torch.kernels import autotune
+    path = table_dir / f"table{len(list(table_dir.iterdir()))}.json"
+    path.write_text(json.dumps(dict(rows or {}, __schema__=3)))
+    saved = {k: os.environ.get(k) for k in TABLE_ENV}
+    os.environ[TABLE_ENV[0]] = str(path)
+    os.environ[TABLE_ENV[1]] = "1" if measure else "0"
+    autotune._CACHE.reset()
+    try:
+        yield path
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune._CACHE.reset()
+
+
+def counters(s) -> tuple:
+    return (s.cells_visited, s.candidates_checked)
+
+
+def timed_count(pts, eps, index, route: str, reps: int = 3):
+    """(stats, median ms by CUDA events) of ``self_join_count`` on one
+    route, after a warm call; the count reads its totals back, so the
+    events span its whole work."""
+    import repro_torch
+    stats = repro_torch.self_join_count(pts, eps, index=index, route=route,
+                                        device=DEVICE)
+    runs = [event_ms(lambda: repro_torch.self_join_count(
+        pts, eps, index=index, route=route, device=DEVICE))
+        for _ in range(reps)]
+    return stats, statistics.median(runs), runs
+
+
+def routes_on(pts, eps, index, routes, where: str, want=None) -> dict:
+    """Each route's stats and time on one index; totals equal ``want`` (or
+    each other) and the counters as the routes' contract says."""
+    out = {}
+    for route in routes:
+        stats, ms, runs = timed_count(pts, eps, index, route)
+        check(stats.route == route, f"{where}: route {route} labelled "
+              f"{stats.route}")
+        out[route] = dict(stats=stats, ms=ms, runs_ms=runs)
+    totals = {r: v["stats"].total_pairs for r, v in out.items()}
+    want = next(iter(totals.values())) if want is None else want
+    check(all(t == want for t in totals.values()),
+          f"{where}: route totals {totals}, expected {want}")
+    ref = next(counters(v["stats"]) for r, v in out.items()
+               if r != "compact")
+    for r, v in out.items():
+        if r == "compact":
+            check(v["stats"].cells_visited == 0, f"{where}: compact "
+                  f"visited {v['stats'].cells_visited} cells")
+        else:
+            check(counters(v["stats"]) == ref, f"{where}: route {r}'s "
+                  f"counters {counters(v['stats'])} differ from {ref}")
+    return out
+
+
+def default_route(pts, eps, index) -> dict:
+    """``route=None``'s label and the join's sweep with the table empty."""
+    import repro_torch
+    from repro_torch.core import selfjoin as sj
+    s = repro_torch.self_join_count(pts, eps, index=index, device=DEVICE)
+    merged = sj._join_sweep_merged(index, unicomp=True, bucketed=None,
+                                   merged=sj._resolve_merge(index, None))
+    return dict(route=s.route, join_merged=merged,
+                total_pairs=s.total_pairs)
+
+
+def b1_other_tiles(index, pts, eps, table_dir: Path) -> dict:
+    """B1 at tq 64 and 256 against its plain version, bit for bit: the main
+    path's launches as the drivers schedule them with a seeded tile row for
+    each of its classes (row and run loop), and one external request of
+    SERVE_BATCH queries (tq 64 through the service's table; 256, above the
+    service's clamp, by the request's launches run at that tile). Times by
+    events beside the default tile's."""
+    import repro_torch
+    from repro_torch.core import query_join as qj
+    from repro_torch.core import selfjoin as sj
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import fused_join as fj
+    caps = sorted({ln[4] for ln in sj._fused_launches(index,
+                                                      merged=True)[0]})
+    q = serve_requests(1, np.random.default_rng(5))[0]
+    out = {}
+    for tq in OTHER_TILES:
+        rows = {autotune.tile_key(DEVICE.type, MAIN_DIMS, c):
+                {"tq": tq, "ms": {}} for c in caps}
+        with route_table(table_dir, rows):
+            prepared = prepared_launches(index, merged=True, unicomp=True,
+                                         run_loop=True)
+            tiles = sorted({p["kw"]["tq"] for p in prepared})
+            check(tiles == [tq], f"seeded tile {tq}: launches at {tiles}")
+            worst = max(compare_kernel_and_plain(prepared, True, True),
+                        compare_kernel_and_plain(prepared, True, False),
+                        compare_kernel_and_plain(prepared, False, True))
+            fj.KERNEL_LAUNCHES = 0
+            total = repro_torch.self_join_count(
+                pts, eps, index=index, route="dense-run",
+                device=DEVICE).total_pairs
+            launched = fj.KERNEL_LAUNCHES
+            check(total == MAIN_TOTAL and launched == len(prepared),
+                  f"tq {tq}: dense-run total {total}, {launched} launches")
+            run_ms = timed_launches(prepared, "kernel", True)
+            row_ms = timed_launches(prepared, "kernel", False)
+            pj = qj.prepare(index)
+            launches = external_launches(pj, q)
+            for p in launches:
+                p["kw"] = dict(p["kw"], tq=tq)
+            held = [p for p in launches if p["args"][1].shape[0] % tq == 0]
+            check(held, f"tq {tq}: no external launch divides the tile")
+            ext_worst = compare_external(held)
+        check(worst == 0 and ext_worst == 0, f"B1 at tq {tq} differs from "
+              f"its plain version by {worst} (self) / {ext_worst} "
+              f"(external)")
+        out[str(tq)] = dict(launches=len(prepared), caps=caps,
+                            max_abs_err=max(worst, ext_worst),
+                            run_loop_ms=run_ms, row_loop_ms=row_ms,
+                            external_launches=len(held),
+                            service_tiles=sorted(set(pj.tiles.values())))
+    prepared = prepared_launches(index, merged=True, unicomp=True,
+                                 run_loop=True)
+    tiles = sorted({p["kw"]["tq"] for p in prepared})
+    check(tiles == [autotune.DEFAULT_TQ], f"the pinned empty table gives "
+          f"launches at {tiles}")
+    out[str(autotune.DEFAULT_TQ)] = dict(launches=len(prepared),
+                      run_loop_ms=timed_launches(prepared, "kernel", True),
+                      row_loop_ms=timed_launches(prepared, "kernel", False))
+    return out
+
+
+def measured_choices(index, table_dir: Path) -> dict:
+    """With measuring on, into a table in ``table_dir``: the routes raced on
+    the main path's index (merged sweep) and B1's tile for each of its
+    classes, each candidate's ms and the winner (refused tiles named)."""
+    from repro_torch.core import selfjoin as sj
+    from repro_torch.kernels import autotune
+    caps = sorted({ln[4] for ln in sj._fused_launches(index,
+                                                      merged=True)[0]})
+    with route_table(table_dir, measure=True) as path:
+        route = sj._auto_route_uncached(index, unicomp=True, merged=True)
+        tiles = {c: autotune.fused_tile(MAIN_DIMS, c, backend=DEVICE.type)
+                 for c in caps}
+        table = json.loads(path.read_text())
+    rows = {k: v for k, v in table.items() if k != "__schema__"}
+    route_rows = [v for k, v in rows.items() if k.startswith("route/")]
+    check(len(route_rows) == 1 and route_rows[0]["route"] == route,
+          f"measured route {route} not in the table {sorted(rows)}")
+    for c, tq in tiles.items():
+        row = rows[autotune.tile_key(DEVICE.type, MAIN_DIMS, c)]
+        check(int(row["tq"]) == tq and str(tq) in row["ms"],
+              f"measured tile row for c {c}: {row}")
+        for t, why in row.get("refused", {}).items():
+            print(f"routes: tile {t} at c {c} refused by B1's wrapper: "
+                  f"{why}", flush=True)
+    return dict(route=route, route_ms=route_rows[0]["ms"],
+                tiles={str(c): rows[autotune.tile_key(DEVICE.type, MAIN_DIMS,
+                                                      c)]
+                       for c in tiles})
+
+
+def phase_routes(workloads, table_dir: Path) -> dict:
+    """Every count route on the main path, the bench workloads and index B
+    against the recorded totals, the default route and sweep with the
+    table empty, the measured choices, and B1 at its other tiles; the
+    tables go into ``table_dir`` (``pinned_tables``)."""
+    import repro_torch
+    from repro_torch.kernels import fused_join as fj
+    t_phase = time.perf_counter()
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    with route_table(table_dir):
+        index = repro_torch.build_grid(pts, eps, device=DEVICE)
+        default = {"main_path": default_route(pts, eps, index)}
+        check(default["main_path"]["route"] == "dense"
+              and default["main_path"]["join_merged"],
+              f"main path: route=None gives {default['main_path']}, not "
+              f"'dense' and merged")
+        launched = {}
+        for route in ("dense", "sparse", "jnp"):
+            fj.KERNEL_LAUNCHES = 0
+            repro_torch.self_join_count(pts, eps, index=index, route=route,
+                                        device=DEVICE)
+            launched[route] = fj.KERNEL_LAUNCHES
+        check(launched["dense"] > 0 and launched["sparse"] == 0
+              == launched["jnp"], f"B1 launches by route {launched}")
+        main = routes_on(pts, eps, index, COUNT_ROUTES, "main path",
+                         MAIN_TOTAL)
+        bench = {}
+        for name, (bpts, beps) in workloads.items():
+            bidx = repro_torch.build_grid(bpts, beps, device=DEVICE)
+            default[name] = default_route(bpts, beps, bidx)
+            bench[name] = routes_on(bpts, beps, bidx, BENCH_ROUTES, name,
+                                    BENCH_TOTALS[name])
+            check(default[name]["total_pairs"] == BENCH_TOTALS[name],
+                  f"{name}: route=None total {default[name]}")
+        skew_pts = expo(SKEW_POINTS, 3)
+        sidx = repro_torch.build_grid(skew_pts, SKEW_EPS, device=DEVICE)
+        default["index_b"] = default_route(skew_pts, SKEW_EPS, sidx)
+        skew = routes_on(skew_pts, SKEW_EPS, sidx, SKEW_ROUTES, "index B")
+        check(default["index_b"]["total_pairs"]
+              == skew["dense"]["stats"].total_pairs,
+              f"index B: route=None total {default['index_b']}")
+        del sidx
+    measured = measured_choices(index, table_dir)
+    tiles = b1_other_tiles(index, pts, eps, table_dir)
+    emit("routes", points=MAIN_POINTS, eps=eps, default_routes=default,
+         b1_launches_by_route=launched,
+         main_path={r: dict(total_pairs=v["stats"].total_pairs,
+                            offsets=v["stats"].offsets,
+                            cells_visited=v["stats"].cells_visited,
+                            candidates_checked=v["stats"].candidates_checked,
+                            ms=v["ms"], runs_ms=v["runs_ms"])
+                    for r, v in main.items()},
+         bench={n: {r: dict(ms=v["ms"], offsets=v["stats"].offsets)
+                    for r, v in b.items()} for n, b in bench.items()},
+         index_b=dict(points=SKEW_POINTS, eps=SKEW_EPS,
+                      total_pairs=skew["dense"]["stats"].total_pairs,
+                      **{r: dict(ms=v["ms"]) for r, v in skew.items()}),
+         measured=measured, b1_tiles=tiles,
+         phase_s=time.perf_counter() - t_phase)
+    return dict(b1_tiles=tiles)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -3474,10 +3804,18 @@ def main() -> int:
             sys.path.insert(0, str(Path(src).resolve()))
         key, timer = timers[sys.argv[1]]
         print(nvidia_smi_line(), flush=True)
-        print(json.dumps({key: timer()}), flush=True)
+        with pinned_tables():
+            print(json.dumps({key: timer()}), flush=True)
         return 0
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    with pinned_tables() as table_dir:
+        return smoke(table_dir)
+
+
+def smoke(table_dir: Path) -> int:
+    """Every phase, then the kernels line, the card's line and the
+    contract's last line."""
     phase_env()
     phase_build()
     phase_syncs()
@@ -3493,6 +3831,7 @@ def main() -> int:
     metrics = phase_metrics()
     half = phase_half(workloads)
     slab = phase_slab()
+    routes = phase_routes(workloads, table_dir)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -3534,6 +3873,7 @@ def main() -> int:
         "gid_ms": slab["ms"], "gid_plain_ms": slab["plain_ms"],
         "gid_bound_ms": slab["bound_ms"], "gid_bound_by": slab["bound_by"],
         "gid_library_ms": None,
+        "tq": b1["tq"], "other_tiles": routes["b1_tiles"],
         "matched_plain": True,
     }, {
         "name": "distance_tile_hits", "route": "cuda",

@@ -80,6 +80,18 @@ def sentinel_margin(dims, key_dtype=None) -> int:
     return pad_key_for(key_dtype) - (volume - 1)
 
 
+def wrapped_volume(dims, key_dtype) -> int:
+    """``prod(dims)`` in ``key_dtype``'s two's complement, as the JAX
+    package computes a padded build's out-of-set sentinel
+    (``jnp.prod(dims.astype(key_dtype))``): past the dtype's range the
+    product wraps, as the keys themselves do (ROADMAP §C, C5)."""
+    bits = 8 * np.dtype(key_dtype).itemsize
+    volume = 1
+    for d in np.asarray(dims).ravel():
+        volume = volume * int(d) % (1 << bits)
+    return volume - (1 << bits) if volume >> (bits - 1) else volume
+
+
 def device_key_dtype(dims, padded: bool = False) -> np.dtype:
     """``key_dtype_for`` widened to int64 when a padded build's out-of-set
     sentinel cell (key == prod(dims)) would not stay two keys below the
@@ -325,9 +337,14 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     """Grid build against given geometry: keys, stable sort, segments.
 
     ``valid`` (the slab join's padded candidate sets) marks real points;
-    the others take the out-of-set sentinel cell, key ``prod(dims)``, which
-    sorts after every real cell and no stencil probe of a real point
-    reaches, and ``max_per_cell`` leaves that cell out. A padded build takes
+    the others take the out-of-set sentinel cell, key ``prod(dims)`` in
+    the key dtype (``wrapped_volume``), and ``max_per_cell`` leaves that
+    cell out by key equality. Below 2^63 cells the sentinel sorts after
+    every real cell and no stencil probe of a real point reaches it. Past
+    2^63 the real keys wrap as the sentinel does (ROADMAP §C, C5): the
+    sentinel cell can sort among real cells, and a probe can alias its
+    key, where the slab join's invalid slots lie far outside the volume
+    and give no hit. A padded build takes
     ``device_key_dtype(dims, padded=True)``."""
     dev = points.device
     npts = points.shape[0]
@@ -339,7 +356,7 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     # weakly typed Python eps does (float32 for bfloat16 points)
     eps_g = scalar_as(eps, gmin_t.dtype, dev)
     keys = linearize(cell_coords(points, gmin_t, eps_g), dims_t).to(kd)
-    sentinel = int(np.prod(np.asarray(dims, dtype=object)))
+    sentinel = wrapped_volume(dims, key_dtype)
     if valid is not None:
         keys = torch.where(valid.to(dev), keys,
                            torch.tensor(sentinel, dtype=kd, device=dev))
@@ -369,7 +386,7 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     nxt = torch.where(idx == ncells - 1, npts, nxt)
     cell_count = torch.where(idx < ncells, nxt - cell_start, 0).to(torch.int32)
     real_count = (cell_count if valid is None else
-                  torch.where(cell_keys < sentinel, cell_count, 0))
+                  torch.where(cell_keys != sentinel, cell_count, 0))
     return GridIndex(
         grid_min=gmin_t,
         eps=eps_t,
@@ -811,9 +828,21 @@ _INDEX_CACHE_MAX = 64
 _INDEX_CACHE: "collections.OrderedDict" = collections.OrderedDict()
 _MISSING = object()
 
+INDEX_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0, "finalized": 0}
+
+
+def index_cache_stats() -> dict:
+    """Snapshot of the per-index plan cache counters plus current size."""
+    out = dict(INDEX_CACHE_STATS)
+    out["size"] = len(_INDEX_CACHE)
+    return out
+
 
 def _finalize_index_entry(key) -> None:
-    _INDEX_CACHE.pop(key, None)
+    # the LRU may have evicted the entry before the index was collected: a
+    # late finalizer neither raises nor counts
+    if _INDEX_CACHE.pop(key, _MISSING) is not _MISSING:
+        INDEX_CACHE_STATS["finalized"] += 1
 
 
 def index_cached(index: GridIndex, tag: str, build):
@@ -821,13 +850,16 @@ def index_cached(index: GridIndex, tag: str, build):
     key = (id(index), tag)
     value = _INDEX_CACHE.get(key, _MISSING)
     if value is not _MISSING:
+        INDEX_CACHE_STATS["hits"] += 1
         _INDEX_CACHE.move_to_end(key)
         return value
+    INDEX_CACHE_STATS["misses"] += 1
     value = build()
     _INDEX_CACHE[key] = value
     weakref.finalize(index, _finalize_index_entry, key)
     while len(_INDEX_CACHE) > _INDEX_CACHE_MAX:
         _INDEX_CACHE.popitem(last=False)
+        INDEX_CACHE_STATS["evictions"] += 1
     return value
 
 

@@ -38,8 +38,10 @@ form (embeddings for cosine, token sets or a binary matrix for jaccard) and
 canonicalizes each against the index's form; jaccard serves the per-cell
 sweep with the packed words in feature lanes.
 
-Left for later: the measured query tile (A11; it stays at ``TQ_DEFAULT``).
-The port keeps the device emit only, as for the self-join (A4).
+Each capacity class launches at its query tile from the measured table
+(``kernels.autotune``), clamped to ``TQ_DEFAULT``, the request padding
+unit, so every launch divides a request's padded rows. The port keeps the
+device emit only, as for the self-join (A4).
 
 Typical use:
 
@@ -64,7 +66,7 @@ from repro_torch.core.grid import (CAP_ALIGN, GridIndex, build_grid,
                                    external_range_cap, round_up)
 from repro_torch.core import selfjoin as selfjoin_lib
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
                                             pack_words, pad_points,
                                             resolve_merge_last_dim)
@@ -460,6 +462,11 @@ class PreparedJoin:
         self.eps_host = index.eps.cpu()
         PREPARE_EVENTS["class_set"] += 1
         self.classes = capacity_classes(self.c, CAP_ALIGN)
+        # per-class tiles clamped to the padding unit: bucket_rows stays
+        # the request shapes' contract (multiples of TQ_DEFAULT)
+        self.tiles = {cb: min(autotune.fused_tile(
+            self.n_dims, cb, backend=self.device.type, metric=self.metric),
+            TQ_DEFAULT) for cb in self.classes}
         self.bucketed = len(self.classes) > 1
         self.run_loop = bool(run_loop)
         self.q_pos0: dict = {}   # zeros (qp,) per launch shape
@@ -580,8 +587,8 @@ class PreparedJoin:
                       run_loop=self.run_loop, metric=self.metric,
                       n_feat=self.n_feat)
         launches = []
-        tile = TQ_DEFAULT     # the measured tile waits for ROADMAP A11
         if not self.bucketed:
+            tile = self.tiles[self.c]
             ro = (self._launch_run_ord(gid, qp, tile)
                   if self.run_loop else None)
             args = (self.points_pad, q_dev, ws, wc, self.is_zero,
@@ -596,6 +603,7 @@ class PreparedJoin:
                 rows = np.flatnonzero((cls == k) & (caps > 0))
                 if not rows.size:
                     continue   # empty class (or all-miss rows: counts stay 0)
+                tile = self.tiles[cb]
                 qp_b = bucket_rows(rows.size, tile)
                 sel = np.zeros(qp_b, np.int64)
                 sel[: rows.size] = rows
@@ -693,8 +701,8 @@ class PreparedJoin:
         for keep in variants:
             self.join(self._warm_queries(n), return_pairs=keep)
         if self.bucketed:
-            tile = TQ_DEFAULT
             for cb in self.classes:
+                tile = self.tiles[cb]
                 ws = torch.zeros((self.n_offsets, tile), dtype=torch.int32,
                                  device=self.device)
                 q_b = torch.zeros((tile, int(self.points_pad.shape[1])),

@@ -33,9 +33,13 @@ to count and once more to fill a result sized exactly. The same gather
 serves the compact count route (``self_join_count_compact``) and
 ``per_point_neighbor_counts``.
 
-The count routes ``"dense"``, ``"dense-run"``, ``"compact"`` and ``"jnp"``
-are ported; the sparse and flat routes and the measured route choice of the
-JAX package raise ``NotImplementedError`` naming ROADMAP A11.
+``self_join_count`` runs every count route of the JAX package: the fused
+sweeps ``"dense"``, ``"dense-run"`` and, per cell, ``"dense-flat"``; the
+probe-compacted ``"sparse"`` / ``"sparse-flat"`` (``_self_join_count_sparse``);
+``"compact"``; and the plain ``"jnp"``. Without a route it takes the measured
+table's choice (``kernels.autotune``) or its heuristic (``_auto_route``), and
+the join's sweep follows that table's "dense-flat" verdict
+(``_join_sweep_merged``). B1's query tile comes from the same table.
 """
 from __future__ import annotations
 
@@ -47,19 +51,21 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.grid import (_NUMPY_DTYPES, BucketPlan, GridIndex,
-                                   RunPlan, _keys64, _pad_probe, build_grid,
-                                   cell_run_plan, cell_window_tables,
-                                   check_merged_lane, filter_plan_rows,
-                                   global_window_cap, host_dims,
-                                   neighbor_rank, occupancy_plan,
+from repro_torch.core.grid import (_NUMPY_DTYPES, CAP_ALIGN, BucketPlan,
+                                   GridIndex, RunPlan, _keys64, _pad_probe,
+                                   _rank_to_point, build_grid,
+                                   capacity_classes, cell_run_plan,
+                                   cell_window_tables, check_merged_lane,
+                                   filter_plan_rows, global_window_cap,
+                                   host_dims, index_cached, neighbor_rank,
+                                   occupancy_plan, pad_key_for,
                                    point_last_coords,
                                    range_window_descriptors,
                                    range_window_descriptors_at, resolve_device,
                                    round_up, row_major_strides,
                                    window_descriptors, window_descriptors_at)
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
                                             fused_window_hits, pack_words,
                                             pad_points,
@@ -218,6 +224,13 @@ def _launch_run_plan(index: GridIndex, q_pos, *, tile: int) -> RunPlan:
     return cell_run_plan(rank, tile)
 
 
+def _fused_tile(index: GridIndex, c: int) -> int:
+    """B1's query tile for launches of window capacity ``c`` on this index:
+    the measured table's row for the index's device (``kernels.autotune``),
+    ``TQ_DEFAULT`` without one."""
+    return autotune.fused_tile(index.n_dims, c, backend=index.device.type)
+
+
 def _fused_pad(index: GridIndex, *, q_size: int, c: int,
                q_start_max: int = 0, tq: int = TQ_DEFAULT,
                merged: bool = False, gid=None, feats=None):
@@ -336,9 +349,9 @@ def _fused_launches(index: GridIndex, *, n_batches: int = 1,
             plan = BucketPlan(caps=(c_glob,), sel=(None,), cap_global=c_glob,
                               hist={c_glob: npts})
         plan = filter_plan_rows(plan, row_ok)
-    tile = TQ_DEFAULT
     if plan is None or plan.sel[0] is None:
         cap = c_glob if plan is None else plan.caps[0]
+        tile = _fused_tile(index, cap)
         points_pad, qp = _fused_pad(
             index, q_size=batch_rows, c=c_glob, tq=tile,
             q_start_max=(n_batches - 1) * batch_rows, merged=merged,
@@ -351,6 +364,7 @@ def _fused_launches(index: GridIndex, *, n_batches: int = 1,
                                gid=gid, feats=feats)
     launches = []
     for cap, sel in zip(plan.caps, plan.sel):
+        tile = _fused_tile(index, cap)
         for i in range(0, sel.shape[0], batch_rows):
             piece = sel[i:i + batch_rows]
             launches.append((piece, 0, piece.shape[0],
@@ -553,13 +567,14 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
     gid = ids if gid_pairs else None
     if query_batch:
         c = global_window_cap(index, merged)
+        tile = _fused_tile(index, c)
         q_size = int(query_batch)
         points_pad, qp = _fused_pad(
-            index, q_size=q_size, c=c, tq=TQ_DEFAULT,
+            index, q_size=q_size, c=c, tq=tile,
             q_start_max=((npts - 1) // q_size) * q_size, merged=merged,
             gid=gid, feats=feats)
-        launches = [(None, q_start, min(q_size, npts - q_start), qp, c,
-                     TQ_DEFAULT) for q_start in range(0, npts, q_size)]
+        launches = [(None, q_start, min(q_size, npts - q_start), qp, c, tile)
+                    for q_start in range(0, npts, q_size)]
     else:
         launches, points_pad, _ = _fused_launches(
             index, bucketed=bucketed, merged=merged, row_ok=row_ok, gid=gid,
@@ -924,10 +939,11 @@ def self_join_count_compact(points, eps, *, unicomp: bool = True,
     deltas, is_zero = _offset_tables(index, unicomp)
     cap_q = round_up(compact_cap(index, unicomp), 128)
     if distance_impl == "fused":
-        points_pad, qp = _fused_pad(index, q_size=npts, c=cap)
+        tile = _fused_tile(index, cap)
+        points_pad, qp = _fused_pad(index, q_size=npts, c=cap, tq=tile)
         _, wc0, _, _, counts0, _, _, _ = _fused_launch(
             index, points_pad, deltas[:1], is_zero[:1],
-            (None, 0, npts, qp, cap, TQ_DEFAULT), unicomp=unicomp,
+            (None, 0, npts, qp, cap, tile), unicomp=unicomp,
             keep_hits=False, merged=False)
         t0 = (2 if unicomp else 1) * counts0.sum(dtype=torch.int64)
         k0 = wc0.sum(dtype=torch.int64)
@@ -941,6 +957,340 @@ def self_join_count_compact(points, eps, *, unicomp: bool = True,
     return JoinStats(total_pairs=int(t0 + tn), cells_visited=0,
                      candidates_checked=int(k0 + slots),
                      offsets=int(deltas.shape[0]), route="compact")
+
+
+# ---------------------------------------------------------------------------
+# Sparse count routes ("sparse", "sparse-flat"): the probe-compacted counter
+# for the empty-neighbour regime. The (offset, query) probe plane is reduced
+# to a bare rank plane (a gather from a dense key -> rank table when the key
+# space is small, else one batched searchsorted), its live probes are
+# compacted once (``torch.nonzero``, one host sync), and distances run only
+# over the packed live probes, so the refine follows the candidate volume.
+# The work counters are the dense sweep's (same probe plane). Plain torch on
+# the index's device: the JAX package's counter is jnp, with no kernel.
+# ---------------------------------------------------------------------------
+
+# Dense-lookup budget: prod(dims) at or below this many cells (4 bytes each)
+# takes the table; beyond it, binary search.
+_LOOKUP_MAX_CELLS = 1 << 23
+# Packed probes a refine step: bounds the (P, C) temporaries.
+_PROBE_CHUNK = 1 << 17
+
+
+def _plane_rows(rank_arr, qp: int):
+    """(q_pos (qp,), clamped cell rank of each row) over ``qp`` rows; rows
+    at or past the points are padding."""
+    npts = rank_arr.shape[0]
+    q_pos = torch.arange(qp, device=rank_arr.device)
+    return q_pos, rank_arr[torch.clamp(q_pos, max=npts - 1)].long()
+
+
+def _rank_plane_search(keys, rank_arr, deltas, *, qp: int):
+    """(n_off, qp) int32 rank in B of every (offset, query) probe, -1 for a
+    miss, by one batched searchsorted over ``keys`` (B in the probes'
+    dtype)."""
+    npts = keys.shape[0]
+    q_pos, rank = _plane_rows(rank_arr, qp)
+    qk = keys[rank][None, :] + deltas[:, None]
+    pos = torch.clamp(torch.searchsorted(keys, qk), max=npts - 1)
+    hit = (keys[pos] == qk) & (q_pos < npts)[None, :]
+    return torch.where(hit, pos.to(torch.int32), -1)
+
+
+def _rank_plane_table(table, cell_keys, rank_arr, deltas32, *, qp: int):
+    """The rank plane by a gather from the dense key -> rank ``table``
+    (int32; padding rows probe far below the key space)."""
+    vol = table.shape[0]
+    q_pos, rank = _plane_rows(rank_arr, qp)
+    own = cell_keys[rank].to(torch.int32)
+    own = torch.where(q_pos < rank_arr.shape[0], own, -(1 << 30))
+    qk = own[None, :] + deltas32[:, None]
+    ok = (qk >= 0) & (qk < vol)
+    return torch.where(ok, table[torch.clamp(qk, 0, vol - 1).long()], -1)
+
+
+def _range_plane_search(keys, rank_arr, deltas, lo_off, hi_off,
+                        dim_last: int, *, qp: int):
+    """(lo_rank, hi_rank), each (n_off, qp) int32: the merged-range rank
+    span of every probe by one searchsorted pair; a probe is live iff
+    hi_rank > lo_rank. The last-dimension span clamps at the grid row as
+    ``grid.range_window_descriptors_at`` clamps it."""
+    npts = keys.shape[0]
+    q_pos, rank = _plane_rows(rank_arr, qp)
+    own = keys[rank]
+    q_last = own % dim_last
+    base = own[None, :] + deltas[:, None]
+    lo = torch.maximum(lo_off[:, None], -q_last[None, :])
+    hi = torch.minimum(hi_off[:, None], dim_last - 1 - q_last[None, :])
+    lo_rank = torch.searchsorted(keys, base + lo).to(torch.int32)
+    hi_rank = torch.searchsorted(keys, base + hi, right=True).to(torch.int32)
+    hi_rank = torch.where((q_pos < npts)[None, :], hi_rank, lo_rank)
+    return lo_rank, hi_rank
+
+
+def _range_plane_table(table, cell_keys, rank_arr, deltas32, lo_off, hi_off,
+                       dim_last: int, *, qp: int):
+    """Merged-range rank spans by three table gathers, one a last-dimension
+    slot: a span's keys are base + {-1, 0, +1}, so its rank range is [min,
+    max + 1] of the ranks present."""
+    vol = table.shape[0]
+    q_pos, rank = _plane_rows(rank_arr, qp)
+    own = cell_keys[rank].to(torch.int32)
+    q_last = own % dim_last
+    own = torch.where(q_pos < rank_arr.shape[0], own, -(1 << 30))
+    base = own[None, :] + deltas32[:, None]
+    lo_rank = torch.full(base.shape, 1 << 30, dtype=torch.int32,
+                         device=base.device)
+    hi_rank = torch.full(base.shape, -1, dtype=torch.int32,
+                         device=base.device)
+    for d in (-1, 0, 1):
+        qk = base + d
+        in_span = ((d >= lo_off[:, None]) & (d <= hi_off[:, None])
+                   & (q_last[None, :] + d >= 0)
+                   & (q_last[None, :] + d < dim_last))
+        ok = in_span & (qk >= 0) & (qk < vol)
+        r = torch.where(ok, table[torch.clamp(qk, 0, vol - 1).long()], -1)
+        present = r >= 0
+        lo_rank = torch.where(present, torch.minimum(lo_rank, r), lo_rank)
+        hi_rank = torch.where(present, torch.maximum(hi_rank, r), hi_rank)
+    live = hi_rank >= 0
+    return torch.where(live, lo_rank, 0), torch.where(live, hi_rank + 1, 0)
+
+
+def _sparse_lookup(index: GridIndex):
+    """Cached per index: ("table", dense int32 key -> rank table) when
+    prod(dims) is within ``_LOOKUP_MAX_CELLS``, else ("keys", B): int32 when
+    every probe key fits (prod(dims) < 2^30; an int64 B's padding sentinel
+    becomes int32's, which keeps the order and matches no probe), else B as
+    it is."""
+
+    def build():
+        volume = float(np.prod(host_dims(index).astype(np.float64)))
+        ncells = int(index.num_cells)
+        if volume <= _LOOKUP_MAX_CELLS:
+            keys = index.cell_keys[:ncells].long()
+            table = torch.full((int(volume),), -1, dtype=torch.int32,
+                               device=index.device)
+            # a padded build's sentinel cell (key prod(dims), the table's
+            # length) and out-of-geometry keys stay out: probes to them
+            # miss, and padding points are never candidates
+            ok = (keys >= 0) & (keys < int(volume))
+            table[keys[ok]] = torch.arange(
+                ncells, dtype=torch.int32, device=index.device)[ok]
+            return ("table", table)
+        keys = index.cell_keys
+        if volume < float(1 << 30) and keys.dtype != torch.int32:
+            pad32 = pad_key_for(np.dtype(np.int32))
+            keys = torch.where(keys == pad_key_for(np.dtype(np.int64)),
+                               pad32, keys).to(torch.int32)
+        return ("keys", keys)
+
+    return index_cached(index, "sparse_lookup", build)
+
+
+def _count_probes_span(points_sorted, eps, p_start, p_count, p_qpos, p_zero,
+                       *, c: int, unicomp: bool):
+    """Ordered-pair hits (int64, on the device) of packed probes, each a
+    point span (``p_start``, ``p_count`` <= c) against its query row
+    ``p_qpos``, refined in lane order one op at a time (rule P, as
+    ``fused_window_hits``); ``p_zero`` marks the zero offset's triangle."""
+    npts = points_sorted.shape[0]
+    slots = torch.arange(c, dtype=torch.int32, device=points_sorted.device)
+    cand_pos = torch.clamp(p_start[:, None] + slots[None, :], max=npts - 1)
+    valid = slots[None, :] < p_count[:, None]
+    q = points_sorted[torch.clamp(p_qpos, max=npts - 1).long()]
+    hit = fused_window_hits(points_sorted, q, cand_pos, valid, eps)
+    if unicomp:
+        hit = hit & ((cand_pos > p_qpos[:, None]) | (p_zero[:, None] == 0))
+    else:
+        hit = hit & (cand_pos != p_qpos[:, None])
+    return hit.sum(dtype=torch.int64)
+
+
+def _count_packed(index: GridIndex, groups, *, unicomp: bool):
+    """Sum of ``_count_probes_span`` over probe groups (p_start, p_count,
+    p_qpos, p_zero, c), each cut into ``_PROBE_CHUNK`` probes."""
+    total = torch.zeros((), dtype=torch.int64, device=index.device)
+    for p_start, p_count, p_qpos, p_zero, c in groups:
+        for i in range(0, p_start.shape[0], _PROBE_CHUNK):
+            cut = slice(i, i + _PROBE_CHUNK)
+            total += _count_probes_span(
+                index.points_sorted, index.eps, p_start[cut], p_count[cut],
+                p_qpos[cut], p_zero[cut], c=c, unicomp=unicomp)
+    return total
+
+
+def _self_join_count_sparse(index: GridIndex, *, unicomp: bool,
+                            merged: bool = True) -> JoinStats:
+    """The probe-compacted counter (route "sparse"; "sparse-flat" with
+    ``merged=False``). Totals and work counters are the dense sweep's.
+
+    Merged (the default): the 3^(n-1) plane of rank spans, each live probe
+    one contiguous point span of up to three cells. Spans vary from one to
+    three cells, so the packed probes go by power-of-two window class
+    (``grid.capacity_classes``, the occupancy buckets' ladder) rather than
+    one global capacity. Per cell: the 3^n plane of single cells, all at
+    the rounded ``max_per_cell``. Probes keep the order of the plane,
+    offset-major, as the JAX package's ``np.nonzero`` gives them."""
+    npts = index.num_points
+    mult = 2 if unicomp else 1
+    qp = round_up(max(npts, 1), 128)
+    kind, lookup = _sparse_lookup(index)
+    rank_arr = index.point_cell_rank
+    if merged:
+        dtab, is_zero = _merged_offset_tables(index, unicomp)
+        n_off = int(dtab.shape[1])
+        dim_last = int(host_dims(index)[-1])
+        if kind == "table":
+            lo_rank, hi_rank = _range_plane_table(
+                lookup, index.cell_keys, rank_arr,
+                *(dtab[i].to(torch.int32) for i in range(3)), dim_last,
+                qp=qp)
+        else:
+            lo_rank, hi_rank = _range_plane_search(
+                lookup, rank_arr, *(dtab[i].to(lookup.dtype)
+                                    for i in range(3)), dim_last, qp=qp)
+        off, q = torch.nonzero(hi_rank > lo_rank, as_tuple=True)
+        lo_l, hi_l = lo_rank[off, q], hi_rank[off, q]
+        w_start = _rank_to_point(index, lo_l)
+        w_count = _rank_to_point(index, hi_l) - w_start
+        cells = (hi_l - lo_l).sum(dtype=torch.int64)
+        ladder = capacity_classes(global_window_cap(index, merged=True),
+                                  CAP_ALIGN)
+        cls = torch.searchsorted(
+            torch.tensor(ladder, dtype=torch.int32, device=index.device),
+            torch.clamp(round_up(w_count, CAP_ALIGN), max=ladder[-1]))
+        by_class = torch.argsort(cls, stable=True)
+        sizes = torch.bincount(cls, minlength=len(ladder)).tolist()
+        groups, a = [], 0
+        for ccap, size in zip(ladder, sizes):
+            sel = by_class[a:a + size]
+            a += size
+            groups.append((w_start[sel], w_count[sel], q[sel].to(torch.int32),
+                           is_zero[off[sel]], ccap))
+    else:
+        deltas, is_zero = _offset_tables(index, unicomp)
+        n_off = int(deltas.shape[0])
+        if kind == "table":
+            nbr = _rank_plane_table(lookup, index.cell_keys, rank_arr,
+                                    deltas.to(torch.int32), qp=qp)
+        else:
+            nbr = _rank_plane_search(lookup, rank_arr,
+                                     deltas.to(lookup.dtype), qp=qp)
+        off, q = torch.nonzero(nbr >= 0, as_tuple=True)
+        live_nbr = nbr[off, q].long()
+        w_count = index.cell_count[live_nbr]
+        cells = torch.tensor(off.shape[0], dtype=torch.int64,
+                             device=index.device)
+        groups = [(index.cell_start[live_nbr], w_count,
+                   q.to(torch.int32), is_zero[off], _unfused_cap(index))]
+    total = _count_packed(index, groups, unicomp=unicomp)
+    total, cells, cands = torch.stack(
+        [total, cells, w_count.sum(dtype=torch.int64)]).tolist()
+    return JoinStats(total_pairs=mult * total, cells_visited=cells,
+                     candidates_checked=cands, offsets=n_off, route="sparse")
+
+
+# ---------------------------------------------------------------------------
+# The route choice: the measured table (``kernels.autotune``) or, without a
+# row, its occupancy heuristic, on host-side workload features.
+# ---------------------------------------------------------------------------
+
+def _route_features(index: GridIndex, deltas) -> dict:
+    """Workload features for the route table: ``occupancy``, the live-cell
+    share of the grid's volume (the TPU rule's proxy); ``live_frac``, the
+    live share of the (offset, query) probes of up to 1,024 query rows
+    sampled at an even stride over sorted key order, under the per-cell
+    stencil ``deltas``; ``c``, max_per_cell."""
+    ncells = max(int(index.num_cells), 1)
+    # a float product: a fine 6-D grid overflows int64, and only a ratio is
+    # needed
+    volume = max(float(np.prod(host_dims(index).astype(np.float64))), 1.0)
+    c = max(int(index.max_per_cell), 1)
+    npts = index.num_points
+    live_frac = 0.0
+    if npts and int(index.num_cells):
+        keys = _keys64(index)[:ncells]
+        sample = index.point_cell_rank[::-(-npts // 1024)][:1024].long()
+        probe = keys[sample][None, :] + deltas.long()[:, None]
+        pos = torch.clamp(torch.searchsorted(keys, probe), max=ncells - 1)
+        live_frac = float((keys[pos] == probe).double().mean())
+    return {"occupancy": ncells / volume, "live_frac": live_frac, "c": c}
+
+
+def _fused_count_route(index: GridIndex, n_off: int,
+                       backend: Optional[str] = None, *,
+                       unicomp: bool = True) -> str:
+    """The heuristic route of the fused counter, no table consulted
+    (``autotune.route_heuristic``); ``backend`` defaults to the index's
+    device type."""
+    deltas, _ = _offset_tables(index, unicomp)
+    feats = _route_features(index, deltas)
+    return autotune.route_heuristic(
+        backend or index.device.type, index.n_dims, n_off, feats["c"],
+        feats["occupancy"], feats["live_frac"])
+
+
+def _auto_route(index: GridIndex, *, unicomp: bool,
+                bucketed: Optional[bool] = None,
+                merged: bool = False) -> str:
+    """The count route for this index and sweep: the table's row, a
+    measurement of the candidates when measuring is on, else the heuristic.
+    A pure function of the index and the sweep, so cached per index."""
+    return index_cached(
+        index, f"route/{unicomp}/{bucketed}/{merged}",
+        lambda: _auto_route_uncached(index, unicomp=unicomp,
+                                     bucketed=bucketed, merged=merged))
+
+
+def _auto_route_uncached(index: GridIndex, *, unicomp: bool,
+                         bucketed: Optional[bool] = None,
+                         merged: bool = False) -> str:
+    # the features describe the data's neighbour regime under the per-cell
+    # stencil whatever the sweep; the merged sweep's n_off keys its own row
+    deltas, _ = _offset_tables(index, unicomp)
+    feats = _route_features(index, deltas)
+    n_off = (int(_merged_offset_tables(index, unicomp)[1].shape[0])
+             if merged else int(deltas.shape[0]))
+    candidates = None
+    if autotune.measure_enabled():
+        candidates = {
+            "dense": lambda: _self_join_count_fused(
+                index, unicomp=unicomp, bucketed=bucketed, merged=merged),
+            "sparse": lambda: _self_join_count_sparse(
+                index, unicomp=unicomp, merged=merged),
+            "jnp": lambda: _self_join_count_unfused(
+                index, unicomp=unicomp, distance_impl="jnp"),
+        }
+        if merged:
+            # the sweep is a raced axis too: the per-cell sweeps and the
+            # cell-run loop give the same totals, so each is a pure choice
+            # of speed
+            candidates["dense-flat"] = lambda: _self_join_count_fused(
+                index, unicomp=unicomp, bucketed=bucketed, merged=False)
+            candidates["sparse-flat"] = lambda: _self_join_count_sparse(
+                index, unicomp=unicomp, merged=False)
+            candidates["dense-run"] = lambda: _self_join_count_fused(
+                index, unicomp=unicomp, bucketed=bucketed, merged=True,
+                run_loop=True)
+    route, _ = autotune.count_route(
+        n_dims=index.n_dims, n_off=n_off, c=feats["c"],
+        occupancy=feats["occupancy"], live_frac=feats["live_frac"],
+        backend=index.device.type, merged=merged, candidates=candidates)
+    return route
+
+
+def _join_sweep_merged(index: GridIndex, *, unicomp: bool,
+                       bucketed: Optional[bool], merged: bool) -> bool:
+    """The pair-emitting join's sweep: merged unless the count route's
+    choice for the merged sweep is "dense-flat", the one verdict about the
+    join's own dense bucketed sweep ("sparse-flat" judges the counter only;
+    the heuristic never gives "-flat"). The pairs are the same either
+    way."""
+    if not merged:
+        return False
+    return _auto_route(index, unicomp=unicomp, bucketed=bucketed,
+                       merged=True) != "dense-flat"
 
 
 # ---------------------------------------------------------------------------
@@ -1010,7 +1360,9 @@ def _metric_self_join(canon: metric_lib.Canonical, *, unicomp: bool,
             refine_eps=canon.eps)
     return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
                             bucketed=bucketed,
-                            merged=_resolve_merge(index, None),
+                            merged=_join_sweep_merged(
+                                index, unicomp=unicomp, bucketed=bucketed,
+                                merged=_resolve_merge(index, None)),
                             metric=canon.metric)
 
 
@@ -1067,7 +1419,9 @@ def self_join(points, eps, *, unicomp: bool = True,
                                   distance_impl=distance_impl)
     return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
                             bucketed=bucketed,
-                            merged=_resolve_merge(index, merge_last_dim))
+                            merged=_join_sweep_merged(
+                                index, unicomp=unicomp, bucketed=bucketed,
+                                merged=_resolve_merge(index, merge_last_dim)))
 
 
 def self_join_count(points, eps, *, unicomp: bool = True,
@@ -1082,12 +1436,17 @@ def self_join_count(points, eps, *, unicomp: bool = True,
     """Total ordered-pair count and work counters, without the pairs.
 
     With ``distance_impl="fused"`` (the default) ``route`` picks the sweep:
-    ``"dense"`` (``route=None`` means it), the occupancy-bucketed fused
-    sweep with no hit plane; ``"dense-run"``, the same sweep through the
-    cell-run loop, with the same totals and counters and its window-read
-    accounting; ``"compact"`` (``self_join_count_compact``); ``"jnp"``, the
-    unfused plain sweep, labelled "jnp". The JAX package's sparse and flat
-    routes and its measured route choice are not ported yet (ROADMAP A11).
+    ``"dense"``, the occupancy-bucketed fused sweep with no hit plane;
+    ``"dense-run"``, the same sweep through the cell-run loop, with the same
+    totals and counters and its window-read accounting; ``"dense-flat"``,
+    the dense sweep per cell; ``"sparse"`` / ``"sparse-flat"``, the
+    probe-compacted counter over the merged / per-cell plane; ``"compact"``
+    (``self_join_count_compact``); ``"jnp"``, the unfused plain sweep.
+    ``route=None`` takes the measured table's row for the workload's class
+    (``kernels.autotune``), a measurement when ``REPRO_TORCH_AUTOTUNE=1``,
+    else its heuristic; an explicit ``query_batch`` means "dense". The
+    route that ran is ``JoinStats.route``. "dense", "sparse" and "jnp"
+    report the same counters; "compact" reports ``cells_visited`` 0.
     With "jnp" or "pallas" ``route`` is ignored: the unfused sweep runs,
     labelled "dense", over batches of ``query_batch`` rows.
 
@@ -1124,21 +1483,30 @@ def self_join_count(points, eps, *, unicomp: bool = True,
         return _self_join_count_unfused(
             index, unicomp=unicomp, query_batch=query_batch,
             distance_impl=distance_impl)
-    if route == "jnp":
-        return _self_join_count_unfused(
-            index, unicomp=unicomp, query_batch=query_batch,
-            distance_impl="jnp", route="jnp")
+    merged = _resolve_merge(index, merge_last_dim)
+    if route is None:
+        route = ("dense" if query_batch is not None else
+                 _auto_route(index, unicomp=unicomp, bucketed=bucketed,
+                             merged=merged))
     if route == "compact":
         return self_join_count_compact(points, eps, unicomp=unicomp,
                                        index=index, device=dev)
-    if route not in (None, "dense", "dense-run"):
-        raise NotImplementedError(
-            f"route {route!r} is not ported yet (ROADMAP A11); the PyTorch "
-            f"port has 'dense', 'dense-run', 'compact' and 'jnp'")
-    return _self_join_count_fused(index, unicomp=unicomp,
-                                  query_batch=query_batch, bucketed=bucketed,
-                                  merged=_resolve_merge(index, merge_last_dim),
-                                  run_loop=route == "dense-run")
+    if route in ("sparse", "sparse-flat"):
+        return dataclasses.replace(
+            _self_join_count_sparse(index, unicomp=unicomp,
+                                    merged=merged and route == "sparse"),
+            route=route)
+    if route in ("dense", "dense-flat", "dense-run"):
+        return dataclasses.replace(
+            _self_join_count_fused(
+                index, unicomp=unicomp, query_batch=query_batch,
+                bucketed=bucketed, merged=merged and route != "dense-flat",
+                run_loop=route == "dense-run"),
+            route=route)
+    # "jnp": the table found the fused sweeps slower than the plain one
+    return _self_join_count_unfused(
+        index, unicomp=unicomp, query_batch=query_batch,
+        distance_impl="jnp", route="jnp")
 
 
 def self_join_batched(points, eps, *, unicomp: bool = True,
@@ -1170,7 +1538,9 @@ def self_join_batched(points, eps, *, unicomp: bool = True,
                                   n_batches=n_batches, to_host=True)
     return _self_join_fused(index, unicomp=unicomp, sort_result=sort_result,
                             n_batches=n_batches, bucketed=bucketed,
-                            merged=_resolve_merge(index, merge_last_dim),
+                            merged=_join_sweep_merged(
+                                index, unicomp=unicomp, bucketed=bucketed,
+                                merged=_resolve_merge(index, merge_last_dim)),
                             to_host=True)
 
 

@@ -2,8 +2,7 @@
 
 The count's work counters must equal JAX's ``self_join_count(route="dense")``,
 including ``dma_windows_issued``, which both packages compute from the
-default 128-row tile. Options the port does not have yet (the sparse count
-routes) must raise ``NotImplementedError`` naming their ROADMAP item.
+default 128-row tile. The other routes are held in ``test_torch_routes.py``.
 """
 import pytest
 import torch
@@ -51,18 +50,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fn(pts[:100], eps, device="cuda")
     fn(pts[:100], eps, device="cpu")
-
-
-@pytest.mark.parametrize("call,item", [
-    (lambda p: repro_torch.self_join_count(p, 0.9, metric="cosine",
-                                           route="sparse", device="cpu"),
-     "A11"),
-    (lambda p: repro_torch.self_join_count(p, 0.4, route="sparse",
-                                           device="cpu"), "A11"),
-])
-def test_unported_options_raise(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        call(WORKLOADS["uniform-2d"][0][:100])
 
 
 def test_unknown_route_is_a_value_error():

@@ -242,3 +242,66 @@ def test_cell_count_below_int64_still_joins(tmp_path, duplicates):
     assert np.array_equal(got, want)
     assert (repro_torch.self_join_count(pts, 1e-18, device=CPU).total_pairs
             == want.shape[0])
+
+
+# ROADMAP §C, C5: at eps 1e-18 the probe's prod(dims) passes 2^63. The
+# padded slab build's out-of-set sentinel was that product as an exact
+# Python integer, which torch refused as an int64 ("Overflow when unpacking
+# long long"); the JAX package computes it in the key dtype, where it
+# wraps, and its slab join gives self_join's pairs at 1, 2 and 4 slabs
+# there (probed on four placeholder devices). The port wraps it alike.
+# The real keys wrap too, so about half the probe's cells key at or above
+# the wrapped sentinel: "crowd" puts 12 points, more than the slab count's
+# 8-slot capacity rounding, in one of them, and the padded build's
+# max_per_cell must still count it.
+def _c5_points(duplicates):
+    if duplicates != "crowd":
+        return np.concatenate([C4_POINTS, C4_POINTS[:duplicates]]), 1 + (
+            duplicates > 0)
+    gmin, dims = tgrid.host_grid_geometry(C4_POINTS, 1e-18)
+    kd = tgrid.device_key_dtype(dims, padded=True)
+    keys = tgrid.linearize(
+        tgrid.cell_coords(torch.from_numpy(C4_POINTS), torch.as_tensor(gmin),
+                          torch.tensor(1e-18, dtype=torch.float64)),
+        torch.as_tensor(dims)).to(tgrid._TORCH_DTYPES[np.dtype(kd)])
+    above = np.flatnonzero(keys.numpy() >= tgrid.wrapped_volume(dims, kd))
+    assert above.size > 0
+    return np.concatenate([C4_POINTS,
+                           np.repeat(C4_POINTS[above[:1]], 11, axis=0)]), 12
+
+
+@pytest.mark.parametrize("n_slabs", [1, 2, 4])
+@pytest.mark.parametrize("duplicates", [0, 5, "crowd"])
+def test_slab_joins_past_int64_volume(tmp_path, n_slabs, duplicates):
+    import repro.core.selfjoin as jsj
+    from repro_torch.core.distributed import slab_indexes
+    from torch_workloads import jax_default_tables
+
+    pts, crowd = _c5_points(duplicates)
+    dims = tgrid.host_grid_geometry(pts, 1e-18)[1]
+    assert int(np.prod(np.asarray(dims, dtype=object))) >= 2 ** 63
+    with jax_default_tables(tmp_path):
+        want = np.asarray(jsj.self_join(pts, 1e-18, distance_impl="fused"))
+    assert want.shape[0] == (132 if duplicates == "crowd"
+                             else 2 * duplicates)
+    got = repro_torch.core.distributed_self_join(pts, 1e-18, n_slabs,
+                                                 device=CPU)
+    assert np.array_equal(got.numpy(), want)
+    assert repro_torch.core.distributed_self_join_count(
+        pts, 1e-18, n_slabs, device=CPU) == want.shape[0]
+    assert max(int(s.index.max_per_cell)
+               for s in slab_indexes(pts, 1e-18, n_slabs, device=CPU)) == crowd
+
+
+@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
+def test_wrapped_volume_matches_jax_sentinel(key_dtype):
+    """The sentinel equals JAX's ``jnp.prod(dims.astype(key_dtype))``, the
+    wrapped product included."""
+    for dims in ([3, 5], [7, 11, 13], [2842575610968765441, 3],
+                 [2842575610968765441, 2805223919352762369],
+                 [1 << 20, 1 << 20], [65537, 65537]):
+        d = np.asarray(dims, np.int64)
+        want = int(jnp.prod(jnp.asarray(d).astype(key_dtype),
+                            dtype=key_dtype))
+        assert tgrid.wrapped_volume(d, key_dtype) == want, dims
+

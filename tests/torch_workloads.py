@@ -71,6 +71,34 @@ def jax_tables(tmp_path_factory):
     return lambda: jax_default_tables(table_dir)
 
 
+@contextlib.contextmanager
+def both_tables(table_dir, jax_rows=None, torch_rows=None):
+    """Both packages read their measured tables from ``table_dir`` (with
+    the given rows, schema 3, none by default) and measure nothing; the
+    port's shipped table and the JAX package's shipped cpu rows stay
+    out."""
+    import json
+
+    from repro.kernels import autotune as jtune
+    from repro_torch.kernels import autotune as ttune
+
+    with pytest.MonkeyPatch.context() as mp:
+        for env, name, rows in (("REPRO_AUTOTUNE", "jax", jax_rows),
+                                ("REPRO_TORCH_AUTOTUNE", "torch",
+                                 torch_rows)):
+            path = table_dir / f"{name}.json"
+            path.write_text(json.dumps(dict(rows or {}, __schema__=3)))
+            mp.setenv(env + "_CACHE", str(path))
+            mp.delenv(env, raising=False)
+        jtune._CACHE.reset()
+        ttune._CACHE.reset()
+        try:
+            yield
+        finally:
+            jtune._CACHE.reset()
+            ttune._CACHE.reset()
+
+
 def jax_runner(table_dir):
     """``get(kind, workload, **kw)``: the JAX package's ``self_join`` (kind
     "join") or ``self_join_count(route="dense")`` (kind "count") on a
