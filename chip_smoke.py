@@ -101,6 +101,30 @@ each printing one JSON line:
                   measured tiles for the main path's classes, into a table
                   in a temporary directory; B1 at tq 64 and 256 against its
                   plain version on the main path's launches and one request
+  collective      the slab join over torch.distributed (launch.mesh.spawn,
+                  a SlabMesh): the main path's points on 2 and 4 gloo ranks
+                  sharing the card (NCCL needs a card a rank; the line
+                  "nccl: not run (N card)" says when there are fewer), each
+                  rank's candidate block against the one-process exchange's,
+                  rank 0's gathered pairs against the one-process slab join's,
+                  count-only and the plain count sweep against MAIN_TOTAL,
+                  B1 (d)'s launches summed over the ranks against the
+                  one-process join's; then the count-only join and the
+                  offset-parallel count on a (2, 2) (slab, model) grid; each
+                  rank's seconds and peak memory per step
+  sharded         ShardedJoinService on index A at 4 slabs: the serve
+                  phase's 64 requests with pairs, then counts only, each
+                  equal to the single-index service's, p50 / p99 /
+                  requests a second, B1 (b) launches counted; the batching
+                  service over the 4 slabs on the same requests; the serve
+                  CLI and the load generator with --slabs 4
+  dedup           dedup_embeddings on 1,000,000 raw 6-D embeddings with
+                  20,000 planted copies (scaled, and with small noise), a
+                  zero and a NaN row: the guard flags exactly the two bad
+                  rows and keeps them, every copy is dropped, the keep mask
+                  equals scipy's connected-component roots over the join's
+                  pairs, and the kept rows join to no pair; the three torch
+                  examples, started together
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -116,8 +140,10 @@ one chip call, in turns.
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
-join's B1 and the Jaccard join's B1 (e), slab for B1 (d)) and read just
-after; comparisons with the plain versions run outside those windows. The
+join's B1 and the Jaccard join's B1 (e), slab for B1 (d), collective for
+B1 (d) in each rank's process, sharded for B1 (b) on the slabs, dedup for
+its cosine join's B1) and read just after; comparisons with the plain
+versions run outside those windows. The
 last lines are the card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero before printing a result.
@@ -127,6 +153,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3787,6 +3814,269 @@ def phase_routes(workloads, table_dir: Path) -> dict:
     return dict(b1_tiles=tiles)
 
 
+# --- the collective slab join, sharded serving, dedup (ROADMAP A14 (ii), A15)
+
+# The collective slab join: the main path's points through gloo ranks that
+# share the one card (NCCL needs a card a rank), each rank joining its slab
+# there; every spawn stops its ranks after COLLECTIVE_TIMEOUT_S.
+COLLECTIVE_RANKS = (2, 4)
+COLLECTIVE_GRID = (2, 2)   # (slab, model) on the 4 ranks: the offset-parallel count
+COLLECTIVE_TIMEOUT_S = 240.0
+# the sharded services: index A's points cut into this many slabs
+SHARDED_SLABS = 4
+# dedup: raw 6-D embeddings (random directions) with planted scaled and
+# noisy copies of earlier rows, a zero row and a NaN row, at a cosine floor
+# far above what random directions reach
+DEDUP_POINTS, DEDUP_DIMS, DEDUP_COS, DEDUP_SEED = 1_000_000, 6, 0.9999, 23
+DEDUP_SCALED = DEDUP_NOISY = 10_000
+DEDUP_NOISE = 1e-5
+EXAMPLES = ("torch_quickstart", "torch_serve_join", "torch_dedup_pipeline")
+
+
+def collective_spawn(grids, pts, eps: float) -> tuple[list, dict]:
+    """Each rank's ``mesh.run_rank`` result over ``grids`` ((n_slabs,
+    n_model, steps) meshes of the same ranks) and the spawn's wall seconds
+    (start-up, the ranks' work, shut-down), checked against the
+    one-process slab join (``check=True``)."""
+    from repro_torch.launch import mesh
+    n_ranks = grids[0][0] * grids[0][1]
+    t0 = time.time()
+    ranks = mesh.spawn(mesh.run_rank, n_ranks, grids, DEVICE, pts, eps,
+                       True, device=DEVICE, timeout_s=COLLECTIVE_TIMEOUT_S)
+    t1 = time.time()
+    for k, (n_slabs, n_model, steps) in enumerate(grids):
+        where = f"collective ({n_slabs}, {n_model})"
+        done = [r["grids"][k] for r in ranks]
+        for r in done:
+            for step in steps:
+                check(r[step]["value"] == MAIN_TOTAL, f"{where} slab "
+                      f"{r['slab']} model {r['model']} {step}: "
+                      f"{r[step]['value']}, recorded {MAIN_TOTAL}")
+            check(r["blocks_equal"], f"{where}: a rank's candidate block "
+                  f"differs from the one-process exchange's")
+        if "pairs" in steps:
+            check(done[0]["pairs_equal"], f"{where}: rank 0's gathered "
+                  f"pairs differ from the one-process slab join's")
+            gid = sum(r["pairs"]["gid_launches"] for r in done)
+            check(gid == done[0]["one_process_gid_launches"] > 0,
+                  f"{where}: B1 (d) launches {gid} over the ranks, "
+                  f"{done[0]['one_process_gid_launches']} in one process")
+    wall = dict(spawn_s=t1 - t0,
+                start_s=max(r["entered_at"] for r in ranks) - t0,
+                work_s=(max(r["left_at"] for r in ranks)
+                        - min(r["entered_at"] for r in ranks)),
+                stop_s=t1 - max(r["left_at"] for r in ranks))
+    return ranks, wall
+
+
+def phase_collective() -> dict:
+    """The collective slab join on the card (``launch.mesh.spawn``,
+    ``core.distributed`` on a ``SlabMesh``; ROADMAP A14 (ii)): the main
+    path at each rank count of COLLECTIVE_RANKS, and the last spawn's ranks
+    again as the COLLECTIVE_GRID (slab, model) grid."""
+    from repro_torch.launch import mesh
+    t_phase = time.perf_counter()
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    torch.cuda.empty_cache()        # the ranks share the card
+    cards = torch.cuda.device_count()
+    steps = ("pairs", "count_only", "plain_count")
+    gid = {}
+    for n in COLLECTIVE_RANKS:
+        grids = [(n, 1, steps)]
+        if n == COLLECTIVE_GRID[0] * COLLECTIVE_GRID[1]:
+            grids.append((*COLLECTIVE_GRID, ("count_only", "plain_count")))
+        ranks, wall = collective_spawn(grids, pts, eps)
+        for k, (n_slabs, n_model, done) in enumerate(grids):
+            per = [r["grids"][k] for r in ranks]
+            if "pairs" in done:
+                gid[n] = sum(r["pairs"]["gid_launches"] for r in per)
+            emit("collective", part=f"{n_slabs}x{n_model}",
+                 points=MAIN_POINTS, eps=eps,
+                 backend=mesh.choose_backend(n, DEVICE),
+                 devices=sorted({r["device"] for r in ranks}),
+                 gid_launches=gid.get(n) if "pairs" in done else None,
+                 one_process_gid_launches=per[0].get(
+                     "one_process_gid_launches"),
+                 ranks=[{key: r[key] for key in ("slab", "model",
+                                                  "partition_exchange_s",
+                                                  *done)}
+                        for r in per], **wall)
+    most = max(COLLECTIVE_RANKS)
+    if cards < most:
+        print(f"nccl: not run ({cards} card{'s' if cards != 1 else ''})",
+              flush=True)
+    emit("collective", part="done", cards=cards,
+         nccl="run" if cards >= most else "not run",
+         phase_s=time.perf_counter() - t_phase)
+    return dict(gid_launches=gid[most])
+
+
+def phase_sharded() -> dict:
+    """The slab-sharded services on the card (ROADMAP A14 (ii)): index A at
+    SHARDED_SLABS slabs against the single-index service, with pairs and
+    counts only, the batching service over the slabs, and the serve CLI
+    and load generator with ``--slabs``."""
+    from repro_torch.kernels import fused_join as fj
+    from repro_torch.launch import loadgen, serve
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    requests = serve_requests(SERVE_REQUESTS, rng)
+    t0 = time.perf_counter()
+    sharded = serve.ShardedJoinService(pts, eps, SHARDED_SLABS,
+                                       return_pairs=True, device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    counts_sh = serve.ShardedJoinService(pts, eps, SHARDED_SLABS,
+                                         device=DEVICE)
+    bat = serve.BatchingJoinService(pts, eps, n_slabs=SHARDED_SLABS,
+                                    return_pairs=True, max_batch=4096,
+                                    device=DEVICE)
+    single = serve.JoinService(pts, eps, return_pairs=True, device=DEVICE)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # warmup() marks steady
+        for s_ in (sharded, counts_sh, single):
+            s_.warmup(SERVE_BATCH)
+        bat.warmup()
+    want = [single.prepared.join(q) for q in requests]
+    expected = sum(len(pj.launch_inputs(q)[1]) for q in requests
+                   for pj in sharded.prepared)
+    sync()
+    fj.KERNEL_LAUNCHES = fj.EXTERNAL_LAUNCHES = 0
+    got = [sharded.query(q) for q in requests]
+    launches = (fj.KERNEL_LAUNCHES, fj.EXTERNAL_LAUNCHES)
+    check(launches == (expected,) * 2, f"the sharded service launched B1 "
+          f"(total, external) {launches} times, planned {expected}")
+    for w, g in zip(want, got):
+        same_answer(w, g, "sharded")
+    p50, p99 = sharded.percentiles()
+    rps = sharded.requests_per_sec()
+    for q, w in zip(requests, want):
+        res = counts_sh.query(q)
+        check(res.pairs is None and np.array_equal(res.counts, w.counts),
+              "sharded counts-only service: counts differ")
+    c50, c99 = counts_sh.percentiles()
+    tickets = [bat.submit(q) for q in requests]
+    t0 = time.perf_counter()
+    bat.pump()
+    bat.drain()
+    bat_wall = time.perf_counter() - t0
+    for w, t in zip(want, tickets):
+        same_answer(w, t.result(), "sharded batching")
+    for s_ in (sharded, counts_sh, bat):
+        s_.assert_no_retrace()
+    slab_rows = [int(i.num_points) for i in sharded.indexes]
+    bat_launches = bat.n_launches
+    del sharded, counts_sh, bat, single, want, got
+    # the command lines, at their default sizes, last: they prepare new
+    # services and move the process-wide counters
+    cli_p50 = serve.main(["--arch", "selfjoin", "--slabs",
+                          str(SHARDED_SLABS), "--return-pairs", "--device",
+                          str(DEVICE)])
+    rep = loadgen.main(["--slabs", str(SHARDED_SLABS), "--device",
+                        str(DEVICE)])
+    emit("sharded", points=MAIN_POINTS, eps=eps, slabs=SHARDED_SLABS,
+         slab_rows=slab_rows, requests=SERVE_REQUESTS,
+         request_queries=SERVE_BATCH, build_s=build_s, launches=launches[1],
+         p50_ms=p50, p99_ms=p99, requests_per_s=rps, counts_only_p50_ms=c50,
+         counts_only_p99_ms=c99, equal_to_single_index=True,
+         batching=dict(launches=bat_launches, wall_s=bat_wall,
+                       requests_per_s=len(tickets) / bat_wall,
+                       equal_to_single_index=True),
+         cli_p50_ms=cli_p50, loadgen=rep.to_dict(),
+         phase_s=time.perf_counter() - t_phase)
+    return dict(launches=launches[1])
+
+
+def dedup_data():
+    """(embeddings, the planted copies' rows, their sources' rows)."""
+    rng = np.random.default_rng(DEDUP_SEED)
+    emb = rng.normal(size=(DEDUP_POINTS, DEDUP_DIMS))
+    n_copies = DEDUP_SCALED + DEDUP_NOISY
+    copies = rng.choice(np.arange(DEDUP_POINTS // 2, DEDUP_POINTS - 2),
+                        n_copies, replace=False)
+    sources = rng.integers(0, DEDUP_POINTS // 2, n_copies)
+    scale = rng.uniform(0.2, 5.0, (n_copies, 1))
+    noise = np.zeros((n_copies, DEDUP_DIMS))
+    noise[DEDUP_SCALED:] = rng.normal(size=(DEDUP_NOISY, DEDUP_DIMS))
+    src = emb[sources]
+    emb[copies] = scale * (src + DEDUP_NOISE * np.linalg.norm(
+        src, axis=1, keepdims=True) * noise)
+    emb[-2] = 0.0                               # an encoder's timeout
+    emb[-1] = np.nan                            # an encoder's overflow
+    return emb, copies, sources
+
+
+def phase_dedup() -> dict:
+    """``repro_torch.data.dedup_embeddings`` at 1 M raw embeddings (ROADMAP
+    A15) against scipy's connected components over the join's pairs, and
+    the three torch examples on the card."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    import repro_torch
+    from repro_torch.data import dedup
+    from repro_torch.kernels import fused_join as fj
+    t_phase = time.perf_counter()
+    emb, copies, sources = dedup_data()
+    sync()
+    fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    keep, valid = dedup.dedup_embeddings(emb, min_cos=DEDUP_COS,
+                                         device=DEVICE)
+    sync()
+    dedup_s = time.perf_counter() - t0
+    launches, run_loop = fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES
+    check(launches > 0, "dedup launched no B1")
+    bad = np.flatnonzero(~valid)
+    check(bad.tolist() == [DEDUP_POINTS - 2, DEDUP_POINTS - 1]
+          and keep[bad].all(), f"the guard flagged rows {bad[:8]}")
+    check(not keep[copies].any(), f"{int(keep[copies].sum())} planted "
+          f"copies kept")
+    # the keep mask, independently: i is kept iff it is the smallest id of
+    # its connected component under the join's pairs
+    idx = np.flatnonzero(valid)
+    pairs = repro_torch.self_join(emb[idx], DEDUP_COS, metric="cosine",
+                                  device=DEVICE).cpu().numpy()
+    n = idx.size
+    graph = sp.coo_matrix((np.ones(pairs.shape[0], np.int8),
+                           (pairs[:, 0], pairs[:, 1])), shape=(n, n))
+    n_comp, labels = connected_components(graph, directed=False)
+    root = np.full(n_comp, n)
+    np.minimum.at(root, labels, np.arange(n))
+    want = np.ones(DEDUP_POINTS, bool)
+    want[idx] = root[labels] == np.arange(n)
+    check(np.array_equal(keep, want), f"keep differs from scipy's "
+          f"component roots in {int((keep != want).sum())} rows")
+    kept = np.flatnonzero(keep & valid)
+    left = repro_torch.self_join(emb[kept], DEDUP_COS, metric="cosine",
+                                 device=DEVICE)
+    check(left.shape[0] == 0, f"{left.shape[0]} pairs left among the kept "
+          f"rows")
+    # the examples, started together
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {e: subprocess.Popen([sys.executable,
+                                  str(ROOT / "examples" / f"{e}.py"),
+                                  "--device", str(DEVICE)],
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for e in EXAMPLES}
+    examples = {}
+    for e, proc in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"example {e} failed:\n{log[-2000:]}")
+        examples[e] = log.strip().splitlines()[-1]
+    examples_s = time.perf_counter() - t0
+    emit("dedup", points=DEDUP_POINTS, dims=DEDUP_DIMS, min_cos=DEDUP_COS,
+         planted=int(copies.size), guarded=bad.tolist(),
+         kept=int(keep.sum()), join_pairs=int(pairs.shape[0]),
+         components=int(n_comp), dedup_s=dedup_s, launches=launches,
+         run_loop_launches=run_loop,
+         examples=examples, examples_s=examples_s,
+         phase_s=time.perf_counter() - t_phase)
+    return dict(launches=launches)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -3832,6 +4122,9 @@ def smoke(table_dir: Path) -> int:
     half = phase_half(workloads)
     slab = phase_slab()
     routes = phase_routes(workloads, table_dir)
+    collective = phase_collective()
+    sharded = phase_sharded()
+    deduped = phase_dedup()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -3849,7 +4142,11 @@ def smoke(table_dir: Path) -> int:
                                 "jaccard": metrics["launches"],
                                 "jaccard_external":
                                     metrics["external_launches"],
-                                "gid": slab["launches"]},
+                                "gid": slab["launches"],
+                                "gid_collective_ranks":
+                                    collective["gid_launches"],
+                                "external_sharded": sharded["launches"],
+                                "dedup_cosine": deduped["launches"]},
         "max_abs_err": max(worst, served["worst"], metrics["worst"],
                            slab["worst"]),
         "ms": b1["ms"],

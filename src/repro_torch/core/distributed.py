@@ -1,4 +1,4 @@
-"""The slab join: spatial slabs with an eps-halo, in one process.
+"""The slab join: spatial slabs with an eps-halo, in one process or over ranks.
 
 The counterpart of the JAX package's ``repro.core.distributed`` (the scale-out
 design of DESIGN.md S3). Points are cut into equal-count slabs along
@@ -15,11 +15,18 @@ Each slab then
      ownership of a pair of cells, agree across slabs; and
   3. joins only the pairs whose query point it owns.
 
-In the JAX package only the halo exchange is a collective; everything after
-it is a host loop over slabs. Here the exchange is a plain torch function
-over the stacked (S, P, n) slabs on one device, with JAX's block layout, and
-the slabs are joined in turn on the same device. The collective over
-``torch.distributed`` is ROADMAP A14 (ii).
+The entry points take JAX's ``mesh`` argument in two forms. A slab count runs
+every slab in one process: the exchange is a shift over the stacked (S, P,
+n) slabs on one device, with JAX's block layout, and the slabs are joined in
+turn on that device. A ``launch.mesh.SlabMesh`` runs SPMD over
+``torch.distributed``, one rank a slab (times ``n_model``): every rank
+partitions the same points on the host and keeps its own slab, and the
+exchange is the collective of JAX's ``_halo_exchange``: the boundaries and
+parcels of hop h go to and come from the ranks h slabs away, both
+directions in one ``batch_isend_irecv`` (``_RankRing``). Overflow flags and
+failures are all-reduced before any rank raises, so the ranks raise
+together. The pairs are all-gathered, the totals all-reduced, and every
+rank returns what the one-process path returns.
 
 ``distributed_self_join`` is the fused pair join: per slab the one-process
 fast path (``selfjoin._self_join_fused``: merged sweep, occupancy buckets,
@@ -29,7 +36,10 @@ breaks the same way on every slab. Its sorted pairs equal
 ``self_join(distance_impl="fused")``'s.
 
 ``distributed_self_join_count`` is the plain offset sweep the JAX package
-keeps for its offset-parallel mesh axis (the axis itself waits for A14 (ii)).
+keeps for its offset-parallel mesh axis: on a ``SlabMesh`` with
+``model_axis="model"`` each rank sweeps the block of stencil offsets of its
+model index, and the totals are summed over every rank (JAX's ``psum`` over
+``(slab, model)``).
 
 Single counting: with global cell coordinates the UNICOMP half-stencil gives
 each unordered pair of adjacent cells to one directed evaluation; the slab
@@ -44,14 +54,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.grid import (GridIndex, build_grid,
                                    build_grid_with_geometry,
                                    check_float_points, device_key_dtype,
-                                   geometry_dtype, points_geometry,
-                                   resolve_device, row_major_strides)
+                                   geometry_dtype, host_grid_geometry,
+                                   points_geometry, resolve_device,
+                                   row_major_strides)
 from repro_torch.core.selfjoin import (_distance_hits_jnp, _gather_batch,
                                        _neighbor_ranks_for_delta,
                                        _self_join_count_fused,
@@ -78,6 +90,10 @@ class DistJoinConfig:
     # cell-key dtype of the padded slab grids (``device_key_dtype`` with
     # padded=True: the slab grids hold the out-of-set sentinel cell)
     key_dtype: str = "int64"
+    unicomp: bool = True         # the count step's stencil
+    # "model": the count step shards the stencil offsets over the mesh's
+    # model index; None: model index 0 sweeps them all
+    model_axis: Optional[str] = None
 
 
 def partition_points_host(points: np.ndarray, n_slabs: int):
@@ -225,7 +241,7 @@ def _canonicalize_for_slabs(points, eps, metric: str):
 
 
 # ---------------------------------------------------------------------------
-# The halo exchange over the stacked slabs of one device
+# The halo exchange: over the stacked slabs of one device, or between ranks
 # ---------------------------------------------------------------------------
 
 def _halo_exchange(x: torch.Tensor, valid: torch.Tensor, direction: int,
@@ -242,6 +258,116 @@ def _halo_exchange(x: torch.Tensor, valid: torch.Tensor, direction: int,
         else:
             rx[:s - hops], rv[:s - hops] = x[hops:], valid[hops:]
     return rx, rv
+
+
+class _Stacked:
+    """The exchange over the stacked (S, ...) slabs of one device: each
+    hop is a shift along the slab axis."""
+
+    @staticmethod
+    def bounds(my_max0, my_min0, h):
+        """(left_max, ok, right_min, ok): the maximum along dimension 0 of
+        the slab h to the left and the minimum of the slab h to the
+        right."""
+        every = torch.ones(my_max0.shape[0], dtype=torch.bool,
+                           device=my_max0.device)
+        left_max, lm_ok = _halo_exchange(my_max0, every, +1, h)
+        right_min, rm_ok = _halo_exchange(my_min0, every, -1, h)
+        return left_max, lm_ok, right_min, rm_ok
+
+    @staticmethod
+    def parcels(left, right, h):
+        """Ship the (coords, gids, sent) parcel ``left`` h slabs to the left
+        and ``right`` h slabs to the right; returns what each slab receives
+        from its right and from its left."""
+        (cl, gl, vl), (cr, gr, vr) = left, right
+        hcl, hvl = _halo_exchange(cl, vl, -1, h)
+        hgl, _ = _halo_exchange(gl, vl, -1, h)
+        hcr, hvr = _halo_exchange(cr, vr, +1, h)
+        hgr, _ = _halo_exchange(gr, vr, +1, h)
+        return (hcl, hgl, hvl), (hcr, hgr, hvr)
+
+
+# gloo's sends may refuse half dtypes: those cross as their raw bits
+_WIRE_BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+class _RankRing:
+    """One rank's side of the exchange over ``torch.distributed``: its
+    block is a stack of one slab, and a hop of h is a send to and a
+    receive from the ranks h slabs away at the same model index. Both
+    directions of a hop go in one ``batch_isend_irecv``, so no order of
+    sends can deadlock. A rank with no neighbour at a hop receives
+    nothing and flags those slots invalid, as JAX's ``ppermute`` edge
+    does."""
+
+    def __init__(self, mesh: SlabMesh):
+        self.mesh = mesh
+
+    def _global(self, slab: int) -> int:
+        r = self.mesh.peer(slab)
+        g = self.mesh.group
+        return r if g is None else dist.get_global_rank(g, r)
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh.backend != "nccl" and t.dtype in _WIRE_BITS:
+            t = t.view(_WIRE_BITS[t.dtype])
+        return t.to(self.mesh.wire).contiguous()
+
+    def _swap(self, h: int, to_left: list, to_right: list):
+        """Send ``to_left`` to the slab h to the left and ``to_right`` to
+        the one h to the right; returns (what the right one sent left,
+        what the left one sent right), each None without that
+        neighbour."""
+        m = self.mesh
+        ops, got = [], {}
+        for side, step, send in (("left", -h, to_left),
+                                 ("right", h, to_right)):
+            if not 0 <= m.slab + step < m.n_slabs:
+                continue
+            peer = self._global(m.slab + step)
+            wire = [self._wire(t) for t in send]
+            bufs = [torch.empty_like(w) for w in wire]
+            for tag, (w, buf) in enumerate(zip(wire, bufs)):
+                ops.append(dist.P2POp(dist.isend, w, peer, m.group, tag))
+                ops.append(dist.P2POp(dist.irecv, buf, peer, m.group, tag))
+            got[side] = (bufs, send)
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+        def back(side):
+            if side not in got:
+                return None
+            bufs, like = got[side]
+            return [b.to(m.device).view(t.dtype) for b, t in zip(bufs, like)]
+
+        return back("right"), back("left")
+
+    def bounds(self, my_max0, my_min0, h):
+        from_right, from_left = self._swap(h, [my_min0], [my_max0])
+        ok = torch.ones(1, dtype=torch.bool, device=my_max0.device)
+        left_max, lm_ok = ((from_left[0], ok) if from_left
+                           else (torch.zeros_like(my_max0), ~ok))
+        right_min, rm_ok = ((from_right[0], ok) if from_right
+                            else (torch.zeros_like(my_min0), ~ok))
+        return left_max, lm_ok, right_min, rm_ok
+
+    def parcels(self, left, right, h):
+        (cl, gl, vl), (cr, gr, vr) = left, right
+        # a slot is valid where it carries a gid: sent slots are owned rows
+        from_right, from_left = self._swap(
+            h, [cl, torch.where(vl, gl, -1)], [cr, torch.where(vr, gr, -1)])
+
+        def parcel(got, like_c, like_g):
+            if got is None:
+                return (torch.zeros_like(like_c),
+                        torch.full_like(like_g, -1),
+                        torch.zeros(like_g.shape, dtype=torch.bool,
+                                    device=like_g.device))
+            return got[0], got[1], got[1] >= 0
+
+        return parcel(from_right, cl, gl), parcel(from_left, cr, gr)
 
 
 def _pack_mask(coords: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
@@ -265,23 +391,26 @@ def _pack_mask(coords: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
 
 
 def _assemble_candidates(coords: torch.Tensor, gids: torch.Tensor, eps,
-                         *, cfg: DistJoinConfig):
+                         *, cfg: DistJoinConfig, ring=None):
     """Every slab's candidate block: its own P rows and the k-hop halo.
 
-    ``coords`` (S, P, n) and ``gids`` (S, P) are the stacked slabs on one
+    ``coords`` (S, P, n) and ``gids`` (S, P) are stacked slabs on one
     device, ``eps`` a 0-d tensor of the points' dtype. For each hop h a
     slab learns the boundary of its h-hop neighbours, selects the points
     each needs (within eps of that boundary along dimension 0) and ships
-    the parcel h slabs on. The block layout is the JAX package's
-    (``make_halo_step``): the local P rows, then for each hop the parcel
-    from the right neighbour and the one from the left. Returns
+    the parcel h slabs on. ``ring`` moves the boundaries and parcels: by
+    default a shift over all S slabs of one device; ``_RankRing`` sends
+    one rank's slab (S = 1) to its neighbours' ranks. The block layout is
+    the JAX package's (``make_halo_step``): the local P rows, then for
+    each hop the parcel from the right neighbour and the one from the
+    left. Returns
 
         (cand_coords (S, P + 2Hk, n), cand_gids, cand_valid, cand_owned,
-         halo_overflow (a 0-d bool))
+         halo_overflow (a 0-d bool, this device's slabs only))
 
     Invalid parcel slots carry the slab's first row as coordinates and -1
     as gid."""
-    n_slab = gids.shape[0]
+    ring = _Stacked() if ring is None else ring
     h_cap = cfg.halo_capacity
     owned = gids >= 0
     x0 = coords[:, :, 0]
@@ -289,12 +418,10 @@ def _assemble_candidates(coords: torch.Tensor, gids: torch.Tensor, eps,
                        device=coords.device)
     my_min0 = torch.where(owned, x0, big).min(dim=1).values
     my_max0 = torch.where(owned, x0, -big).max(dim=1).values
-    every = torch.ones(n_slab, dtype=torch.bool, device=coords.device)
     parcels_c, parcels_g, parcels_v = [], [], []
     overflow = torch.zeros((), dtype=torch.bool, device=coords.device)
     for h in range(1, cfg.k_hops + 1):
-        left_max, lm_ok = _halo_exchange(my_max0, every, +1, h)
-        right_min, rm_ok = _halo_exchange(my_min0, every, -1, h)
+        left_max, lm_ok, right_min, rm_ok = ring.bounds(my_max0, my_min0, h)
         left_max = torch.where(lm_ok, left_max, -big)
         right_min = torch.where(rm_ok, right_min, big)
         send_left = owned & (x0 <= (left_max + eps)[:, None])
@@ -303,10 +430,8 @@ def _assemble_candidates(coords: torch.Tensor, gids: torch.Tensor, eps,
         cr, gr, vr, ofr = _pack_mask(coords, gids, send_right, h_cap)
         # a parcel sent left (slab i -> i - h) is the one slab i - h
         # receives from its right, and the other way round
-        hcl, hvl = _halo_exchange(cl, vl, -1, h)
-        hgl, _ = _halo_exchange(gl, vl, -1, h)
-        hcr, hvr = _halo_exchange(cr, vr, +1, h)
-        hgr, _ = _halo_exchange(gr, vr, +1, h)
+        (hcl, hgl, hvl), (hcr, hgr, hvr) = ring.parcels(
+            (cl, gl, vl), (cr, gr, vr), h)
         parcels_c += [hcl, hcr]
         parcels_g += [hgl, hgr]
         parcels_v += [hvl, hvr]
@@ -324,6 +449,67 @@ def _assemble_candidates(coords: torch.Tensor, gids: torch.Tensor, eps,
 
 
 # ---------------------------------------------------------------------------
+# Collectives of a rank
+# ---------------------------------------------------------------------------
+
+def _is_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``launch.mesh.SlabMesh`` (imported here, so
+    that importing the package leaves the launcher to ``python -m``)."""
+    from repro_torch.launch.mesh import SlabMesh
+    return isinstance(mesh, SlabMesh)
+
+
+def _all_reduce(mesh: SlabMesh, values, op) -> list:
+    """``values`` (Python ints) reduced by ``op`` over every rank."""
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                     device=mesh.wire)
+    dist.all_reduce(t, op=op, group=mesh.group)
+    return t.tolist()
+
+
+def _any(mesh, flag) -> bool:
+    """A flag raised on any slab: of this device's, or, on a mesh, of any
+    rank's (all-reduced before any rank acts on it)."""
+    if _is_mesh(mesh):
+        return bool(_all_reduce(mesh, [bool(flag)], dist.ReduceOp.MAX)[0])
+    return bool(flag)
+
+
+def _on_every_rank(mesh, work):
+    """``work()``; on a mesh a rank's failure is all-reduced first, so the
+    ranks raise together and none waits in a later collective."""
+    if not _is_mesh(mesh):
+        return work()
+    err, out = None, None
+    try:
+        out = work()
+    except Exception as e:       # noqa: BLE001 -- re-raised on every rank
+        err = e
+    if _any(mesh, err is not None):
+        raise err if err is not None else RuntimeError(
+            "the slab join failed on another rank")
+    return out
+
+
+def _gather_pairs(mesh: SlabMesh, local: torch.Tensor) -> torch.Tensor:
+    """Every rank's (K_r, 2) pairs, concatenated in rank order on every
+    rank: an all-gather of the sizes, then a padded all-gather."""
+    world = mesh.n_slabs * mesh.n_model
+    sizes = [torch.zeros(1, dtype=torch.int64, device=mesh.wire)
+             for _ in range(world)]
+    dist.all_gather(sizes, torch.tensor([local.shape[0]], dtype=torch.int64,
+                                        device=mesh.wire), group=mesh.group)
+    sizes = [int(s) for s in sizes]
+    if max(sizes) == 0:
+        return local
+    pad = torch.zeros((max(sizes), 2), dtype=torch.int32, device=mesh.wire)
+    pad[:local.shape[0]] = local.to(mesh.wire)
+    bufs = [torch.empty_like(pad) for _ in range(world)]
+    dist.all_gather(bufs, pad, group=mesh.group)
+    return torch.cat([b[:k] for b, k in zip(bufs, sizes)]).to(mesh.device)
+
+
+# ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
 
@@ -335,17 +521,33 @@ def _host_tensor(points) -> torch.Tensor:
     return t
 
 
-def _slabs(pts: torch.Tensor, n_slabs: int, device: torch.device):
-    """The host partition and its stacked slabs on ``device``: (coords
-    (S, P, n) host array, gids (S, P) host array, the same two as tensors
-    on ``device`` in the points' dtype and int32). bfloat16 points
-    partition as their exact float32 copy."""
+def _placement(mesh, device):
+    """(slab count, the device the joins run on, the stacked slabs this
+    process holds) of ``mesh``: a slab count runs every slab on ``device``
+    in one process; a ``SlabMesh`` its rank's slab on the rank's device."""
+    if _is_mesh(mesh):
+        if device is not None:
+            raise ValueError("a SlabMesh names its rank's device; pass "
+                             "device= to make_slab_mesh")
+        return mesh.n_slabs, mesh.device, slice(mesh.slab, mesh.slab + 1)
+    if isinstance(mesh, bool) or not isinstance(mesh, (int, np.integer)):
+        raise TypeError(f"mesh must be a slab count or a SlabMesh, got "
+                        f"{type(mesh).__name__}")
+    return int(mesh), resolve_device(device), slice(None)
+
+
+def _slabs(pts: torch.Tensor, n_slabs: int, device: torch.device,
+           rows: slice = slice(None)):
+    """The host partition and, on ``device``, the slabs ``rows`` of it:
+    (coords (S, P, n) host array, gids (S, P) host array, those slabs as
+    tensors in the points' dtype and int32). bfloat16 points partition as
+    their exact float32 copy."""
     if n_slabs < 1:
         raise ValueError(f"n_slabs must be at least 1, got {n_slabs}")
     host = (pts.float() if pts.dtype == torch.bfloat16 else pts).numpy()
     coords, gids, _ = partition_points_host(host, n_slabs)
-    coords_dev = torch.from_numpy(coords).to(pts.dtype).to(device)
-    return coords, gids, coords_dev, torch.from_numpy(gids).to(device)
+    coords_dev = torch.from_numpy(coords[rows]).to(pts.dtype).to(device)
+    return coords, gids, coords_dev, torch.from_numpy(gids[rows]).to(device)
 
 
 def _far_point(pts: torch.Tensor, eps: float) -> torch.Tensor:
@@ -393,23 +595,30 @@ class SlabIndex:
     row_ok: np.ndarray       # (rows,) bool: the sorted rows the slab owns
 
 
-def slab_indexes(points, eps, n_slabs: int, *,
-                 halo_capacity: Optional[int] = None, metric: str = "l2",
-                 device=None):
-    """The slab join up to its per-slab joins: partition, halo exchange on
-    ``device`` and every slab's grid against the global geometry. Yields a
-    ``SlabIndex`` for each slab that owns a point; raises on a halo
-    overflow before the first. The arguments are
-    ``distributed_self_join``'s. The stages run in profiler spans:
-    ``slab_join.partition`` (the host partition and plan, the slabs' copy
-    to the device), ``slab_join.exchange`` and, per slab,
-    ``self_join.grid``."""
-    pts, eps = _checked_points(points, eps, metric)
-    dev = resolve_device(device)
-    if pts.shape[0] == 0:
-        return
+def _exchange(coords, gids, coords_dev, gids_dev, eps: float, cfg, mins,
+              maxs, mesh):
+    """The halo exchange of the held slabs; raises on an overflow of any
+    slab (on a mesh, on every rank together)."""
+    ring = _RankRing(mesh) if _is_mesh(mesh) else None
+    cand = _assemble_candidates(
+        coords_dev, gids_dev,
+        metric_lib.scalar_as(eps, coords_dev.dtype, coords_dev.device),
+        cfg=cfg, ring=ring)
+    if _any(mesh, cand[4]):
+        raise _halo_overflow_error(
+            cfg.halo_capacity,
+            halo_capacity_plan(coords, gids, mins, maxs, eps, cfg.k_hops))
+    return cand[:4]
+
+
+def _held_blocks(pts: torch.Tensor, eps: float, mesh, halo_capacity,
+                 device):
+    """Partition and halo exchange: (the slab ids held here, the device,
+    the held slabs' candidate blocks (cand_c, cand_g, cand_v, cand_o),
+    stacked). Raises on a halo overflow."""
+    n_slabs, dev, rows = _placement(mesh, device)
     with record_function("slab_join.partition"):
-        coords, gids, coords_dev, gids_dev = _slabs(pts, n_slabs, dev)
+        coords, gids, coords_dev, gids_dev = _slabs(pts, n_slabs, dev, rows)
         mins, maxs = slab_extents(coords, gids)
         k_hops = halo_reach(mins, maxs, eps)
         h_need = exact_halo_capacity(coords, gids, mins, maxs, eps, k_hops)
@@ -419,21 +628,47 @@ def slab_indexes(points, eps, n_slabs: int, *,
                        if halo_capacity is None else int(halo_capacity)),
         max_per_cell=0, k_hops=k_hops)
     with record_function("slab_join.exchange"):
-        cand_c, cand_g, cand_v, cand_o, halo_of = _assemble_candidates(
-            coords_dev, gids_dev, metric_lib.scalar_as(eps, pts.dtype, dev),
-            cfg=cfg)
-        overflow = bool(halo_of)
-    if overflow:
-        raise _halo_overflow_error(
-            cfg.halo_capacity,
-            halo_capacity_plan(coords, gids, mins, maxs, eps, k_hops))
+        blocks = _exchange(coords, gids, coords_dev, gids_dev, eps, cfg,
+                           mins, maxs, mesh)
+    return range(n_slabs)[rows], dev, blocks
+
+
+def candidate_blocks(points, eps, mesh, *,
+                     halo_capacity: Optional[int] = None,
+                     metric: str = "l2", device=None):
+    """The held slabs' candidate blocks after the halo exchange, as the
+    joins build their grids from them: ``(coords (S, P + 2Hk, n), gids,
+    valid, owned)`` with JAX's layout (``make_halo_step``); S is every slab
+    for a slab count, 1 on a ``SlabMesh`` (the rank's slab). The
+    arguments are ``distributed_self_join``'s."""
+    pts, eps = _checked_points(points, eps, metric)
+    return _held_blocks(pts, eps, mesh, halo_capacity, device)[2]
+
+
+def slab_indexes(points, eps, mesh, *, halo_capacity: Optional[int] = None,
+                 metric: str = "l2", device=None):
+    """The slab join up to its per-slab joins: partition, halo exchange and
+    the slabs' grids against the global geometry. ``mesh`` is a slab count
+    (every slab in this process, on ``device``) or a ``SlabMesh`` (this
+    rank's slab, exchanged with the other ranks'). Yields a ``SlabIndex``
+    for each held slab that owns a point; raises on a halo overflow
+    before the first. The arguments are ``distributed_self_join``'s. The
+    stages run in profiler spans: ``slab_join.partition`` (the host
+    partition and plan, the slabs' copy to the device),
+    ``slab_join.exchange`` and, per slab, ``self_join.grid``."""
+    pts, eps = _checked_points(points, eps, metric)
+    _placement(mesh, device)
+    if pts.shape[0] == 0:
+        return
+    held, dev, (cand_c, cand_g, cand_v, cand_o) = _held_blocks(
+        pts, eps, mesh, halo_capacity, device)
     # the global geometry, as build_grid derives it: cell coordinates (and
     # the UNICOMP ownership of cell pairs) agree across slabs and with the
     # one-process join
     gmin, dims = points_geometry(pts, eps)
     slab_kd = device_key_dtype(dims, padded=True)
     far = _far_point(pts, eps).to(pts.dtype).to(dev)
-    for k in range(n_slabs):
+    for k, slab in enumerate(held):
         with record_function("self_join.grid"):
             v = cand_v[k]
             o = cand_o[k] & v
@@ -443,30 +678,36 @@ def slab_indexes(points, eps, n_slabs: int, *,
             index = build_grid_with_geometry(cc, eps, gmin, dims, v,
                                              key_dtype=slab_kd)
             order = index.order.long()
-            slab = SlabIndex(k, index, cand_g[k][order],
-                             o[order].cpu().numpy())
-        yield slab
+            held_slab = SlabIndex(slab, index, cand_g[k][order],
+                                  o[order].cpu().numpy())
+        yield held_slab
 
 
-def distributed_self_join(points, eps, n_slabs: int, *, unicomp: bool = True,
+def distributed_self_join(points, eps, mesh, *, unicomp: bool = True,
                           merge_last_dim: Optional[bool] = None,
                           bucketed: Optional[bool] = None,
                           sort_result: bool = True,
                           halo_capacity: Optional[int] = None,
                           return_pairs: bool = True, metric: str = "l2",
                           device=None):
-    """The slab join's pairs: ``n_slabs`` equal-count slabs along
-    dimension 0, their eps-halo exchanged on one device, each slab joined by
-    the fused kernel over the rows it owns with global ids in the kernel's
-    masks (B1 (d)).
+    """The slab join's pairs: equal-count slabs along dimension 0, their
+    eps-halo exchanged, each slab joined by the fused kernel over the rows
+    it owns with global ids in the kernel's masks (B1 (d)).
 
-    Returns the (K, 2) int32 ordered pairs of global ids on ``device``
-    (CUDA by default; ``device="cpu"`` runs the plain versions), equal to
+    ``mesh`` is JAX's: a slab count runs every slab in this process on
+    ``device`` (CUDA by default; ``device="cpu"`` runs the plain
+    versions); a ``launch.mesh.SlabMesh`` runs SPMD, each rank calling
+    with the same points, exchanging the halo with its neighbours' ranks
+    and joining its own slab on its device (ranks of model index > 0 hold
+    their slab and join nothing). The pairs are then gathered, and every
+    rank returns the same result.
+
+    Returns the (K, 2) int32 ordered pairs of global ids, equal to
     ``self_join(distance_impl="fused")``'s after the ``sort_result``
-    lexicographic sort; ``return_pairs=False`` runs the count-only launches
-    and returns the ordered-pair total. ``metric="cosine"`` joins unit rows
-    of raw embeddings (``eps`` a minimum similarity); jaccard raises
-    ``NotImplementedError``.
+    lexicographic sort; ``return_pairs=False`` runs the count-only
+    launches and returns the ordered-pair total (summed over the ranks).
+    ``metric="cosine"`` joins unit rows of raw embeddings (``eps`` a
+    minimum similarity); jaccard raises ``NotImplementedError``.
 
     ``halo_capacity`` defaults to the exact need (``exact_halo_capacity``)
     rounded up to a power of two and capped at the slab size; a smaller one
@@ -478,52 +719,200 @@ def distributed_self_join(points, eps, n_slabs: int, *, unicomp: bool = True,
     2,049 / 257 points; ROADMAP §C, C3).
     """
     pts, eps = _checked_points(points, eps, metric)
-    dev = resolve_device(device)
+    _, dev, _ = _placement(mesh, device)
     npts, n = pts.shape
     # the merged sweep rides the last-dimension cell coordinate too: two
     # free lanes, or the per-cell sweep
     merged = resolve_merge_last_dim(n, merge_last_dim, extra_lanes=1)
-    chunks, total = [], 0
-    for s in slab_indexes(pts, eps, n_slabs, halo_capacity=halo_capacity,
-                          device=dev):
-        if return_pairs:
-            chunks.append(_self_join_fused(
-                s.index, unicomp=unicomp, sort_result=False,
-                bucketed=bucketed, merged=merged, row_ok=s.row_ok, ids=s.ids,
-                gid_pairs=True))
-        else:
-            total += _self_join_count_fused(
-                s.index, unicomp=unicomp, bucketed=bucketed, merged=merged,
-                row_ok=s.row_ok, ids=s.ids, gid_pairs=True).total_pairs
+    joins = not _is_mesh(mesh) or mesh.model == 0
+
+    def local():
+        chunks, total = [], 0
+        for s in slab_indexes(pts, eps, mesh, halo_capacity=halo_capacity,
+                              device=device):
+            if not joins:
+                continue
+            if return_pairs:
+                chunks.append(_self_join_fused(
+                    s.index, unicomp=unicomp, sort_result=False,
+                    bucketed=bucketed, merged=merged, row_ok=s.row_ok,
+                    ids=s.ids, gid_pairs=True))
+            else:
+                total += _self_join_count_fused(
+                    s.index, unicomp=unicomp, bucketed=bucketed,
+                    merged=merged, row_ok=s.row_ok, ids=s.ids,
+                    gid_pairs=True).total_pairs
+        return chunks, total
+
+    chunks, total = _on_every_rank(mesh, local)
     if not return_pairs:
+        if _is_mesh(mesh):
+            total = _all_reduce(mesh, [total], dist.ReduceOp.SUM)[0]
         return total
     with record_function("self_join.emit"):
         out = (torch.cat(chunks, dim=0) if chunks
                else torch.empty((0, 2), dtype=torch.int32, device=dev))
+        if _is_mesh(mesh):
+            out = _gather_pairs(mesh, out)
         return sort_pairs(out, npts) if sort_result else out
 
 
-def distributed_self_join_count(points, eps, n_slabs: int, *,
+# ---------------------------------------------------------------------------
+# The plain offset-sweep count, with the offset-parallel model axis
+# ---------------------------------------------------------------------------
+
+def _offset_block(n: int, unicomp: bool, n_model: int = 1, model: int = 0,
+                  model_axis: Optional[str] = "model"):
+    """The stencil offsets a model index sweeps, with their is-zero flags.
+    The JAX package pads the table to a multiple of ``n_model`` (zero
+    rows flagged invalid) and shards it over the model axis, each index
+    a contiguous block; the padding rows count nothing, so they are left
+    out. Without a model axis model index 0 sweeps every offset and the
+    others none (their totals would repeat it)."""
+    offs = stencil_offsets(n, unicomp)
+    zero = np.all(offs == 0, axis=1)
+    if model_axis is None:
+        keep = slice(None) if model == 0 else slice(0)
+    else:
+        per = -(-offs.shape[0] // n_model)
+        keep = slice(model * per, (model + 1) * per)
+    return offs[keep], zero[keep]
+
+
+def _count_block(cand_c, cand_g, cand_v, cand_o, eps: float, gmin, dims,
+                 cfg: DistJoinConfig, offs, zero):
+    """One slab's ordered-pair total over ``offs`` by the plain sweep: per
+    offset the (rows, C, n) candidate gather and refine of the unfused
+    sweep, masked to valid candidates, owned queries and the global-id
+    order. Returns (total, a 0-d int64 tensor; the cell overflow: a cell
+    holds more than C points, and then nothing is swept)."""
+    dev = cand_c.device
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    if not bool(cand_o.any()):
+        return total, False
+    index = build_grid_with_geometry(cand_c, eps, gmin, dims, cand_v,
+                                     key_dtype=np.dtype(cfg.key_dtype))
+    if int(index.max_per_cell) > cfg.max_per_cell:
+        return total, True
+    order = index.order.long()
+    valid_sorted = cand_v[order]
+    owned_sorted = cand_o[order]
+    gid_sorted = cand_g[order]
+    deltas = (offs @ row_major_strides(dims)).tolist()
+    for delta, is_zero in zip(deltas, zero.tolist()):
+        nbr = _neighbor_ranks_for_delta(index, delta)
+        q, cand, cand_pos, vmask, q_pos, _ = _gather_batch(
+            index, nbr, 0, index.num_points, cfg.max_per_cell)
+        cand_pos, q_pos = cand_pos.long(), q_pos.long()
+        hits = _distance_hits_jnp(q, cand, vmask, index.eps)
+        hits = hits & valid_sorted[cand_pos] & owned_sorted[q_pos][:, None]
+        gq = gid_sorted[q_pos][:, None]
+        gc = gid_sorted[cand_pos]
+        if cfg.unicomp:
+            # every UNICOMP hit is one unordered pair, two ordered ones
+            hits = hits & ((gc > gq) if is_zero else (gc != gq))
+            total += 2 * hits.sum(dtype=torch.int64)
+        else:
+            total += (hits & (gc != gq)).sum(dtype=torch.int64)
+    return total, False
+
+
+def _mesh_geometry(mesh: SlabMesh, coords: torch.Tensor, gids: torch.Tensor,
+                   eps: float):
+    """``points_geometry`` of the points of every rank's slab: the owned
+    rows' per-dimension extremes, all-reduced (exactly, in float64)."""
+    owned = (gids >= 0)[:, None]
+    x = coords.to(torch.float64)
+    ext = torch.stack([torch.where(owned, x, torch.inf).min(dim=0).values,
+                       torch.where(owned, x, -torch.inf).max(dim=0).values])
+    ext = ext.to(mesh.wire)
+    lo, hi = ext[0].clone(), ext[1].clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group)
+    ext = torch.stack([lo, hi]).cpu().to(geometry_dtype(coords.dtype))
+    return host_grid_geometry(ext.numpy(), float(eps))
+
+
+def make_halo_step(mesh: SlabMesh, cfg: DistJoinConfig):
+    """The halo step of a rank (JAX's ``make_halo_step``): ``step(coords,
+    gids, eps)`` takes the rank's slab rows, (P, n) and (P,), and returns
+    its candidate block ``(coords (P + 2Hk, n), gids, valid, owned)`` on
+    the rank's device, and the halo-overflow flag all-reduced over every
+    rank."""
+    ring = _RankRing(mesh)
+
+    def step(coords, gids, eps):
+        c = torch.as_tensor(coords).to(mesh.device)[None]
+        g = torch.as_tensor(gids).to(mesh.device)[None]
+        cand_c, cand_g, cand_v, cand_o, halo_of = _assemble_candidates(
+            c, g, metric_lib.scalar_as(eps, c.dtype, mesh.device), cfg=cfg,
+            ring=ring)
+        return (cand_c[0], cand_g[0], cand_v[0], cand_o[0],
+                _any(mesh, halo_of))
+
+    return step
+
+
+def make_distributed_count_step(mesh: SlabMesh, cfg: DistJoinConfig):
+    """The count step of a rank (JAX's ``make_distributed_count_step``):
+    ``step(coords, gids, eps)`` takes the rank's slab rows and returns
+    ``(ordered-pair total, halo_overflow, cell_overflow)``, the total
+    summed and the flags maxed over every rank (JAX's ``psum`` /
+    ``pmax`` over ``(slab, model)``). With ``cfg.model_axis`` the rank
+    sweeps the block of the stencil offsets of its model index."""
+    halo = make_halo_step(mesh, cfg)
+    offs, zero = _offset_block(cfg.n_dims, cfg.unicomp, mesh.n_model,
+                               mesh.model, cfg.model_axis)
+
+    def step(coords, gids, eps):
+        coords = torch.as_tensor(coords).to(mesh.device)
+        gids = torch.as_tensor(gids).to(mesh.device)
+        cand_c, cand_g, cand_v, cand_o, halo_of = halo(coords, gids, eps)
+        gmin, dims = _mesh_geometry(mesh, coords, gids, eps)
+        total, cell_of = _count_block(cand_c, cand_g, cand_v, cand_o,
+                                      float(eps), gmin, dims, cfg, offs,
+                                      zero)
+        total, = _all_reduce(mesh, [total], dist.ReduceOp.SUM)
+        cell_of, = _all_reduce(mesh, [cell_of], dist.ReduceOp.MAX)
+        return total, halo_of, bool(cell_of)
+
+    return step
+
+
+def distributed_self_join_count(points, eps, mesh, *,
                                 unicomp: bool = True,
                                 halo_capacity: Optional[int] = None,
                                 max_per_cell: Optional[int] = None,
+                                model_axis: Optional[str] = None,
                                 metric: str = "l2", device=None) -> int:
     """The slab join's ordered-pair total by the plain offset sweep (the
     JAX package's ``make_distributed_count_step``): per slab and stencil
     offset, the (rows, C, n) candidate gather and refine of the unfused
     sweep, masked to valid candidates, owned queries and the global-id
-    order. ``halo_capacity`` defaults to a whole slab, ``max_per_cell``
-    (the window C) to the global grid's. Raises on a halo overflow and
-    when a slab's cell holds more than ``max_per_cell`` points.
-    ``metric`` is ``distributed_self_join``'s."""
+    order. ``mesh`` is ``distributed_self_join``'s. On a ``SlabMesh``,
+    ``model_axis="model"`` shards the stencil offsets over the model
+    index (JAX's offset-parallel axis); the total is summed over every
+    rank, which all return it. ``model_axis`` with a slab count or a
+    mesh of one model index raises ``ValueError``. ``halo_capacity``
+    defaults to a whole slab, ``max_per_cell`` (the window C) to the
+    global grid's. Raises on a halo overflow and when a slab's cell holds
+    more than ``max_per_cell`` points (on every rank together). ``metric``
+    is ``distributed_self_join``'s."""
+    if model_axis is not None and (
+            model_axis != "model" or not _is_mesh(mesh)
+            or mesh.n_model == 1):
+        raise ValueError(
+            f"model_axis={model_axis!r} shards the offsets over the model "
+            f"index of a SlabMesh with n_model > 1 (model_axis='model'); "
+            f"got mesh {mesh!r}")
     points, eps = _canonicalize_for_slabs(points, eps, metric)
     pts = _host_tensor(points)
-    dev = resolve_device(device)
+    n_slabs, dev, rows = _placement(mesh, device)
     npts, n = pts.shape
     if npts == 0:
         return 0
     eps = float(eps)
-    coords, gids, coords_dev, gids_dev = _slabs(pts, n_slabs, dev)
+    coords, gids, coords_dev, gids_dev = _slabs(pts, n_slabs, dev, rows)
     mins, maxs = slab_extents(coords, gids)
     k_hops = halo_reach(mins, maxs, eps)
     if halo_capacity is None:
@@ -535,44 +924,27 @@ def distributed_self_join_count(points, eps, n_slabs: int, *,
         pts_per_device=coords.shape[1], n_dims=n,
         halo_capacity=int(halo_capacity),
         max_per_cell=max(8, -(-int(max_per_cell) // 8) * 8), k_hops=k_hops,
-        key_dtype=device_key_dtype(dims, padded=True).name)
-    cand_c, cand_g, cand_v, cand_o, halo_of = _assemble_candidates(
-        coords_dev, gids_dev, metric_lib.scalar_as(eps, pts.dtype, dev),
-        cfg=cfg)
-    if bool(halo_of):
-        raise _halo_overflow_error(
-            cfg.halo_capacity,
-            halo_capacity_plan(coords, gids, mins, maxs, eps, k_hops))
-    offs = stencil_offsets(n, unicomp)
-    deltas = (offs @ row_major_strides(dims)).tolist()
-    zero = np.all(offs == 0, axis=1).tolist()
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    for k in range(n_slabs):
-        if not bool(cand_o[k].any()):
-            continue
-        index = build_grid_with_geometry(cand_c[k], eps, gmin, dims,
-                                         cand_v[k],
-                                         key_dtype=np.dtype(cfg.key_dtype))
-        if int(index.max_per_cell) > cfg.max_per_cell:
+        key_dtype=device_key_dtype(dims, padded=True).name, unicomp=unicomp,
+        model_axis=model_axis)
+    if _is_mesh(mesh):
+        step = make_distributed_count_step(mesh, cfg)
+        total, halo_of, cell_of = step(coords_dev[0], gids_dev[0], eps)
+        if halo_of:
+            raise _halo_overflow_error(
+                cfg.halo_capacity,
+                halo_capacity_plan(coords, gids, mins, maxs, eps, k_hops))
+        if cell_of:
             raise RuntimeError("max_per_cell overflow")
-        order = index.order.long()
-        valid_sorted = cand_v[k][order]
-        owned_sorted = cand_o[k][order]
-        gid_sorted = cand_g[k][order]
-        for delta, is_zero in zip(deltas, zero):
-            nbr = _neighbor_ranks_for_delta(index, delta)
-            q, cand, cand_pos, vmask, q_pos, _ = _gather_batch(
-                index, nbr, 0, index.num_points, cfg.max_per_cell)
-            cand_pos, q_pos = cand_pos.long(), q_pos.long()
-            hits = _distance_hits_jnp(q, cand, vmask, index.eps)
-            hits = (hits & valid_sorted[cand_pos]
-                    & owned_sorted[q_pos][:, None])
-            gq = gid_sorted[q_pos][:, None]
-            gc = gid_sorted[cand_pos]
-            if unicomp:
-                # every UNICOMP hit is one unordered pair, two ordered ones
-                hits = hits & ((gc > gq) if is_zero else (gc != gq))
-                total += 2 * hits.sum(dtype=torch.int64)
-            else:
-                total += (hits & (gc != gq)).sum(dtype=torch.int64)
-    return int(total)
+        return total
+    cand_c, cand_g, cand_v, cand_o = _exchange(
+        coords, gids, coords_dev, gids_dev, eps, cfg, mins, maxs, mesh)
+    offs, zero = _offset_block(n, unicomp)
+    total = 0
+    for k in range(n_slabs):
+        part, cell_of = _count_block(cand_c[k], cand_g[k], cand_v[k],
+                                     cand_o[k], eps, gmin, dims, cfg, offs,
+                                     zero)
+        if cell_of:
+            raise RuntimeError("max_per_cell overflow")
+        total += int(part)
+    return total

@@ -198,7 +198,8 @@ def frontier_sweep(svc, stream: list, rates: list, *,
 
 
 def main(argv=None):
-    from repro_torch.launch.serve import BatchingJoinService, JoinService
+    from repro_torch.launch.serve import (BatchingJoinService, JoinService,
+                                          ShardedJoinService)
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--points", type=int, default=20000)
@@ -217,25 +218,27 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=1024)
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--slabs", type=int, default=1,
-                    help="slab-sharded serving; not ported yet (ROADMAP "
-                         "A14 (ii))")
+                    help="slab-sharded serving (ShardedJoinService, or "
+                         "BatchingJoinService(n_slabs=) with --batching)")
     ap.add_argument("--return-pairs", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="CUDA by default; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
-    if args.slabs > 1:
-        raise NotImplementedError("--slabs > 1 (slab-sharded serving) is "
-                                  "not ported yet (ROADMAP A14 (ii))")
 
     rng = np.random.default_rng(args.seed)
     pts = rng.uniform(0, 100, size=(args.points, args.dims))
     if args.batching:
         svc = BatchingJoinService(
-            pts, args.eps, return_pairs=args.return_pairs,
-            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-            device=args.device)
+            pts, args.eps, n_slabs=args.slabs,
+            return_pairs=args.return_pairs, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, device=args.device)
         svc.warmup()
+    elif args.slabs > 1:
+        svc = ShardedJoinService(pts, args.eps, args.slabs,
+                                 return_pairs=args.return_pairs,
+                                 device=args.device)
+        svc.warmup(max(args.sizes))
     else:
         svc = JoinService(pts, args.eps, return_pairs=args.return_pairs,
                           device=args.device)

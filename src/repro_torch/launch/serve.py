@@ -18,13 +18,17 @@ single launches of up to ``max_batch`` queries, with up to two batches in
 flight. Everything runs on the current stream of the index's device, so no
 tensor crosses streams.
 
-Both services take ``metric="cosine" | "jaccard"`` (``--metric`` on the
+``ShardedJoinService`` (and ``BatchingJoinService(n_slabs > 1)``,
+``--slabs`` on the command line) cuts the indexed set into the slab join's
+equal-count slabs, each with its own index on the service's device; a
+request goes to every slab and the answers merge into the single index's.
+Like the JAX package's, these services run in one process on one device.
+
+The services take ``metric="cosine" | "jaccard"`` (``--metric`` on the
 command line): the index is built over the canonical geometry and requests
 arrive as raw embeddings or token sets, with thresholds in metric units.
 
-Not ported yet, each raising and naming its ROADMAP item: the slab-sharded
-service and ``n_slabs > 1`` (A14 (ii), the collective slab join; the slab
-join in one process is ``core.distributed``), and ``--arch`` other than
+Not ported yet, raising and naming its ROADMAP item: ``--arch`` other than
 ``selfjoin`` (the LM decode service, A17).
 """
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import metric as metric_lib
+from repro_torch.core.distributed import partition_points_host
 from repro_torch.core.grid import build_grid, host_points, resolve_device
 from repro_torch.core.query_join import (QueryJoinResult, bucket_rows,
                                          coalesce_requests,
@@ -290,12 +295,130 @@ class JoinService(_JoinServiceBase):
                                   return_pairs=self.return_pairs)
 
 
-class ShardedJoinService:
-    """The slab-sharded service of the JAX package; not ported yet."""
+def _prepare_slabs(points, eps: float, n_slabs: int, canon, merge_last_dim,
+                   device):
+    """(slab gids, indexes, prepared joins) of the slab-sharded services:
+    the slab join's equal-count partition along dimension 0
+    (``partition_points_host``), and one grid and ``PreparedJoin`` on
+    ``device`` for each non-empty slab. A metric's slabs cut its canonical
+    form (``canon``, made once over the whole set); l2 points keep their
+    dtype (bfloat16 sorts as its exact float32 copy)."""
+    if canon is not None:
+        pts = key = np.asarray(canon.geom)
+    else:
+        pts = (points.detach().cpu() if isinstance(points, torch.Tensor)
+               else torch.from_numpy(np.ascontiguousarray(np.asarray(points))))
+        key = (pts.float() if pts.dtype == torch.bfloat16 else pts).numpy()
+    _, slabs, _ = partition_points_host(key, n_slabs)
+    eps_geom = float(eps if canon is None else canon.eps_geom)
+    gids, indexes, prepared = [], [], []
+    for sg in slabs:
+        sg = sg[sg >= 0]
+        if not sg.size:
+            continue                      # an empty slab: nothing to index
+        slab_canon = None
+        if canon is None:
+            slab_pts = pts[torch.from_numpy(sg).long()]
+        else:
+            slab_pts = pts[sg]
+            slab_canon = metric_lib.Canonical(
+                canon.metric, slab_pts,
+                None if canon.feats is None else canon.feats[sg],
+                canon.n_feat, canon.eps, canon.eps_geom, canon.vocab)
+        index = build_grid(slab_pts, eps_geom, device=device)
+        gids.append(sg)
+        indexes.append(index)
+        prepared.append(prepare(index, merge_last_dim=merge_last_dim,
+                                canon=slab_canon))
+    return gids, indexes, prepared
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the slab-sharded join service is not "
-                                  "ported yet (ROADMAP A14 (ii))")
+
+class ShardedJoinService(_JoinServiceBase):
+    """Slab-sharded epsilon-join service.
+
+    The indexed set is cut into the slab join's equal-count slabs along
+    dimension 0 (``core.distributed.partition_points_host``); each
+    non-empty slab holds its own grid index and ``PreparedJoin`` on the
+    service's device, built once. A request goes to every slab (a query
+    near a boundary has neighbours on both sides): every slab's launches
+    are queued (``join_async``) before any result is read, counts sum and
+    pair point ids map through each slab's global-id table, so the answer
+    equals the single-index service's. Every indexed point lives in one
+    slab, so no pair is found twice. ``warmup`` does every slab's start-up
+    work; the watchdog (``assert_no_retrace``) is the base class's.
+
+    ``metric`` / ``vocab`` as in ``JoinService``: the set is canonicalized
+    once, the slabs cut its canonical geometry, and a request is
+    canonicalized once for all slabs.
+    """
+
+    def __init__(self, points, eps: float, n_slabs: int, *,
+                 return_pairs: bool = False,
+                 merge_last_dim: Optional[bool] = None,
+                 metric: str = "l2", vocab: Optional[int] = None,
+                 device=None):
+        super().__init__(return_pairs)
+        metric_lib.check_metric(metric)
+        self.metric = metric
+        self.eps = float(eps)          # in metric units
+        self._query_canon = None
+        if metric != "l2":
+            self._query_canon = metric_lib.canonicalize(
+                points, eps, metric=metric, vocab=vocab)
+        self.device = resolve_device(device)
+        t0 = time.perf_counter()
+        self.slab_gids, self.indexes, self.prepared = _prepare_slabs(
+            points, self.eps, n_slabs, self._query_canon, merge_last_dim,
+            self.device)
+        self.n_slabs = n_slabs
+        self.build_s = time.perf_counter() - t0
+
+    def warmup(self, batch_size: int) -> int:
+        """``JoinService.warmup`` for every slab."""
+        qp = bucket_rows(batch_size)
+        if qp not in self._warm_buckets:
+            for pj in self.prepared:
+                pj.warm(batch_size, return_pairs=self.return_pairs)
+            self._warm_buckets.add(qp)
+        self._auto_steady()
+        return qp
+
+    def _answer(self, queries, eps: Optional[float] = None):
+        # a raw metric request is canonicalized once, not once a slab
+        if self._query_canon is not None:
+            queries = metric_lib.canonicalize_queries(self._query_canon,
+                                                      queries)
+        pendings = [pj.join_async(queries, eps=eps,
+                                  return_pairs=self.return_pairs,
+                                  sort_pairs=False)
+                    for pj in self.prepared]
+        return _merge_slab_results([p.result() for p in pendings],
+                                   self.slab_gids, self.return_pairs)
+
+
+def _merge_slab_results(results, slab_gids, return_pairs: bool):
+    """The single index's answer from the slabs' answers: counts sum, pair
+    point ids map through each slab's global-id table, and the merged
+    pairs sort by (query row, point id)."""
+    counts = None
+    chunks = []
+    bucket = n_off = 0
+    emit = None
+    for res, sg in zip(results, slab_gids):
+        counts = res.counts if counts is None else counts + res.counts
+        bucket, n_off, emit = res.bucket_rows, res.n_offsets, res.emit
+        if return_pairs and res.pairs.shape[0]:
+            p = res.pairs.copy()
+            p[:, 1] = sg[p[:, 1]]             # slab point id -> global id
+            chunks.append(p)
+    pairs = None
+    if return_pairs:
+        pairs = (np.concatenate(chunks, axis=0) if chunks
+                 else np.empty((0, 2), np.int32))
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    return QueryJoinResult(
+        counts=counts, pairs=pairs, n_offsets=n_off, bucket_rows=bucket,
+        emit=emit, candidates_checked=None)
 
 
 class BatchTicket:
@@ -365,12 +488,13 @@ class _Sub:
 
 
 class _Inflight:
-    """A launched coalesced batch whose device results are outstanding."""
+    """A launched coalesced batch whose device results are outstanding:
+    one pending join a slab."""
 
-    __slots__ = ("pending", "subs", "bounds")
+    __slots__ = ("pendings", "subs", "bounds")
 
-    def __init__(self, pending, subs, bounds):
-        self.pending = pending
+    def __init__(self, pendings, subs, bounds):
+        self.pendings = pendings
         self.subs = subs
         self.bounds = bounds
 
@@ -387,7 +511,9 @@ class BatchingJoinService(_JoinServiceBase):
     Each request's answer is sliced back out of the coalesced result by its
     query rows (``slice_result``) and equals serving it alone. A request
     wider than ``max_batch`` splits into parts; an empty request completes
-    at once. ``n_slabs > 1`` waits for ROADMAP A14 (ii) and raises.
+    at once. ``n_slabs > 1`` serves from ``ShardedJoinService``'s slabs:
+    each launch goes to every slab, and the slabs' answers merge before
+    the requests are sliced out (``index`` is then not used).
 
     ``metric`` / ``vocab`` as in ``JoinService``; a request is
     canonicalized once, at admission, and its geometry and feature rows
@@ -402,9 +528,6 @@ class BatchingJoinService(_JoinServiceBase):
                  device=None):
         super().__init__(return_pairs)
         metric_lib.check_metric(metric)
-        if n_slabs > 1:
-            raise NotImplementedError("n_slabs > 1 (slab-sharded batching) "
-                                      "is not ported yet (ROADMAP A14 (ii))")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.max_batch = int(max_batch)
@@ -422,14 +545,22 @@ class BatchingJoinService(_JoinServiceBase):
                 points, eps, metric=metric, vocab=vocab)
         t0 = time.perf_counter()
         qc = self._query_canon
-        if qc is not None:
-            index = build_grid(np.asarray(qc.geom), float(qc.eps_geom),
-                               device=resolve_device(device))
-        elif index is None:
-            index = build_grid(points, self.eps,
-                               device=resolve_device(device))
-        self.prepared = prepare(index, merge_last_dim=merge_last_dim,
-                                canon=qc)
+        if n_slabs > 1:
+            self.slab_gids, self.indexes, self.prepared = _prepare_slabs(
+                points, self.eps, n_slabs, qc, merge_last_dim,
+                resolve_device(device))
+        else:
+            if qc is not None:
+                index = build_grid(np.asarray(qc.geom), float(qc.eps_geom),
+                                   device=resolve_device(device))
+            elif index is None:
+                index = build_grid(points, self.eps,
+                                   device=resolve_device(device))
+            self.slab_gids = None
+            self.indexes = [index]
+            self.prepared = [prepare(index, merge_last_dim=merge_last_dim,
+                                     canon=qc)]
+        self.n_slabs = len(self.prepared)
         self.build_s = time.perf_counter() - t0
         self._queue: deque[_Sub] = deque()
         self._queued_rows = 0
@@ -445,7 +576,7 @@ class BatchingJoinService(_JoinServiceBase):
         """Enqueue one request; returns a ticket that completes once every
         part has been served from a coalesced launch (``pump``/``drain``
         advance the pipeline). Does not block."""
-        pj = self.prepared
+        pj = self.prepared[0]
         if self.metric != "l2":
             # canonicalized once per request, at admission: geometry and
             # feature rows coalesce as one 2-D array and split at launch
@@ -510,16 +641,19 @@ class BatchingJoinService(_JoinServiceBase):
 
     def _launch(self, group: list[_Sub]) -> None:
         qcat, bounds = coalesce_requests([s.queries for s in group])
-        pj = self.prepared
+        pj = self.prepared[0]
         qsend = qcat
         if self.metric != "l2":
             # the (geometry, features) pair join_async takes as it is
             qsend = (qcat[:, :pj.n_dims],
                      qcat[:, pj.n_dims:] if pj.n_feat else None)
-        pending = pj.join_async(
-            qsend, eps=group[0].eps_key, return_pairs=self.return_pairs,
-            sort_pairs=True)
-        self._inflight.append(_Inflight(pending, group, bounds))
+        # every slab's launches are queued before any result is read; a
+        # single index sorts its pairs, slabs sort once merged
+        pendings = [p.join_async(qsend, eps=group[0].eps_key,
+                                 return_pairs=self.return_pairs,
+                                 sort_pairs=self.slab_gids is None)
+                    for p in self.prepared]
+        self._inflight.append(_Inflight(pendings, group, bounds))
         self.n_launches += 1
         self.n_coalesced += len(group)
         self.rows_launched += qcat.shape[0]
@@ -529,7 +663,11 @@ class BatchingJoinService(_JoinServiceBase):
 
     def _resolve_oldest(self) -> None:
         infl = self._inflight.popleft()
-        res = infl.pending.result()
+        if self.slab_gids is None:
+            res = infl.pendings[0].result()
+        else:
+            res = _merge_slab_results([p.result() for p in infl.pendings],
+                                      self.slab_gids, self.return_pairs)
         for k, sub in enumerate(infl.subs):
             part = slice_result(res, int(infl.bounds[k]),
                                 int(infl.bounds[k + 1]))
@@ -545,7 +683,8 @@ class BatchingJoinService(_JoinServiceBase):
         while self._flush_due(now):
             self._launch(self._form_group())
         while self._inflight and (len(self._inflight) > 2
-                                  or self._inflight[0].pending.ready()):
+                                  or all(p.ready() for p
+                                         in self._inflight[0].pendings)):
             self._resolve_oldest()
 
     def drain(self) -> None:
@@ -573,7 +712,8 @@ class BatchingJoinService(_JoinServiceBase):
         s = bucket_rows(1)
         while s <= top:
             if s not in self._warm_buckets:
-                self.prepared.warm(s, return_pairs=self.return_pairs)
+                for pj in self.prepared:
+                    pj.warm(s, return_pairs=self.return_pairs)
                 self._warm_buckets.add(s)
             s *= 2
         self._auto_steady()
@@ -616,17 +756,26 @@ def serve_selfjoin(args):
     rng = np.random.default_rng(args.seed)
     pts, eps, make_queries = _metric_workload(args, rng)
     device = resolve_device(args.device)
-    if args.slabs > 1:
-        raise NotImplementedError("--slabs > 1 (slab-sharded serving) is "
-                                  "not ported yet (ROADMAP A14 (ii))")
     if args.batching:
         svc = BatchingJoinService(
-            pts, eps, return_pairs=args.return_pairs,
+            pts, eps, n_slabs=args.slabs, return_pairs=args.return_pairs,
             merge_last_dim=not args.no_merge, max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms, metric=args.metric, device=device)
         print(f"[serve] batching service on {device}: {args.points} pts, "
-              f"max_batch={svc.max_batch}, max_wait={svc.max_wait_ms}ms "
+              f"{svc.n_slabs} slab(s), max_batch={svc.max_batch}, "
+              f"max_wait={svc.max_wait_ms}ms "
               f"(indexed in {svc.build_s:.3f}s)")
+    elif args.slabs > 1:
+        svc = ShardedJoinService(pts, eps, args.slabs,
+                                 return_pairs=args.return_pairs,
+                                 merge_last_dim=not args.no_merge,
+                                 metric=args.metric, device=device)
+        sweep = "merged-range" if svc.prepared[0].merged else "per-cell"
+        cells = sum(int(i.num_cells) for i in svc.indexes)
+        print(f"[serve] indexed {args.points} pts on {device} across "
+              f"{len(svc.prepared)} slabs in {svc.build_s:.3f}s "
+              f"(metric={args.metric}, |G|={cells} non-empty cells in all, "
+              f"{sweep} sweep)")
     else:
         svc = JoinService(pts, eps, return_pairs=args.return_pairs,
                           merge_last_dim=not args.no_merge,
@@ -706,8 +855,8 @@ def main(argv=None):
                     help="serve through the per-cell 3^n stencil instead "
                          "of the merged-range 3^(n-1) sweep")
     ap.add_argument("--slabs", type=int, default=1,
-                    help="slab-sharded serving; not ported yet (ROADMAP "
-                         "A14 (ii))")
+                    help="slab-sharded serving: the indexed set cut into "
+                         "this many equal-count slabs along dimension 0")
     ap.add_argument("--reindex", action="store_true",
                     help="re-index a permutation of the point set halfway "
                          "through the request loop (background build and "
@@ -724,9 +873,9 @@ def main(argv=None):
     if args.arch != "selfjoin":
         raise NotImplementedError(f"--arch {args.arch}: the LM services are "
                                   f"not ported yet (ROADMAP A17)")
-    if args.reindex and args.batching:
+    if args.reindex and (args.batching or args.slabs > 1):
         raise SystemExit("--reindex needs the single-index service (no "
-                         "--batching)")
+                         "--slabs/--batching)")
     return serve_selfjoin(args)
 
 

@@ -16,7 +16,8 @@ import pytest
 from repro.launch import serve as jserve
 from repro_torch.core import query_join as tqj
 from repro_torch.launch import serve
-from repro_torch.launch.serve import BatchingJoinService, JoinService
+from repro_torch.launch.serve import (BatchingJoinService, JoinService,
+                                      ShardedJoinService)
 from test_torch_metric import binary_matrix, embeddings, token_sets
 from torch_workloads import jax_tables  # noqa: F401  (fixture)
 from torch_workloads import one_torch_thread  # noqa: F401  (autouse)
@@ -172,4 +173,53 @@ def test_serve_cli_metric_on_cpu(metric, extra):
                           "--metric", metric, "--points", "1500",
                           "--dims", "4", "--eps", "2.0", "--requests", "3",
                           "--request-batch", "32"] + extra)
+    assert p50 > 0
+
+
+@pytest.mark.parametrize("metric", ["cosine", "jaccard"])
+def test_sharded_services_match_jax(jax_tables, metric):
+    """ShardedJoinService and BatchingJoinService(n_slabs=3) per metric: the
+    slabs cut the canonical geometry, a request is canonicalized once, and
+    every answer (a stricter threshold included) equals JAX's sharded
+    services' and the port's single index's."""
+    pts, eps, tight, reqs = stream_for(metric, 70)
+    with jax_tables():
+        jsh = jserve.ShardedJoinService(pts, eps, 3, return_pairs=True,
+                                        metric=metric)
+        want = [jsh.query(q) for q in reqs] + [jsh.query(reqs[1],
+                                                         eps=tight)]
+        jbat = jserve.BatchingJoinService(pts, eps, n_slabs=3,
+                                          return_pairs=True, max_batch=128,
+                                          metric=metric)
+        jt = [jbat.submit(q) for q in reqs]
+        jbat.drain()
+    single = JoinService(pts, eps, return_pairs=True, metric=metric,
+                         device="cpu")
+    svc = ShardedJoinService(pts, eps, 3, return_pairs=True, metric=metric,
+                             device="cpu")
+    warm(svc, 128)
+    got = [svc.query(q) for q in reqs] + [svc.query(reqs[1], eps=tight)]
+    svc.assert_no_retrace()
+    for g, w in zip(got, want):
+        assert_same(g, w)
+    for q, g in zip(reqs, got):
+        assert_same(g, single.query(q))
+    bat = BatchingJoinService(pts, eps, n_slabs=3, return_pairs=True,
+                              max_batch=128, metric=metric, device="cpu")
+    tickets = [bat.submit(q) for q in reqs]
+    bat.drain()
+    for t, w in zip(tickets, jt):
+        assert_same(t.result(), w.result())
+    assert bat.n_launches == jbat.n_launches
+
+
+@pytest.mark.parametrize("metric", ["cosine", "jaccard"])
+@pytest.mark.parametrize("extra", [[], ["--batching", "--return-pairs"]])
+def test_serve_cli_metric_slabs_on_cpu(metric, extra):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # warmup() marks steady
+        p50 = serve.main(["--arch", "selfjoin", "--device", "cpu",
+                          "--metric", metric, "--points", "1500",
+                          "--dims", "4", "--eps", "2.0", "--requests", "3",
+                          "--request-batch", "32", "--slabs", "2"] + extra)
     assert p50 > 0

@@ -313,10 +313,6 @@ def test_reindex_error_surfaces(dataset):
 
 def test_unported_services_raise(dataset):
     pts, eps = dataset
-    with pytest.raises(NotImplementedError, match="A14"):
-        ShardedJoinService(pts, eps, 3)
-    with pytest.raises(NotImplementedError, match="A14"):
-        BatchingJoinService(pts, eps, n_slabs=2, device="cpu")
     # the metrics are ported (ROADMAP A8): a non-L2 service builds its own
     # index, so a given one is refused, and an unknown metric too
     with pytest.raises(ValueError, match="pass raw points"):
@@ -326,8 +322,6 @@ def test_unported_services_raise(dataset):
         serve.main(["--arch", "smoke-lm", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--metric", "hamming", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        serve.main(["--slabs", "2", "--device", "cpu", "--points", "100"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--return-pairs", "--reindex"],
@@ -415,3 +409,118 @@ def test_services_match_jax_services(dataset, jax_tables, return_pairs):
     assert np.array_equal(want[0].counts,
                           brute_counts(stream[0][0], pts, eps))
     assert jqj.bucket_rows(64) == tqj.bucket_rows(64)
+
+
+@pytest.mark.parametrize("return_pairs", [True, False])
+def test_sharded_service_matches_jax_and_single_index(jax_tables,
+                                                      return_pairs):
+    """ShardedJoinService at 3 slabs answers as JAX's ShardedJoinService and
+    as the port's single-index service (counts, and pairs sorted with
+    global point ids), its steady state moves no counter, and with more
+    slabs than points the empty slabs are skipped (JAX's
+    ``test_sharded_service_matches_single_index``)."""
+    rng = np.random.default_rng(31)
+    pts = rng.uniform(0, 40, (2500, 3))
+    eps = 1.5
+    qs = [np.random.default_rng(seed).uniform(-2, 42, (100, 3))
+          for seed in (0, 1)]
+    with jax_tables():
+        jsh = jserve.ShardedJoinService(pts, eps, 3,
+                                        return_pairs=return_pairs)
+        want = [jsh.query(q) for q in qs]
+    single = JoinService(pts, eps, return_pairs=return_pairs, device="cpu")
+    refs = [single.query(q) for q in qs]
+    sharded = ShardedJoinService(pts, eps, 3, return_pairs=return_pairs,
+                                 device="cpu")
+    assert sharded.n_slabs == 3 and len(sharded.prepared) == 3
+    assert sorted(np.concatenate(sharded.slab_gids).tolist()) == list(
+        range(pts.shape[0]))
+    with pytest.warns(UserWarning, match="auto-marking steady"):
+        sharded.warmup(128)
+    for q, ref, w in zip(qs, refs, want):
+        got = sharded.query(q)
+        assert np.array_equal(got.counts, ref.counts)
+        assert np.array_equal(got.counts, w.counts)
+        if return_pairs:
+            assert np.array_equal(got.pairs, ref.pairs)
+            assert np.array_equal(got.pairs, w.pairs)
+        else:
+            assert got.pairs is None
+    sharded.assert_no_retrace()
+    tiny = ShardedJoinService(pts[:2], eps, 5, return_pairs=True,
+                              device="cpu")
+    assert len(tiny.prepared) == 2
+    ref = JoinService(pts[:2], eps, return_pairs=True,
+                      device="cpu").query(qs[0][:16])
+    got = tiny.query(qs[0][:16])
+    assert np.array_equal(ref.counts, got.counts)
+    assert np.array_equal(ref.pairs, got.pairs)
+
+
+def test_sharded_service_eps_threading(dataset, prepared):
+    """A per-request eps reaches every slab (JAX's
+    ``test_sharded_service_eps_threading``)."""
+    pts, eps = dataset
+    q = np.random.default_rng(12).uniform(0, 100, size=(40, 3))
+    svc = ShardedJoinService(pts, eps, 3, device="cpu")
+    with pytest.warns(UserWarning, match="auto-marking steady"):
+        svc.warmup(40)
+    for e in (0.6 * eps, eps):
+        got = svc.query(q, eps=e)
+        assert np.array_equal(got.counts, prepared.counts(q, eps=e))
+    svc.assert_no_retrace()
+
+
+def test_sharded_batching_matches_jax(dataset, prepared, jax_tables):
+    """BatchingJoinService(n_slabs=3): each coalesced launch goes to every
+    slab and the merged answer is sliced per request; equal to JAX's
+    sharded batching and to the single index (JAX's
+    ``test_sharded_batching_matches_single``)."""
+    pts, eps = dataset
+    rng = np.random.default_rng(8)
+    reqs = [rng.uniform(0, 100, size=(n, 3)) for n in (120, 7, 300, 1)]
+    with jax_tables():
+        jbat = jserve.BatchingJoinService(pts, eps, n_slabs=3,
+                                          return_pairs=True, max_batch=256)
+        jt = [jbat.submit(q) for q in reqs]
+        jbat.drain()
+    svc = BatchingJoinService(pts, eps, n_slabs=3, return_pairs=True,
+                              max_batch=256, device="cpu")
+    assert svc.n_slabs == 3 and len(svc.slab_gids) == 3
+    with pytest.warns(UserWarning, match="auto-marking steady"):
+        svc.warmup()
+    tickets = [svc.submit(q) for q in reqs]
+    svc.pump()
+    svc.drain()
+    for q, t, w in zip(reqs, tickets, jt):
+        got, ref = t.result(), prepared.join(q, return_pairs=True)
+        assert np.array_equal(got.counts, ref.counts)
+        assert np.array_equal(got.pairs, ref.pairs)
+        assert np.array_equal(got.counts, w.result().counts)
+        assert np.array_equal(got.pairs, w.result().pairs)
+    assert svc.n_launches == jbat.n_launches
+    svc.assert_no_retrace()
+
+
+@pytest.mark.parametrize("extra", [["--return-pairs"], ["--batching"]])
+def test_serve_cli_slabs_on_cpu(extra):
+    with pytest.warns(UserWarning, match="auto-marking steady"):
+        p50 = serve.main(["--arch", "selfjoin", "--device", "cpu",
+                          "--points", "2000", "--dims", "3", "--eps", "2.0",
+                          "--requests", "4", "--request-batch", "32",
+                          "--slabs", "2", *extra])
+    assert p50 > 0
+    with pytest.raises(SystemExit, match="reindex"):
+        serve.main(["--device", "cpu", "--slabs", "2", "--reindex"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--batching", "--return-pairs"]])
+def test_loadgen_slabs_on_cpu(extra):
+    """``--slabs 2`` on the load generator: the sharded service, or the
+    batching service over two slabs, through a closed loop."""
+    with pytest.warns(UserWarning, match="auto-marking steady"):
+        rep = loadgen.main(["--device", "cpu", "--points", "1500",
+                            "--dims", "3", "--eps", "3.0", "--requests",
+                            "6", "--sizes", "8", "16", "--slabs", "2",
+                            *extra])
+    assert rep.n_requests == 6 and rep.total_queries > 0
