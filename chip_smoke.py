@@ -125,6 +125,21 @@ each printing one JSON line:
                   equals scipy's connected-component roots over the join's
                   pairs, and the kept rows join to no pair; the three torch
                   examples, started together
+  analysis        ROADMAP A13 (``repro_torch.analysis``): the main path in
+                  sanitized mode (``REPRO_TORCH_SANITIZE``) against
+                  MAIN_TOTAL with one code a B1 launch and none left
+                  pending, timed in turns with the unsanitized path (CUDA
+                  events); the sanitized wrapper under the sync debug mode;
+                  index A's 64 requests sanitized against unsanitized; the
+                  cosine and Jaccard joins at the metrics phase's sizes;
+                  injected faults (a descriptor past the buffer, a count
+                  above c, an off-unit cosine row, a corrupted slot_base)
+                  each raising its bit with the context intact, the main
+                  path giving MAIN_TOTAL after the first; the contract
+                  prover and linter on indexes built on the card (the
+                  canned ones, the 2 M main path's, 4 slabs) with no
+                  finding beyond the baseline, and C6's shared-memory
+                  limit against the card's opt-in limit
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -142,7 +157,8 @@ Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
 join's B1 and the Jaccard join's B1 (e), slab for B1 (d), collective for
 B1 (d) in each rank's process, sharded for B1 (b) on the slabs, dedup for
-its cosine join's B1) and read just after; comparisons with the plain
+its cosine join's B1, analysis for the sanitized main path's B1) and read
+just after; comparisons with the plain
 versions run outside those windows. The
 last lines are the card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4077,6 +4093,229 @@ def phase_dedup() -> dict:
     return dict(launches=launches)
 
 
+# --- analysis: the sanitized kernel mode and the contract prover (A13) ------
+
+ANALYSIS_TURNS = 2     # (unsanitized, sanitized, sanitized, unsanitized) each
+
+
+@contextlib.contextmanager
+def sanitized(flag: bool):
+    """Sanitized mode forced on or off inside the block; no code may be
+    left pending at its end."""
+    from repro_torch.analysis import sanitize
+    sanitize.set_enabled(flag)
+    try:
+        yield
+    finally:
+        sanitize.set_enabled(None)
+    check(sanitize.pending() == 0, "sanitizer codes left pending")
+
+
+def raises_sanitizer(fn, bit: str) -> str:
+    """Run ``fn`` sanitized, synchronise (a CUDA fault would raise here),
+    and return the ``SanitizerError`` the drain raises, naming ``bit``."""
+    from repro_torch.analysis import sanitize
+    with sanitized(True):
+        fn()
+        sync()
+        try:
+            sanitize.raise_pending()
+        except sanitize.SanitizerError as err:
+            check(bit in str(err), f"the sanitizer raised {err}, not {bit}")
+            return str(err)
+    raise SmokeFailure(f"no SanitizerError for {bit}")
+
+
+def phase_analysis() -> dict:
+    """ROADMAP A13 on the card: the main path, index A's requests and the
+    cosine and Jaccard joins in sanitized mode (``REPRO_TORCH_SANITIZE``),
+    the sanitized wrapper under the sync debug mode, injected faults raised
+    at the drain with the context intact, and the contract prover on
+    indexes built on the card, with C6's limit against the card's."""
+    import repro_torch
+    from repro_torch.analysis import contracts, sanitize
+    from repro_torch.analysis import findings as F
+    from repro_torch.analysis.__main__ import (DEFAULT_BASELINE,
+                                               collect_findings)
+    from repro_torch.core import metric, selfjoin as sj
+    from repro_torch.kernels import fused_join as fj, ops
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    pts, eps = syn(MAIN_POINTS, MAIN_DIMS), MAIN_EPS
+    sanitize.clear()
+    recorded = []
+    record = sanitize.record
+    sanitize.record = lambda label, code: (recorded.append(label),
+                                           record(label, code))
+    try:
+        # the sanitized main path, counted alone, then timed in turns
+        with sanitized(True):
+            repro_torch.self_join(pts, eps, device=DEVICE)      # warm-up
+            sync()
+            recorded.clear()
+            fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
+            pairs = repro_torch.self_join(pts, eps, device=DEVICE)
+            launches = fj.KERNEL_LAUNCHES
+            run_loop = fj.RUN_LOOP_LAUNCHES
+            codes = len(recorded)
+            check(pairs.shape[0] == MAIN_TOTAL, f"sanitized main path: "
+                  f"{pairs.shape[0]} pairs, want {MAIN_TOTAL}")
+            del pairs
+            total = repro_torch.self_join_count(pts, eps, device=DEVICE)
+            check(total.total_pairs == MAIN_TOTAL, f"sanitized count: "
+                  f"{total.total_pairs}, want {MAIN_TOTAL}")
+        check(launches > 0 and codes == launches, f"sanitized main path: "
+              f"{launches} B1 launches, {codes} codes recorded")
+        turns = {False: [], True: []}
+        for _ in range(ANALYSIS_TURNS):
+            for flag in (False, True, True, False):
+                with sanitized(flag):
+                    turns[flag].append(event_ms(
+                        lambda: repro_torch.self_join(pts, eps,
+                                                      device=DEVICE)))
+
+        # the sanitized wrapper does not wait for the device
+        index = repro_torch.build_grid(pts, eps, device=DEVICE)
+        merged = sj._resolve_merge(index, None)
+        prepared = prepared_launches(index, merged=merged, unicomp=True)
+        with sanitized(True):
+            for p in prepared:                     # loads, untimed
+                ops.fused_join_hits(*p["args"], **p["kw"])
+            sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for p in prepared:
+                    ops.fused_join_hits(*p["args"], **p["kw"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            sanitize.raise_pending()
+
+        # index A's requests answer what they answer unsanitized
+        requests = serve_requests(SERVE_REQUESTS, np.random.default_rng(21))
+        svc = serve.JoinService(pts, eps, index=index, return_pairs=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # warmup() marks steady
+            svc.warmup(SERVE_BATCH)
+        plain = [svc.query(q) for q in requests]
+        with sanitized(True):
+            recorded.clear()
+            served = [svc.query(q) for q in requests]
+            served_codes = len(recorded)
+        for a, b in zip(plain, served):
+            same_answer(a, b, "sanitized index A")
+        svc.assert_no_retrace()
+        check(served_codes >= SERVE_REQUESTS, "the sanitized requests "
+              "recorded no codes")
+        del svc, plain, served
+
+        # the cosine and Jaccard joins at the metric phase's sizes
+        emb = cosine_data(COSINE_POINTS)
+        mat, _, _ = jaccard_data(JACCARD_POINTS, JACCARD_VOCAB)
+        jcanon = metric.canonicalize(mat, JACCARD_T, metric="jaccard",
+                                     vocab=JACCARD_VOCAB)
+        metric_pairs = {}
+        for name, join, count in (
+                ("cosine",
+                 lambda: repro_torch.self_join(emb, COSINE_T,
+                                               metric="cosine",
+                                               device=DEVICE),
+                 lambda: repro_torch.self_join_count(emb, COSINE_T,
+                                                     metric="cosine",
+                                                     device=DEVICE)),
+                ("jaccard",
+                 lambda: repro_torch.self_join(jcanon, None, device=DEVICE),
+                 lambda: repro_torch.self_join_count(jcanon, None,
+                                                     device=DEVICE))):
+            with sanitized(True):
+                recorded.clear()
+                n = int(join().shape[0])
+                check(recorded, f"sanitized {name}: no codes recorded")
+            want = count().total_pairs
+            check(n == want, f"sanitized {name}: {n} pairs, the count "
+                  f"says {want}")
+            metric_pairs[name] = n
+
+        # injected faults: raised at the drain, the context left intact
+        p = prepared[0]
+        pp, qb, ws, wc = p["args"][:4]
+        c = p["kw"]["c"]
+        live = torch.nonzero(wc > 0)[0].tolist()
+        bad_ws = ws.clone()
+        bad_ws[live[0], live[1]] = pp.shape[0] + 4096
+        oob = raises_sanitizer(lambda: ops.fused_join_hits(
+            pp, qb, bad_ws, *p["args"][3:], **p["kw"]), "oob-gather")
+        after = repro_torch.self_join(pts, eps, device=DEVICE)
+        check(after.shape[0] == MAIN_TOTAL, f"after the injected gather "
+              f"the main path gave {after.shape[0]} pairs")
+        del after
+        bad_wc = wc.clone()
+        bad_wc[live[0], live[1]] = c + 1
+        cap = raises_sanitizer(lambda: ops.fused_join_hits(
+            pp, qb, ws, bad_wc, *p["args"][4:], **p["kw"]), "cap-overflow")
+        canon = metric.canonicalize(emb[:200_000], COSINE_T,
+                                    metric="cosine")
+        cindex = sj._metric_grid(canon, DEVICE)
+        cp = prepared_launches(cindex, merged=sj._resolve_merge(cindex,
+                                                                None),
+                               unicomp=True)[0]
+        cq = cp["args"][1].clone()
+        cq[0, :cindex.n_dims] *= 1.1
+        unit = raises_sanitizer(lambda: ops.fused_join_hits(
+            cp["args"][0], cq, *cp["args"][2:], metric="cosine",
+            **cp["kw"]), "unnormalized-cosine")
+        hits, counts, base = fj.fused_join_hits(*p["args"], **p["kw"])
+        clean = int(fj.sanitize_errcodes(pp, qb, ws, wc, counts, base, hits,
+                                         c=c, tq=p["kw"]["tq"],
+                                         check_hits=True))
+        check(clean == 0, f"a clean launch gave code {clean}")
+        base = base.clone()
+        base[5] += 1
+        scan = int(fj.sanitize_errcodes(pp, qb, ws, wc, counts, base, hits,
+                                        c=c, tq=p["kw"]["tq"],
+                                        check_hits=True))
+        check(scan == sanitize.E_SCAN_MISMATCH, f"a corrupted slot_base "
+              f"gave {sanitize.decode(scan)}")
+        del hits, counts, base, prepared, cindex
+    finally:
+        sanitize.record = record
+
+    # the prover on indexes built on the card
+    baseline = F.load_baseline(DEFAULT_BASELINE)
+    t0 = time.perf_counter()
+    canned = collect_findings(device=DEVICE)
+    canned_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    main_found = (contracts.prove_index_contracts(index, tag="index:main")
+                  + contracts.prove_halo_contracts(pts, eps, 4,
+                                                   tag="halo:main"))
+    prover_s = time.perf_counter() - t0
+    fresh = F.new_findings(canned + main_found, baseline)
+    check(not fresh, "new analysis findings: "
+          + "; ".join(f.render() for f in fresh))
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    check(contracts.SMEM_OPTIN_H100 == optin == fj.smem_limit(DEVICE),
+          f"C6's limit {contracts.SMEM_OPTIN_H100} B, the card's opt-in "
+          f"{optin} B")
+    unsan = statistics.median(turns[False])
+    san = statistics.median(turns[True])
+    emit("analysis", points=MAIN_POINTS, eps=eps, launches=launches,
+         run_loop_launches=run_loop, codes=codes,
+         unsanitized_ms=turns[False], sanitized_ms=turns[True],
+         median_unsanitized_ms=unsan, median_sanitized_ms=san,
+         sanitized_over_unsanitized=san / unsan,
+         served_requests=SERVE_REQUESTS, served_codes=served_codes,
+         metric_pairs=metric_pairs, injected={
+             "oob-gather": oob, "cap-overflow": cap,
+             "unnormalized-cosine": unit, "scan-mismatch": scan},
+         canned_findings=len(canned), canned_s=canned_s,
+         main_findings=len(main_found), prover_main_s=prover_s,
+         smem_optin=optin, c6_limit=contracts.SMEM_OPTIN_H100,
+         nvidia_smi=nvidia_smi_line(),
+         phase_s=time.perf_counter() - t_phase)
+    del index
+    return dict(launches=launches)
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -4125,6 +4364,7 @@ def smoke(table_dir: Path) -> int:
     collective = phase_collective()
     sharded = phase_sharded()
     deduped = phase_dedup()
+    analysis = phase_analysis()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -4146,7 +4386,9 @@ def smoke(table_dir: Path) -> int:
                                 "gid_collective_ranks":
                                     collective["gid_launches"],
                                 "external_sharded": sharded["launches"],
-                                "dedup_cosine": deduped["launches"]},
+                                "dedup_cosine": deduped["launches"],
+                                "sanitized_main_path":
+                                    analysis["launches"]},
         "max_abs_err": max(worst, served["worst"], metrics["worst"],
                            slab["worst"]),
         "ms": b1["ms"],

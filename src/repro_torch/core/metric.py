@@ -75,8 +75,9 @@ METRICS = ("l2", "cosine", "jaccard")
 # (at most 65535 < 2^24) are, 32-bit words are not.
 TOKEN_BITS = 16
 
-# |1 - ||x||^2| tolerance of "canonical cosine input" (the sanitizer's
-# check, ROADMAP A13).
+# |1 - ||x||^2| tolerance of "canonical cosine input": the sanitizer's
+# unnormalized-cosine bit (``kernels.fused_join.sanitize_errcodes``,
+# ``analysis/sanitize.py``).
 NORM_TOL = 1e-3
 
 _POPCOUNT16: Optional[np.ndarray] = None

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import grid as grid_lib
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.grid import (CAP_ALIGN, GridIndex, build_grid,
@@ -319,6 +320,7 @@ class PendingJoin:
         with record_function("query_join.wait"):
             if self._event is not None:
                 self._event.synchronize()
+            sanitize.raise_pending()   # REPRO_TORCH_SANITIZE
         with record_function("query_join.emit"):
             self._result = self._assemble()
         self._launches = self._wc = None   # release device references
@@ -719,6 +721,9 @@ class PreparedJoin:
                         n_feat=self.n_feat, words=self.words)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # REPRO_TORCH_SANITIZE: the class launches are drained here; the
+        # JAX package leaves their codes queued (ROADMAP §C, C6)
+        sanitize.raise_pending()
         return bucket_rows(n)
 
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.grid import (_NUMPY_DTYPES, CAP_ALIGN, BucketPlan,
                                    GridIndex, RunPlan, _keys64, _pad_probe,
@@ -533,6 +534,7 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
             finish(prev)
         prev = (ws, hits, counts, base, q_pos, launch[4], launch[5])
     finish(prev)
+    sanitize.raise_pending()   # REPRO_TORCH_SANITIZE: launches drained
     with record_function("self_join.emit"):
         out = host.result() if host is not None else torch.cat(chunks, dim=0)
         if sort_result:
@@ -598,6 +600,7 @@ def _self_join_count_fused(index: GridIndex, *, unicomp: bool,
         total += mult * int(counts.sum(dtype=torch.int64))
         cells += int(wcells.sum(dtype=torch.int64))
         cands += int(wc.sum(dtype=torch.int64))
+    sanitize.raise_pending()   # REPRO_TORCH_SANITIZE: counts drained
     return JoinStats(total_pairs=total, cells_visited=cells,
                      candidates_checked=cands, offsets=n_off,
                      route="dense-run" if run_loop else "dense",
@@ -954,6 +957,9 @@ def self_join_count_compact(points, eps, *, unicomp: bool = True,
     tn, slots = _count_compact(index, deltas[1:], cap_q=min(cap_q, npts),
                                max_per_cell=cap, unicomp=unicomp,
                                distance_impl=distance_impl)
+    # REPRO_TORCH_SANITIZE: the zero offset's launch is drained; the JAX
+    # package leaves its code queued (ROADMAP §C, C6)
+    sanitize.raise_pending()
     return JoinStats(total_pairs=int(t0 + tn), cells_visited=0,
                      candidates_checked=int(k0 + slots),
                      offsets=int(deltas.shape[0]), route="compact")

@@ -173,6 +173,7 @@ def _measure_fused_tile(n_dims: int, c: int, *, backend: str = "cuda",
     isolates the tile; counts only). A candidate that does not divide
     ``qp``, or whose launch B1's wrapper refuses (its shared-memory checks),
     is left out. Returns (winner, {tq: best ms}, {tq: refusal})."""
+    from repro_torch.analysis import sanitize
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_join import NP_PAD
 
@@ -207,6 +208,7 @@ def _measure_fused_tile(n_dims: int, c: int, *, backend: str = "cuda",
             continue
         best = min(_timed(run, backend) for _ in range(trials))
         timings[str(tq)] = 1000 * best
+    sanitize.raise_pending()   # REPRO_TORCH_SANITIZE: the runs have synced
     winner = min(timings, key=timings.get)
     return int(winner), timings, refused
 

@@ -624,6 +624,86 @@ def fused_join_hits(points_pad, q_batch, win_start, win_count, is_zero,
     raise ValueError(f"unknown fused_join method {method!r}")
 
 
+def oob_windows(win_start, win_count, c: int, np_total: int):
+    """Live windows whose ``c`` slots would leave a buffer of ``np_total``
+    rows: the sanitizer's ``oob-gather`` condition, as a device mask."""
+    return (win_count > 0) & ((win_start < 0) | (win_start + c > np_total))
+
+
+def _bit(cond, bit: int):
+    return cond.to(torch.int32) * bit
+
+
+def sanitize_errcodes(points_pad, q_batch, win_start, win_count, counts,
+                      base, hits, *, c, tq, check_hits=False, metric="l2",
+                      n_real=None):
+    """Invariant reduction of one fused launch -> 0-dim int32 bitmask on the
+    launch's device, with no host sync.
+
+    The sanitized mode's checker (``analysis/sanitize.py``), the
+    counterpart of the JAX package's ``sanitize_errcodes``: plain torch ops
+    over the descriptors the launch was given and the outputs it produced,
+    so the kernel and its checker cannot share a miscompile.
+
+    Bits (constants in ``analysis/sanitize.py``):
+      oob-gather     a live window's [start, start + c) leaves the padded
+                     points buffer (corrupted descriptor).
+      cap-overflow   win_count > c: the capacity would truncate the window.
+      scan-mismatch  slot_base is not the per-tile exclusive scan of counts
+                     (or, with ``check_hits``, the counts disagree with the
+                     hit plane, summed as int32 without an int32 copy).
+      nonfinite      NaN/Inf in the points or query rows; for jaccard the
+                     geometry lanes [0, n_real) only (the token words ride
+                     the next lanes, and the kernel reads them packed apart,
+                     as ``words=``).
+      count-range    negative window counts, or row counts outside
+                     [0, n_off * c].
+      unnormalized   (cosine, with ``n_real``) a nonzero point or query row
+                     whose squared norm over the coordinate lanes is off
+                     unity by more than ``metric.NORM_TOL``. All-zero rows
+                     are padding. Half rows (which the JAX package refuses
+                     for cosine serving) are squared and summed in float32,
+                     against the larger of NORM_TOL and twice the dtype's
+                     epsilon: rounding a unit row to float16 or bfloat16
+                     moves its squared norm by up to that epsilon.
+    """
+    from repro_torch.analysis import sanitize as _san
+
+    np_total = points_pad.shape[0]
+    n_off = win_start.shape[0]
+    code = _bit(oob_windows(win_start, win_count, c, np_total).any(),
+                _san.E_OOB_GATHER)
+    code = code | _bit((win_count > c).any(), _san.E_CAP_OVERFLOW)
+    bad_range = ((win_count < 0).any() | (counts < 0).any()
+                 | (counts > n_off * c).any())
+    code = code | _bit(bad_range, _san.E_COUNT_RANGE)
+    ctile = counts.reshape(-1, tq)
+    excl = torch.cumsum(ctile, dim=1) - ctile
+    scan_bad = (excl.reshape(-1) != base).any()
+    if check_hits:
+        scan_bad = scan_bad | (torch.sum(hits, dim=(0, 2), dtype=torch.int32)
+                               != counts).any()
+    code = code | _bit(scan_bad, _san.E_SCAN_MISMATCH)
+    n_chk = (points_pad.shape[1] if metric != "jaccard" or n_real is None
+             else n_real)
+    finite = (torch.isfinite(points_pad[:, :n_chk]).all()
+              & torch.isfinite(q_batch[:, :n_chk]).all())
+    code = code | _bit(~finite, _san.E_NONFINITE)
+    if metric == "cosine" and n_real is not None:
+        half = points_pad.dtype in metric_lib.HALF_DTYPES
+        tol = (max(metric_lib.NORM_TOL, 2 * torch.finfo(points_pad.dtype).eps)
+               if half else metric_lib.NORM_TOL)
+
+        def off_unit(rows):
+            x = rows[:, :n_real].float() if half else rows[:, :n_real]
+            n2 = torch.sum(x * x, dim=1)
+            return ((n2 > 0) & (torch.abs(n2 - 1) > tol)).any()
+
+        code = code | _bit(off_unit(points_pad) | off_unit(q_batch),
+                           _san.E_UNNORMALIZED)
+    return code
+
+
 # Slots (query rows x offsets x window slots) one emit step holds: its
 # temporaries take ~60 bytes a slot, so a step stays near 4 GB however wide
 # the windows (a Jaccard size cell's window spans a whole cell).

@@ -95,3 +95,20 @@ def overflow_rank(rank, pts, eps):
     must raise the rank's error in the caller."""
     mesh = tmesh.make_slab_mesh(2, device=CPU)
     return td.distributed_self_join(pts, eps, mesh, halo_capacity=2)
+
+
+def sanitized_rank(rank, pts, eps):
+    """The slab join on this rank of a 2-slab CPU mesh in sanitized mode:
+    the pairs it returns, the B1 codes it recorded and those left pending
+    (``test_torch_sanitize.py``)."""
+    from repro_torch.analysis import sanitize
+
+    recorded = []
+    record = sanitize.record
+    sanitize.record = lambda label, code: (recorded.append(label),
+                                           record(label, code))
+    sanitize.set_enabled(True)
+    mesh = tmesh.make_slab_mesh(2, device=CPU)
+    pairs = td.distributed_self_join(pts, eps, mesh)
+    return dict(pairs=int(pairs.shape[0]), recorded=len(recorded),
+                pending=sanitize.pending())
