@@ -140,6 +140,18 @@ each printing one JSON line:
                   canned ones, the 2 M main path's, 4 slabs) with no
                   finding beyond the baseline, and C6's shared-memory
                   limit against the card's opt-in limit
+  lm              ROADMAP A17 (i) and A16, no kernel on its path: the
+                  smoke-lm decode service (``serve --arch smoke-lm``) at
+                  its full CONFIG in bfloat16 and the CLI's defaults
+                  (prefill ms, per-token p50 / p99, peak memory, every id
+                  in range, every logit finite); prefill + decode against
+                  the teacher-forced forward (smoke-lm at bf16 and f32,
+                  the moe, ssm and hybrid smokes at f32); the card
+                  against the CPU on one set of seeded weights (prefill
+                  and 8 decode steps, f32, TF32 off); the argmax against
+                  JAX's recorded one (LM_ARGMAX) where its margin is over
+                  1e-3; ego_join and rtree_join on the host against the
+                  card's self_join_count and A16_TOTAL
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -4316,6 +4328,255 @@ def phase_analysis() -> dict:
     return dict(launches=launches)
 
 
+# --- the LM substrate and the CPU baselines (ROADMAP A16, A17 (i)) -------------
+
+LM_WEIGHT_SEED = 0       # seeded_params: numpy draws in JAX's distributions
+LM_PROMPT_SEED = 1
+LM_PIN_SHAPE = (4, 64)   # (batch, prompt) of the recorded teacher-forced pass
+LM_MARGIN = 1e-3         # positions whose top-1 / top-2 margin is over this
+LM_BF16_TOL = 0.15       # tests/test_models.py's band (rtol = atol)
+LM_F32_TOL = 1e-4
+LM_ARGMAX_AGREE = 0.95
+LM_DECODE_SHAPE = (32, 16)   # (batch, prompt) of smoke-lm's decode check
+LM_FAMILY_SHAPE = (2, 15)    # the families': at most 16 tokens a moe routing
+                             # row, so no expert passes its 16 slots and the
+                             # forward drops no token the decode keeps
+LM_CPU_SHAPE = (4, 32)       # (batch, prompt) of the card-vs-CPU check
+LM_CPU_STEPS = 8
+# JAX's float32 forward of smoke-lm's full CONFIG over lm_pin_prompt() with
+# seeded_params(LM_WEIGHT_SEED): per position, the argmax and the top-1 /
+# top-2 margin (tests/test_torch_lm_serve.py recomputes both through JAX).
+LM_ARGMAX = {
+    "argmax": [
+        [7333, 1768, 7223, 8045, 1686, 7001, 5195, 6663, 5195,
+         7613, 2446, 6704, 5954, 2998, 2998, 7289, 3717, 728,
+         3107, 7001, 1754, 7289, 2644, 2644, 1977, 6388, 7499,
+         7366, 3221, 3001, 846, 7716, 741, 3615, 1957, 7001, 1728,
+         5167, 7589, 6156, 4996, 5167, 6963, 7366, 3844, 6478,
+         1369, 1614, 6831, 6809, 1369, 7294, 1957, 5167, 6193,
+         5549, 6478, 1884, 7001, 3818, 7293, 5167, 6704, 7294],
+        [1516, 581, 1046, 4094, 4094, 7726, 153, 7523, 8, 7523,
+         1729, 8, 8070, 7026, 817, 7511, 817, 153, 5199, 1701,
+         1911, 1911, 8, 530, 114, 3952, 7917, 3061, 342, 6975,
+         4246, 4129, 1761, 7918, 5578, 4125, 5094, 1578, 2858,
+         560, 7073, 7102, 5240, 5642, 2863, 6230, 3555, 7726,
+         6495, 6209, 6341, 6590, 7563, 411, 6707, 3707, 3788,
+         2165, 4383, 3555, 5199, 7207, 5230, 3683],
+        [6741, 1967, 1387, 1027, 4239, 1143, 6076, 5930, 231,
+         5930, 3426, 2581, 4706, 187, 5286, 1417, 1340, 5122,
+         6009, 3426, 2909, 1513, 6695, 392, 4031, 6009, 1927,
+         1891, 2509, 1891, 2783, 6240, 3731, 1027, 7694, 7461,
+         6009, 3570, 6216, 5930, 4831, 6899, 6054, 4831, 4831,
+         4173, 7461, 5930, 5286, 7539, 4831, 4831, 6268, 4536,
+         229, 5067, 4831, 5409, 208, 7746, 2059, 6730, 370, 3749],
+        [4444, 553, 2874, 5249, 3830, 6094, 6341, 6341, 3475,
+         1734, 1384, 3475, 1853, 4193, 4408, 3599, 28, 1614, 5680,
+         1449, 3480, 3020, 382, 6573, 6744, 7113, 1614, 4363,
+         1900, 1900, 3550, 4509, 1449, 916, 1899, 2037, 1614,
+         2559, 5382, 2559, 65, 5413, 3634, 2559, 2559, 4193, 2559,
+         2559, 7091, 5656, 2559, 4193, 1900, 7619, 2559, 539,
+         2559, 2559, 2559, 2559, 2449, 2559, 5382, 2559]],
+    "margin": [
+        [0.066274, 0.020443, 0.047534, 0.092013, 0.019018,
+         0.026502, 0.197735, 0.077394, 0.073993, 0.01893, 0.00742,
+         0.072712, 0.043975, 0.022429, 0.072779, 0.176717,
+         0.031649, 0.262244, 0.080889, 0.055362, 0.019007,
+         0.281211, 0.237687, 0.177845, 0.087271, 0.066854,
+         0.058807, 0.05738, 0.014213, 0.147792, 0.040907,
+         0.007549, 0.02259, 0.263667, 0.241156, 0.241314,
+         0.165567, 0.04552, 0.02893, 0.062999, 0.123639, 0.225378,
+         0.055038, 0.128746, 0.081654, 0.130699, 0.046153,
+         0.007145, 0.054254, 0.087108, 0.268808, 0.01159,
+         0.439552, 0.006536, 0.083816, 0.062939, 0.067374,
+         0.009458, 0.018815, 0.047226, 0.01228, 0.088913,
+         0.089757, 0.011962],
+        [0.04216, 0.002722, 0.051715, 0.001017, 0.012639, 0.17785,
+         0.085175, 0.246485, 0.026832, 0.304142, 0.139844,
+         0.079118, 0.1554, 0.004167, 0.591803, 0.04055, 0.041155,
+         0.145888, 0.084257, 0.013116, 0.021194, 0.145803,
+         0.111095, 0.005992, 0.110576, 0.003166, 0.152657,
+         0.045819, 0.008747, 0.158605, 0.179903, 0.036355,
+         0.186412, 0.124464, 0.030886, 0.011328, 0.009437,
+         0.033674, 9.2e-05, 0.111616, 0.120757, 0.221974, 0.01183,
+         0.045068, 0.006772, 0.01593, 0.227923, 0.198971,
+         0.018251, 0.220589, 0.039869, 0.002678, 0.028479,
+         0.097903, 0.005829, 0.018211, 0.014447, 0.023226,
+         0.134966, 0.173719, 0.030159, 0.01129, 0.238051, 0.005903],
+        [0.003164, 0.066042, 0.036975, 0.033486, 0.014475,
+         0.076976, 0.076753, 0.021638, 0.058737, 0.392102,
+         0.032038, 0.044283, 0.035518, 0.035847, 0.3659, 0.08812,
+         0.132397, 0.122689, 0.134372, 0.032321, 0.062685,
+         0.004685, 0.000931, 0.049749, 0.001649, 0.056059,
+         0.101068, 0.013902, 0.094507, 0.014674, 0.109974,
+         0.09415, 0.017707, 0.088451, 0.025486, 0.036712,
+         0.196489, 0.067879, 0.016256, 0.123595, 0.078617,
+         0.046316, 0.029403, 0.059765, 0.199133, 0.106847,
+         0.11061, 0.105569, 0.151376, 0.029388, 0.281781,
+         0.099959, 0.014477, 0.19969, 0.021493, 0.18815, 0.0564,
+         0.316204, 0.078883, 0.078567, 0.021324, 0.141496,
+         0.011928, 0.000171],
+        [0.01729, 0.045568, 0.019065, 0.060025, 0.023409,
+         0.082487, 0.021628, 0.176362, 0.080238, 0.027846,
+         0.058246, 0.016361, 0.01052, 0.016511, 0.030815,
+         0.102091, 0.013546, 0.181631, 0.084347, 0.002861,
+         0.163413, 0.019678, 0.054574, 0.219226, 0.214456,
+         0.007389, 0.167962, 0.084348, 0.129858, 0.02055,
+         0.190826, 0.108712, 0.144261, 0.02765, 0.012312,
+         0.067778, 0.042535, 0.033432, 0.008023, 0.107666,
+         0.047207, 0.016876, 0.012365, 0.064492, 0.005879,
+         0.105336, 0.089755, 0.107291, 0.028857, 0.07292,
+         0.114095, 0.281196, 0.045347, 0.229035, 0.027801,
+         0.020261, 0.091235, 0.077077, 0.147653, 0.061847,
+         0.024056, 0.023007, 0.149333, 0.177082]]}
+# the CPU baselines on the bench's expo-3d at its smoke size (3,000 points,
+# eps 1.2): the JAX package's self_join_count total (tests/test_torch_baselines.py
+# recomputes it)
+A16_POINTS = 3000
+A16_EPS = 1.2
+A16_TOTAL = 7220
+
+
+def lm_pin_prompt(vocab: int) -> np.ndarray:
+    return np.random.default_rng(LM_PROMPT_SEED).integers(0, vocab,
+                                                          LM_PIN_SHAPE)
+
+
+def argmax_margin(logits: np.ndarray):
+    """Per row: the argmax and the top-1 / top-2 margin."""
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return logits.argmax(-1), top2[..., 1] - top2[..., 0]
+
+
+def lm_decode_vs_forward(cfg, shape, seed: int = 2) -> dict:
+    """Prefill then one decode step against the teacher-forced forward's
+    last position (tests/test_models.py's check), on the card."""
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel
+
+    B, S = shape
+    model = LMModel(cfg, device=DEVICE)
+    params, _ = seeded_params(cfg, LM_WEIGHT_SEED, DEVICE)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1))
+    caches = model.init_caches(B, S + 4)
+    _, caches = model.prefill(params, {"tokens": toks[:, :S]}, caches)
+    dec, _ = model.decode_step(params, toks[:, S], caches)
+    ref = model.encode(params, {"tokens": toks})[:, -1]
+    a, b = dec.float().cpu().numpy(), ref.float().cpu().numpy()
+    tol = LM_BF16_TOL if cfg.dtype == "bfloat16" else LM_F32_TOL
+    agree = float((a.argmax(-1) == b.argmax(-1)).mean())
+    check(np.all(np.isfinite(a)), f"{cfg.name} {cfg.dtype}: decode logits")
+    check(np.allclose(a, b, rtol=tol, atol=tol),
+          f"{cfg.name} {cfg.dtype}: decode against the forward, max "
+          f"{np.abs(a - b).max()} over {tol}")
+    check(agree >= LM_ARGMAX_AGREE or cfg.dtype != "bfloat16",
+          f"{cfg.name} bf16: argmax agreement {agree}")
+    return {"max_abs": float(np.abs(a - b).max()), "tol": tol,
+            "argmax_agree": agree}
+
+
+def lm_card_vs_cpu(cfg) -> dict:
+    """The same seeded weights through params_from_jax on the card and on
+    the CPU: the prefill and LM_CPU_STEPS teacher-forced decode steps."""
+    from repro_torch.models.convert import (params_from_jax, params_to_numpy,
+                                            seeded_params)
+    from repro_torch.models.lm import LMModel
+
+    tree = params_to_numpy(seeded_params(cfg, LM_WEIGHT_SEED, "cpu")[0])
+    B, S = LM_CPU_SHAPE
+    toks = np.random.default_rng(3).integers(0, cfg.vocab,
+                                             (B, S + LM_CPU_STEPS))
+    steps = []
+    for dev in (DEVICE, torch.device("cpu")):
+        model = LMModel(cfg, device=dev)
+        params = params_from_jax(tree, dev)
+        caches = model.init_caches(B, S + LM_CPU_STEPS)
+        logits, caches = model.prefill(params, {"tokens": toks[:, :S]},
+                                       caches)
+        out = [logits.float().cpu().numpy()]
+        for t in range(LM_CPU_STEPS):
+            logits, caches = model.decode_step(params, toks[:, S + t], caches)
+            out.append(logits.float().cpu().numpy())
+        steps.append(out)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(*steps)):
+        check(np.allclose(a, b, rtol=LM_F32_TOL, atol=LM_F32_TOL),
+              f"card against the CPU, step {i}: max {np.abs(a - b).max()}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return {"max_abs": worst, "steps": LM_CPU_STEPS + 1}
+
+
+def phase_lm() -> dict:
+    """ROADMAP A17 (i) and A16 on the card: (a) the smoke-lm decode service
+    at its full CONFIG and the CLI's defaults, (b) decode against the
+    teacher-forced forward per family, (c) the card against the CPU on one
+    set of weights, (d) JAX's recorded argmax, (e) the CPU baselines
+    against the card's count."""
+    import dataclasses as dc
+
+    from repro_torch.configs.smoke_lm import CONFIG, FAMILY_SMOKES
+    from repro_torch.core import ego_join, rtree_join, self_join_count
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (a) serving, bfloat16, batch 256, prompt 32, 16 tokens
+        rep = serve.main(["--arch", "smoke-lm"])
+        check(rep.finite, "smoke-lm serving: a logit not finite")
+        check(rep.tokens.shape == (256, 17) and rep.tokens.min() >= 0
+              and rep.tokens.max() < CONFIG.vocab,
+              f"smoke-lm serving: token ids {rep.tokens.shape}")
+        # (b) decode against the forward
+        f32 = dc.replace(CONFIG, dtype="float32")
+        decode = {"smoke-lm-bf16": lm_decode_vs_forward(CONFIG,
+                                                        LM_DECODE_SHAPE),
+                  "smoke-lm-f32": lm_decode_vs_forward(f32, LM_DECODE_SHAPE)}
+        for fam, cfg in FAMILY_SMOKES.items():
+            decode[fam] = lm_decode_vs_forward(
+                dc.replace(cfg, dtype="float32"), LM_FAMILY_SHAPE)
+        # (c) the card against the CPU
+        cpu = lm_card_vs_cpu(f32)
+        # (d) JAX's recorded argmax
+        params, _ = seeded_params(f32, LM_WEIGHT_SEED, DEVICE)
+        logits = LMModel(f32, device=DEVICE).encode(
+            params, {"tokens": lm_pin_prompt(f32.vocab)}).cpu().numpy()
+        am, margin = argmax_margin(logits)
+        want = np.asarray(LM_ARGMAX["argmax"])
+        held = np.asarray(LM_ARGMAX["margin"]) > LM_MARGIN
+        check(np.array_equal(am[held], want[held]),
+              f"argmax against JAX's at {int((am[held] != want[held]).sum())}"
+              f" of {int(held.sum())} positions")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # (e) the CPU baselines on the host against the card's count
+    pts = expo(A16_POINTS, 3)
+    t0 = time.perf_counter()
+    ego = ego_join(pts, A16_EPS)
+    ego_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rtree = rtree_join(pts, A16_EPS)
+    rtree_s = time.perf_counter() - t0
+    card = self_join_count(pts, A16_EPS).total_pairs
+    check(ego == rtree == card == A16_TOTAL,
+          f"A16: ego {ego}, rtree {rtree}, card {card}, recorded {A16_TOTAL}")
+    emit("lm", config=CONFIG.name, dtype=CONFIG.dtype, batch=rep.batch,
+         prompt_len=rep.prompt_len, tokens=rep.tokens.shape[1] - 1,
+         first_prefill_ms=rep.first_prefill_ms, prefill_ms=rep.prefill_ms,
+         token_p50_ms=rep.p50_ms, token_p99_ms=rep.p99_ms,
+         token_ms=rep.token_ms, peak_bytes=rep.peak_bytes,
+         decode_vs_forward=decode, card_vs_cpu=cpu,
+         jax_argmax_positions=int(held.sum()),
+         jax_argmax_min_margin=float(margin.min()),
+         a16={"points": A16_POINTS, "eps": A16_EPS, "pairs": card,
+              "ego_s": ego_s, "rtree_s": rtree_s},
+         nvidia_smi=nvidia_smi_line(),
+         phase_s=time.perf_counter() - t_phase)
+    return {"prefill_ms": rep.prefill_ms, "p50_ms": rep.p50_ms}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -4365,6 +4626,7 @@ def smoke(table_dir: Path) -> int:
     sharded = phase_sharded()
     deduped = phase_dedup()
     analysis = phase_analysis()
+    phase_lm()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"

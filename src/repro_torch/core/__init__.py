@@ -17,7 +17,10 @@ Public API, as the JAX package's ``repro.core`` names it:
     distributed_self_join,                -- the slab join in one process:
     distributed_self_join_count              equal-count slabs, an eps-halo,
                                              global ids in kernel B1's masks
+    rtree_join / ego_join                 -- CPU baselines (paper SVI-B),
+                                             numpy on the host
 """
+from repro_torch.core.baselines import ego_join, rtree_join
 from repro_torch.core.brute import brute_force_count, brute_force_join
 from repro_torch.core.distributed import (distributed_self_join,
                                           distributed_self_join_count)
@@ -32,4 +35,5 @@ __all__ = ["GridIndex", "JoinStats", "build_grid", "self_join",
            "self_join_count", "self_join_count_compact", "self_join_batched",
            "per_point_neighbor_counts", "brute_force_count",
            "brute_force_join", "epsilon_join", "prepare", "range_query",
-           "distributed_self_join", "distributed_self_join_count"]
+           "distributed_self_join", "distributed_self_join_count",
+           "rtree_join", "ego_join"]

@@ -28,13 +28,21 @@ The services take ``metric="cosine" | "jaccard"`` (``--metric`` on the
 command line): the index is built over the canonical geometry and requests
 arrive as raw embeddings or token sets, with thresholds in metric units.
 
-Not ported yet, raising and naming its ROADMAP item: ``--arch`` other than
-``selfjoin`` (the LM decode service, A17).
+LM decode service (``--arch`` other than ``selfjoin``, through
+``configs.get_config``):
+
+    python -m repro_torch.launch.serve --arch smoke-lm
+
+``serve_lm`` prefills a batch of prompts and decodes greedily with the KV
+cache (``models.lm.LMModel``), reporting the prefill time, the per-token
+p50 and p99 and the peak device memory (``DecodeReport``). Add
+``--device cpu --reduced`` to run the reduced config on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import threading
 import time
 import warnings
@@ -44,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.distributed import partition_points_host
 from repro_torch.core.grid import build_grid, host_points, resolve_device
@@ -832,9 +841,93 @@ def serve_selfjoin(args):
     return p50
 
 
+@dataclasses.dataclass
+class DecodeReport:
+    """What one ``serve_lm`` run measured. Times are host-clock ms around
+    work that ends in a device synchronize; ``peak_bytes`` is the device's
+    peak allocation (None on the CPU: not measured)."""
+    device: str
+    batch: int
+    prompt_len: int
+    first_prefill_ms: float      # the first call (library and kernel set-up)
+    prefill_ms: float            # the same prefill, again
+    token_ms: list               # per decoded token, the first step dropped
+    p50_ms: float
+    p99_ms: float
+    peak_bytes: Optional[int]
+    tokens: np.ndarray           # (B, 1 + decoded) greedy ids, prefill's first
+    finite: bool                 # every logit of every step finite
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_lm(args, params=None) -> DecodeReport:
+    """Prefill ``--request-batch`` prompts of ``--prompt-len`` seeded tokens
+    and decode ``--tokens`` greedily. ``params``: the model's parameters on
+    its device (``models.convert.params_from_jax``), else drawn from
+    ``--seed``; given weights set the compute dtype."""
+    from repro_torch.models.lm import LMModel
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if params is not None:    # the weights' dtype is the compute dtype
+        cfg = dataclasses.replace(
+            cfg, dtype=str(params["head"].dtype).removeprefix("torch."))
+    if args.tokens < 2:
+        raise ValueError("--tokens must be >= 2: the first decode step is "
+                         "not timed")
+    model = LMModel(cfg, device=args.device)
+    dev = model.device
+    if params is None:
+        params, _ = model.init(torch.Generator().manual_seed(args.seed))
+    B, S = args.request_batch, args.prompt_len
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       device=dev)}
+    caches = model.init_caches(B, S + args.tokens)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(2):   # the first call sets up libraries; time both
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, batch, caches)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1000)
+    print(f"[serve] prefill {B}x{S} in {times[1]:.2f}ms "
+          f"(first call {times[0]:.2f}ms)")
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits, -1)
+    out = [tok]
+    lat = []
+    for _ in range(args.tokens):
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, tok, caches)
+        tok = torch.argmax(logits, -1)
+        _sync(dev)
+        lat.append((time.perf_counter() - t0) * 1000)
+        finite = finite & torch.isfinite(logits).all()
+        out.append(tok)
+    lat_ms = np.asarray(lat[1:])   # the first step sets up its kernels
+    p50, p99 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 99)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    print(f"[serve] decoded {args.tokens} tokens: p50 {p50:.2f}ms/token "
+          f"p99 {p99:.2f}ms/token peak "
+          f"{'not measured' if peak is None else f'{peak / 2**20:.1f} MiB'}")
+    return DecodeReport(
+        device=str(dev), batch=B, prompt_len=S, first_prefill_ms=times[0],
+        prefill_ms=times[1], token_ms=lat_ms.tolist(), p50_ms=float(p50),
+        p99_ms=float(p99), peak_bytes=peak,
+        tokens=torch.stack(out, dim=1).cpu().numpy(),
+        finite=bool(finite))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="selfjoin")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's small config (LM archs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="where the service runs: CUDA by default; 'cpu' "
@@ -869,10 +962,12 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
                     help="admission-queue flush deadline for the oldest "
                          "waiting request")
+    # lm service
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
     args = ap.parse_args(argv)
     if args.arch != "selfjoin":
-        raise NotImplementedError(f"--arch {args.arch}: the LM services are "
-                                  f"not ported yet (ROADMAP A17)")
+        return serve_lm(args)
     if args.reindex and (args.batching or args.slabs > 1):
         raise SystemExit("--reindex needs the single-index service (no "
                          "--slabs/--batching)")

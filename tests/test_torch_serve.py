@@ -318,8 +318,10 @@ def test_unported_services_raise(dataset):
     with pytest.raises(ValueError, match="pass raw points"):
         JoinService(pts, 0.9, metric="cosine",
                     index=tgrid.build_grid(pts, eps, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A17"):
-        serve.main(["--arch", "smoke-lm", "--device", "cpu"])
+    # the LM decode service is ported (ROADMAP A17 (i)): an unknown --arch
+    # raises from the registry's import, as JAX's get_config does
+    with pytest.raises(ModuleNotFoundError, match="no_such_lm"):
+        serve.main(["--arch", "no-such-lm", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--metric", "hamming", "--device", "cpu"])
 
