@@ -152,6 +152,18 @@ each printing one JSON line:
                   JAX's recorded one (LM_ARGMAX) where its margin is over
                   1e-3; ego_join and rtree_join on the host against the
                   card's self_join_count and A16_TOTAL
+  train           ROADMAP A17 (ii a): ``launch.train`` at smoke-lm's full
+                  CONFIG (bf16, remat on) for 40 steps of 8 x 256 tokens
+                  with ``--dedup`` and a checkpoint every 20 steps: every
+                  loss finite, the last 5 below the first, B1 launched by
+                  the pipeline's dedup at least once a step; step ms p50 /
+                  p99 after the first, tokens a second, peak memory; the
+                  dedup on the card against its plain version on planted
+                  duplicates; 3 f32 steps against JAX's recorded losses
+                  and gradient norms (LM_TRAIN_PIN, TF32 off); one f32 step
+                  on the card against the CPU, for smoke-lm and the moe,
+                  ssm and hybrid smokes; a 6-step run resumed to 8 against
+                  an uninterrupted one; 3 steps under torch.profiler
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -169,15 +181,16 @@ Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
 join's B1 and the Jaccard join's B1 (e), slab for B1 (d), collective for
 B1 (d) in each rank's process, sharded for B1 (b) on the slabs, dedup for
-its cosine join's B1, analysis for the sanitized main path's B1) and read
-just after; comparisons with the plain
-versions run outside those windows. The
-last lines are the card's ``nvidia-smi`` name and power limit, then
+its cosine join's B1, analysis for the sanitized main path's B1, train
+for the token pipeline's dedup B1) and read just after; comparisons with
+the plain versions run outside those windows. The last lines are the
+card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -4577,6 +4590,361 @@ def phase_lm() -> dict:
     return {"prefill_ms": rep.prefill_ms, "p50_ms": rep.p50_ms}
 
 
+# --- single-process LM training (ROADMAP A17 (ii a)) ----------------------
+
+TRAIN_ARGS = ["--arch", "smoke-lm", "--steps", "40", "--batch", "8", "--seq",
+              "256", "--dedup", "--ckpt-every", "20"]
+TRAIN_LAST = 5           # the mean of the last 5 losses is below the first
+LM_TRAIN_SHAPE = (2, 64)     # (batch, seq) of the pinned f32 steps
+LM_TRAIN_STEPS = 3
+LM_TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 20}   # the driver's defaults
+LM_TRAIN_RTOL = 1e-4     # the card against JAX's pin and against the CPU
+LM_TRAIN_FAMILY_SHAPE = (2, 16)  # a moe routing row of 16 tokens drops none
+# the first step's update on the card against the CPU's, leaf by leaf:
+# the norm of the difference over the norm of the CPU's update (an update
+# that did nothing reads 1, one of the wrong sign 2)
+TRAIN_UPDATE_RTOL = 0.02
+# JAX's jitted make_train_step on smoke-lm's full CONFIG at float32 with
+# seeded_params(LM_WEIGHT_SEED), AdamWConfig(**LM_TRAIN_OPT), over
+# TokenPipeline(seed=0) batches 0-2 of LM_TRAIN_SHAPE, whose tokens are
+# recorded too: numpy's zipf draws are not the same in every numpy version,
+# so the card trains on these tokens, not on its own pipeline's
+# (tests/test_torch_train_driver.py recomputes all three through JAX)
+LM_TRAIN_PIN = {
+    "tokens": [[[1, 10, 2, 1, 313, 1, 96, 69, 331, 2162, 1, 3, 6664, 1, 3,
+                17, 1, 33, 1, 1, 10, 1, 2, 2070, 1, 311, 8, 94, 3, 882, 20,
+                8, 3, 15, 2, 20, 3, 1, 170, 1, 3, 1, 281, 2, 66, 1065, 49,
+                23, 2, 36, 41, 167, 1, 5044, 135, 1, 580, 5, 3, 1, 8, 4, 4,
+                2],
+               [388, 587, 54, 2, 9, 28, 3, 62, 1, 13, 14, 8, 1, 14, 1, 686,
+                1, 2599, 3, 1117, 1161, 1, 2, 2, 90, 1, 1, 2, 4, 127, 233,
+                1, 25, 3, 1011, 115, 10, 1, 4, 531, 1, 15, 17, 32, 10, 1, 1,
+                76, 5, 1, 20, 2, 870, 7609, 1, 4, 2, 1, 8163, 3, 3, 7, 1, 10]],
+              [[2, 1, 313, 1, 96, 69, 331, 2162, 1, 3, 6664, 1, 3, 17, 1,
+                33, 1, 1, 10, 1, 2, 2070, 1, 311, 8, 94, 3, 882, 20, 8, 3,
+                15, 2, 20, 3, 1, 170, 1, 3, 1, 281, 2, 66, 1065, 49, 23, 2,
+                36, 41, 167, 1, 5044, 135, 1, 580, 5, 3, 1, 8, 4, 4, 2, 388,
+                587],
+               [54, 2, 9, 28, 3, 62, 1, 13, 14, 8, 1, 14, 1, 686, 1, 2599,
+                3, 1117, 1161, 1, 2, 2, 90, 1, 1, 2, 4, 127, 233, 1, 25, 3,
+                1011, 115, 10, 1, 4, 531, 1, 15, 17, 32, 10, 1, 1, 76, 5, 1,
+                20, 2, 870, 7609, 1, 4, 2, 1, 8163, 3, 3, 7, 1, 10, 86, 292]],
+              [[1, 313, 1, 96, 69, 331, 2162, 1, 3, 6664, 1, 3, 17, 1, 33,
+                1, 1, 10, 1, 2, 2070, 1, 311, 8, 94, 3, 882, 20, 8, 3, 15,
+                2, 20, 3, 1, 170, 1, 3, 1, 281, 2, 66, 1065, 49, 23, 2, 36,
+                41, 167, 1, 5044, 135, 1, 580, 5, 3, 1, 8, 4, 4, 2, 388,
+                587, 54],
+               [2, 9, 28, 3, 62, 1, 13, 14, 8, 1, 14, 1, 686, 1, 2599, 3,
+                1117, 1161, 1, 2, 2, 90, 1, 1, 2, 4, 127, 233, 1, 25, 3,
+                1011, 115, 10, 1, 4, 531, 1, 15, 17, 32, 10, 1, 1, 76, 5, 1,
+                20, 2, 870, 7609, 1, 4, 2, 1, 8163, 3, 3, 7, 1, 10, 86, 292,
+                381]]],
+    "loss": [9.047532081604004, 9.031447410583496, 8.960970878601074],
+    "grad_norm": [7.561369895935059, 7.359340190887451, 7.038341045379639],
+}
+# a restart from a step-6 checkpoint against an uninterrupted run, at the
+# driver's bf16: the embedding's backward and the head's reductions
+# accumulate in an order the card does not fix, so the resumed losses are
+# held to a relative band, not to their bits (on the CPU they are equal)
+TRAIN_RESUME_ARGS = ["--arch", "smoke-lm", "--batch", "4", "--seq", "128"]
+TRAIN_RESUME_RTOL = 2e-3
+TRAIN_DEDUP_SHAPE = (8, 256)
+TRAIN_DEDUP_COPIES = (3, 5, 6)   # rows overwritten by rows 0, 1, 1
+
+
+def train_steps(cfg, device, batches) -> list:
+    """One f32 train step a batch on ``device`` from
+    ``seeded_params(cfg, LM_WEIGHT_SEED)`` with AdamWConfig(**LM_TRAIN_OPT):
+    the metrics and the float32 master weights after each."""
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = LMModel(cfg, device=device)
+    params, _ = seeded_params(cfg, LM_WEIGHT_SEED, device)
+    ocfg = AdamWConfig(**LM_TRAIN_OPT)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(model, ocfg)
+    out = []
+    for batch in batches:
+        params, state, met = step(params, state, batch)
+        out.append({"loss": float(met["loss"]),
+                    "grad_norm": float(met["grad_norm"]),
+                    "master": state["master"]})
+    return out
+
+
+def train_pin_run(device, steps: int) -> list:
+    """``steps`` f32 steps of the full CONFIG over LM_TRAIN_PIN's batches."""
+    from repro_torch.configs.smoke_lm import CONFIG
+
+    return train_steps(CONFIG, device, [pin_batch(i) for i in range(steps)])
+
+
+def card_vs_cpu_steps(cfg, batches) -> dict:
+    """Two f32 steps of ``cfg`` on the card and on the CPU from the same
+    weights: the relative differences of each step's loss and gradient
+    norm (the second step's loss reads the first step's update), the
+    largest difference of the master weights after the first step, and
+    that step's update (master - init) on the card against the CPU's:
+    ``update_rel``, the worst leaf's norm of the difference over the norm
+    of the CPU's update, and ``update_rel_max``, the largest element's
+    difference over the largest element of the CPU's update (a record:
+    an element whose gradient cancels to f32 rounding may change sign,
+    and Adam's first step moves it by lr either way). The first step's lr
+    is 1/20 of 3e-4, so the master weights move by about 1.5e-5: an
+    update that did nothing, or went the wrong way, lies within
+    LM_TRAIN_RTOL of the CPU's master weights, but its update_rel reads 1
+    or 2."""
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.layers import tree_flatten_with_path
+
+    assert len(batches) == 2
+    card, cpu = (train_steps(cfg, dev, batches)
+                 for dev in (DEVICE, torch.device("cpu")))
+    init, _ = seeded_params(dataclasses.replace(cfg, dtype="float32"),
+                            LM_WEIGHT_SEED, "cpu")
+    ups = [(a.cpu() - i, b - i) for (_, i), (_, a), (_, b) in zip(
+        *(tree_flatten_with_path(t) for t in
+          (init, card[0]["master"], cpu[0]["master"])))]
+    return {**{f"{k}_{n}": rel(c[k], p[k])
+               for n, (c, p) in enumerate(zip(card, cpu), 1)
+               for k in ("loss", "grad_norm")},
+            "master_max_abs": max(float((a - b).abs().max())
+                                  for a, b in ups),
+            "update_rel": max(float((a - b).norm() / b.norm().clamp_min(
+                1e-30)) for a, b in ups),
+            "update_rel_max": (max(float((a - b).abs().max()) for a, b in ups)
+                               / max(float(b.abs().max()) for _, b in ups))}
+
+
+def pin_batch(i: int) -> dict:
+    """LM_TRAIN_PIN's batch i, labelled as TokenPipeline labels."""
+    tokens = np.asarray(LM_TRAIN_PIN["tokens"][i], np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_dedup_vs_plain() -> dict:
+    """Planted copies through TokenPipeline._dedup on the card and on the
+    CPU: the same tokens, and every planted copy replaced."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import fused_join as fj
+
+    B, S = TRAIN_DEDUP_SHAPE
+    kw = dict(vocab=8192, batch=B, seq=S, seed=0, dedup=True)
+    tokens = TokenPipeline(**kw, device="cpu").batch_at(0)["tokens"]
+    planted = tokens.copy()
+    copies = list(TRAIN_DEDUP_COPIES)
+    planted[copies] = planted[[0, 1, 1]]
+    before = fj.KERNEL_LAUNCHES
+    card = TokenPipeline(**kw, device=DEVICE)._dedup(planted, 7)
+    launches = fj.KERNEL_LAUNCHES - before
+    plain = TokenPipeline(**kw, device="cpu")._dedup(planted, 7)
+    check(launches > 0, "the card's dedup launched no B1")
+    check(np.array_equal(card, plain), "dedup on the card differs from its "
+          f"plain version in {int((card != plain).any(1).sum())} rows")
+    replaced = [c for c in copies if not np.array_equal(card[c], planted[c])]
+    check(replaced == copies, f"planted copies kept: "
+          f"{sorted(set(copies) - set(replaced))}")
+    return {"rows": B, "planted": len(copies),
+            "replaced": int((card != planted).any(1).sum()),
+            "launches": launches}
+
+
+TRAIN_PROFILE_STEPS = 3
+
+
+def train_profile() -> dict:
+    """TRAIN_PROFILE_STEPS steps of the full CONFIG at 8 x 256 (bf16, remat
+    on) under torch.profiler after as many warm ones: per stage span
+    (``train_step.loss`` / ``.grad`` / ``.update``) its host ms and the
+    device ms of its kernels, device kernels a step, the device's busy
+    share of the wall time and the top kernels by device time. The batch
+    is drawn without the dedup: the step alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    model = LMModel(CONFIG, device=DEVICE)
+    params, _ = model.init(np.random.default_rng(0))
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=20)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(model, ocfg)
+    pipe = TokenPipeline(vocab=CONFIG.vocab, batch=8, seq=256, seed=0)
+    batches = [{k: torch.as_tensor(v, device=DEVICE)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(2 * TRAIN_PROFILE_STEPS)]
+    for b in batches[:TRAIN_PROFILE_STEPS]:
+        params, state, met = step(params, state, b)
+        float(met["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[TRAIN_PROFILE_STEPS:]:
+            params, state, met = step(params, state, b)
+            float(met["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    averages = prof.key_averages()
+    n = TRAIN_PROFILE_STEPS
+    stages = {e.key: dict(host_ms=e.cpu_time_total / 1e3 / n,
+                          device_ms=(getattr(e, "device_time_total", 0)
+                                     or 0) / 1e3 / n)
+              for e in averages if e.key.startswith("train_step.")
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    check(set(stages) == {"train_step.loss", "train_step.grad",
+                          "train_step.update"},
+          f"profiled step entered the spans {sorted(stages)}")
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and device_us(e) > 0
+              and not e.key.startswith(("Activity Buffer", "train_step."))]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    by_name = collections.Counter()
+    for e in events:      # names cut to 90 characters, their times summed
+        by_name[e.key[:90]] += device_us(e) / 1e3 / n
+    return dict(
+        step_wall_ms=wall_ms / n, stages=stages,
+        device_kernels_a_step=(sum(e.count for e in events) / n
+                               if events else None),
+        device_busy_ms_a_step=busy_ms / n if events else None,
+        device_busy_share=busy_ms / wall_ms if events else None,
+        top_device_ms=dict(by_name.most_common(8)),
+        note="per step; wall and host times include the profiler's cost; "
+             "the backward's kernels run on autograd's thread, outside "
+             "the train_step.grad span's device time")
+
+
+def phase_train() -> dict:
+    """ROADMAP A17 (ii a) on the card: (a) the driver at the full CONFIG
+    with the dedup, and its step under the profiler, (b) the dedup against
+    its plain version, (c) JAX's recorded losses, (d) the card against the
+    CPU, smoke-lm and the moe, ssm and hybrid smokes, (e) a resume."""
+    import tempfile
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs.smoke_lm import CONFIG, FAMILY_SMOKES
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import fused_join as fj
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the main path: 40 steps at full width, B1 in every batch
+        ckpt = os.path.join(tmp, "full")
+        sync()
+        fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
+        rep = train.run(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+        sync()
+        launches, run_loop = fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES
+        losses = np.asarray(rep.losses)
+        check(len(losses) == 40 and np.isfinite(losses).all(),
+              f"train: losses {losses[:4]}...")
+        check(losses[-TRAIN_LAST:].mean() < losses[0],
+              f"train: last {TRAIN_LAST} losses "
+              f"{losses[-TRAIN_LAST:].tolist()} not below the first "
+              f"{losses[0]}")
+        check(launches >= len(losses), f"train: {launches} B1 launches in "
+              f"{len(losses)} steps")
+        check(latest_step(ckpt) == 40 and sorted(os.listdir(ckpt)) ==
+              ["step_00000020", "step_00000040"],
+              f"train: checkpoints {sorted(os.listdir(ckpt))}")
+        timed = np.asarray(rep.step_ms[1:])
+        # the step under the profiler: where its time goes
+        profiled = train_profile()
+        # (b) the dedup against its plain version
+        dedup = train_dedup_vs_plain()
+        # (c) JAX's recorded f32 losses and (d) the card against the CPU,
+        # with TF32 off: JAX and the CPU compute in full float32
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            card = train_pin_run(DEVICE, LM_TRAIN_STEPS)
+            vs_cpu = {"smoke-lm": card_vs_cpu_steps(
+                CONFIG, [pin_batch(0), pin_batch(1)])}
+            # and each family's small config: the moe's index_add_ and the
+            # recurrent scans' backward
+            rng = np.random.default_rng(LM_PROMPT_SEED)
+            for fam, fcfg in FAMILY_SMOKES.items():
+                batches = []
+                for _ in range(2):
+                    tokens = rng.integers(0, fcfg.vocab,
+                                          LM_TRAIN_FAMILY_SHAPE)
+                    labels = np.roll(tokens, -1, axis=1)
+                    labels[:, -1] = -1
+                    batches.append({"tokens": tokens, "labels": labels})
+                vs_cpu[fam] = card_vs_cpu_steps(fcfg, batches)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        pin = {k: max(rel(c[k], w) for c, w in zip(card, LM_TRAIN_PIN[k]))
+               for k in ("loss", "grad_norm")}
+        check(max(pin.values()) <= LM_TRAIN_RTOL,
+              f"train: the card against LM_TRAIN_PIN {pin}, card "
+              f"{[(c['loss'], c['grad_norm']) for c in card]}")
+        for name, d in vs_cpu.items():
+            check(max(d[f"{k}_{n}"] for k in ("loss", "grad_norm")
+                      for n in (1, 2)) <= LM_TRAIN_RTOL
+                  and d["master_max_abs"] <= LM_TRAIN_RTOL
+                  and d["update_rel"] <= TRAIN_UPDATE_RTOL,
+                  f"train: {name} on the card against the CPU {d}")
+        # whether this machine's numpy draws the pin's tokens (a record)
+        pipe = TokenPipeline(vocab=CONFIG.vocab, batch=LM_TRAIN_SHAPE[0],
+                             seq=LM_TRAIN_SHAPE[1], seed=0, device=DEVICE)
+        pipeline_draws_pin = all(
+            np.array_equal(pipe.batch_at(i)["tokens"], pin_batch(i)["tokens"])
+            for i in range(LM_TRAIN_STEPS))
+        # (e) resume: 6 steps and a checkpoint, then on to 8
+        whole = train.run(TRAIN_RESUME_ARGS + ["--steps", "8"])
+        rdir = os.path.join(tmp, "resume")
+        first = train.run(TRAIN_RESUME_ARGS + ["--steps", "6", "--ckpt-dir",
+                                               rdir, "--ckpt-every", "6"])
+        resumed = train.run(TRAIN_RESUME_ARGS + ["--steps", "8",
+                                                 "--ckpt-dir", rdir])
+        check(resumed.start == 6 and len(resumed.losses) == 2,
+              f"train: resumed at {resumed.start}")
+        resume = max(rel(a, b) for a, b in zip(resumed.losses,
+                                               whole.losses[6:]))
+        check(resume <= TRAIN_RESUME_RTOL,
+              f"train: resumed losses {resumed.losses} against "
+              f"{whole.losses[6:]}")
+        first_vs_whole = max(rel(a, b) for a, b in zip(first.losses,
+                                                       whole.losses[:6]))
+    emit("train", config="smoke-lm", dtype="bfloat16", remat=True,
+         steps=len(losses), batch=8, seq=256, dedup=True,
+         first_loss=float(losses[0]),
+         last_mean_loss=float(losses[-TRAIN_LAST:].mean()),
+         losses=losses.tolist(), first_step_ms=rep.step_ms[0],
+         step_p50_ms=float(np.percentile(timed, 50)),
+         step_p99_ms=float(np.percentile(timed, 99)),
+         batch_p50_ms=float(np.percentile(rep.batch_ms[1:], 50)),
+         tokens_per_s=rep.tokens_per_s(),
+         step_tokens_per_s=rep.step_tokens_per_s(),
+         peak_bytes=rep.peak_bytes,
+         b1_launches=launches, run_loop_launches=run_loop,
+         dedup_vs_plain=dedup, pin_rel=pin, card_vs_cpu=vs_cpu,
+         numpy=np.__version__, pipeline_draws_pin=pipeline_draws_pin,
+         resume_rel=resume, resume_tol=TRAIN_RESUME_RTOL,
+         first_six_rel=first_vs_whole, profile=profiled,
+         nvidia_smi=nvidia_smi_line(),
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -4627,6 +4995,7 @@ def smoke(table_dir: Path) -> int:
     deduped = phase_dedup()
     analysis = phase_analysis()
     phase_lm()
+    trained = phase_train()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -4650,7 +5019,8 @@ def smoke(table_dir: Path) -> int:
                                 "external_sharded": sharded["launches"],
                                 "dedup_cosine": deduped["launches"],
                                 "sanitized_main_path":
-                                    analysis["launches"]},
+                                    analysis["launches"],
+                                "train_dedup": trained["launches"]},
         "max_abs_err": max(worst, served["worst"], metrics["worst"],
                            slab["worst"]),
         "ms": b1["ms"],

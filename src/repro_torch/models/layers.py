@@ -34,17 +34,42 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def tree_map(fn, tree):
-    """``fn`` over the tensor leaves of nested dicts, tuples and NamedTuples
-    (``None`` and ``()`` stay as they are)."""
+    """``fn`` over the tensor leaves of a tree, as ``tree_map_with_path``
+    walks it."""
+    return tree_map_with_path(lambda _, t: fn(t), tree)
+
+
+def tree_flatten_with_path(tree, path: tuple = ()) -> list:
+    """``(path, leaf)`` pairs in JAX's flatten order: dict keys sorted,
+    sequences by index, ``None`` and ``()`` holding no leaf. A path is the
+    tuple of keys and indices from the root."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v) for v in tree)
+        return [pl for k in sorted(tree)
+                for pl in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_flatten_with_path(v, path + (i,))]
+    if tree is None:
+        return []
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of nested dicts, tuples,
+    NamedTuples and lists, keeping the structure (``None`` and ``()`` stay);
+    paths as in ``tree_flatten_with_path``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map_with_path(fn, v, path + (i,))
+               for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     if tree is None:
         return None
-    return fn(tree)
+    return fn(path, tree)
 
 
 class ParamInit:

@@ -6,12 +6,13 @@ are; ``LMModel`` holds the config and the device, and its methods take the
 parameters explicitly. The layout choice (``make_shard_ctx``,
 ``choose_layout``) is a pure function of the mesh's axis names and sizes,
 as the reference's reads only ``mesh.axis_names`` and ``mesh.shape``; no
-mesh runs the model here, and training (``train_loss``) comes with ROADMAP
-A17 (ii).
+mesh runs the model here (meshes come with ROADMAP A17 (ii b)).
 
-Prefill and decode run under ``torch.inference_mode`` and write the KV
-caches in place. The model runs on CUDA unless the caller passes
-``device="cpu"``, and raises when CUDA is asked for and absent.
+``train_loss`` is differentiable: ``train/steps.py`` takes its gradients
+with ``torch.autograd.grad``. Prefill and decode run under
+``torch.inference_mode`` and write the KV caches in place. The model runs
+on CUDA unless the caller passes ``device="cpu"``, and raises when CUDA is
+asked for and absent.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.grid import resolve_device
 from repro_torch.models import mamba2 as mamba_lib
@@ -135,6 +137,49 @@ class LMModel(torch.nn.Module):
     def _head(self, p, x):
         x = rms_norm(x, p["final_norm"])
         return x @ p["head"].T.to(x.dtype)
+
+    def _loss_from_hidden(self, p, x, labels):
+        """Sequence-chunked CE against the head (memory-bounded): each
+        chunk's logits are recomputed in the backward, as JAX's
+        ``jax.checkpoint`` on the scan body does."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        chunk = min(cfg.loss_chunk, S)
+        if S % chunk:
+            chunk = S
+        head = p["head"]
+
+        def body(xc, lc):
+            logits = xc @ head.T.to(xc.dtype)
+            mask = lc >= 0
+            lo = logits.float()
+            lse = torch.logsumexp(lo, dim=-1)
+            ll = torch.gather(lo, -1, lc.clamp(min=0)[..., None])[..., 0]
+            loss = (lse - ll) * mask
+            if cfg.z_loss:
+                loss = loss + cfg.z_loss * (lse * mask) ** 2
+            return loss.sum(), mask.sum(dtype=torch.int32)
+
+        lsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.int32, device=x.device)
+        for c in range(0, S, chunk):
+            ls, n = checkpoint(body, x[:, c:c + chunk], labels[:, c:c + chunk],
+                               use_reentrant=False)
+            lsum, cnt = lsum + ls, cnt + n
+        return lsum / torch.clamp(cnt, min=1)
+
+    # -- training -----------------------------------------------------------
+
+    def train_loss(self, p, batch):
+        """(mean token CE, aux) of a batch with ``labels`` (< 0 masked);
+        aux holds the stack's ``dropped_frac``. Differentiable in ``p``:
+        the caller enables or disables the graph."""
+        x = self._embed_in(p, batch)
+        x, _, aux = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
+                                     self.cfg, mode="train")
+        x = rms_norm(x, p["final_norm"])
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        return self._loss_from_hidden(p, x, labels), aux
 
     @torch.inference_mode()
     def encode(self, p, batch):

@@ -7,14 +7,18 @@ JAX scans; the per-layer block kind is static (``cfg.layer_kinds()``), so
 the loop picks each layer's branch where JAX's ``lax.cond`` does. The
 hybrid family's shared attention block lives outside the stack (one
 parameter set) and runs before each group of ``shared_attn_every`` Mamba2
-layers, with one KV cache an invocation. Rematerialization has no meaning
-without a backward pass and comes with training (ROADMAP A17 (ii)).
+layers, with one KV cache an invocation. Where ``cfg.remat`` is set, a
+training forward that builds a graph runs each layer (and each shared
+block) under ``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` on the
+scan body: its activations are recomputed in the backward, to the same
+bits.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
@@ -231,17 +235,28 @@ def stack_forward(stacked, shared_attn, x, cfg: ModelConfig, *, mode: str,
     has_shared = cfg.shared_attn_every > 0 and shared_attn is not None
     every = cfg.shared_attn_every if (cfg.family == "hybrid"
                                       and has_shared) else 0
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i in range(L):
         if every and i % every == 0:
             # the shared attention block before each group (layers 0, k, 2k..)
             g = i // every
-            this = None
-            if mode != "train":
+            if mode == "train":
+                shared = lambda h: _apply_shared(shared_attn, h, cfg, mode,
+                                                 None)[0]
+                x = (checkpoint(shared, x, use_reentrant=False) if remat
+                     else shared(x))
+            else:
                 this = KVCache(k=shared_cache.k[g], v=shared_cache.v[g],
                                length=int(shared_cache.length))
-            x, _ = _apply_shared(shared_attn, x, cfg, mode, this)
-        x, new, drop = _apply_layer(_layer(stacked, i), x, cfg, kinds[i],
-                                    mode, _layer_cache(caches, cfg, i))
+                x, _ = _apply_shared(shared_attn, x, cfg, mode, this)
+        if remat:
+            x, new, drop = checkpoint(
+                lambda h, i=i: _apply_layer(_layer(stacked, i), h, cfg,
+                                            kinds[i], mode, None),
+                x, use_reentrant=False)
+        else:
+            x, new, drop = _apply_layer(_layer(stacked, i), x, cfg, kinds[i],
+                                        mode, _layer_cache(caches, cfg, i))
         layer_caches.append(new)
         dropped.append(torch.zeros((), dtype=torch.float32, device=x.device)
                        if drop is None else drop.float())

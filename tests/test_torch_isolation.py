@@ -58,3 +58,30 @@ def test_port_runs_with_jax_and_repro_unimportable():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok ")
+
+
+def test_training_runs_with_jax_and_repro_unimportable(tmp_path):
+    """The training path (train/, ckpt/, data/pipeline.py, launch/train.py)
+    imports neither JAX nor the JAX package: two steps with the dedup and
+    a checkpoint, then a restart from it."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        from repro_torch.launch import train
+        args = ["--arch", "smoke-lm", "--reduced", "--device", "cpu",
+                "--batch", "2", "--seq", "16", "--dedup",
+                "--ckpt-dir", {str(tmp_path)!r}]
+        first = train.run(args + ["--steps", "2"])
+        again = train.run(args + ["--steps", "3"])
+        assert again.start == 2 and len(again.losses) == 1
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok", first.loss, again.loss)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "ok " in proc.stdout
