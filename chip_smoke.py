@@ -164,6 +164,16 @@ each printing one JSON line:
                   on the card against the CPU, for smoke-lm and the moe,
                   ssm and hybrid smokes; a 6-step run resumed to 8 against
                   an uninterrupted one; 3 steps under torch.profiler
+  train_mesh      ROADMAP A17 (ii b), gloo ranks sharing the card:
+                  ``launch.train --mesh smoke --dedup`` at the full CONFIG
+                  for 10 steps of 8 x 256 on 2 ranks (1, 2) and 4 ranks
+                  (2, 2), every rank's losses finite and equal, B1 once a
+                  batch on every rank; the same meshes at f32 against the
+                  card's unmeshed f32 steps; the pod-compressed step on
+                  (2, 1, 2) against JAX's LM_TRAIN_POD_PIN; 4 steps on one
+                  rank resumed on 4 ranks against an uninterrupted 4-rank
+                  run; step p50 / p99, tokens a second, each rank's peak
+                  memory, the collectives' seconds a step by kind
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -182,7 +192,8 @@ unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
 join's B1 and the Jaccard join's B1 (e), slab for B1 (d), collective for
 B1 (d) in each rank's process, sharded for B1 (b) on the slabs, dedup for
 its cosine join's B1, analysis for the sanitized main path's B1, train
-for the token pipeline's dedup B1) and read just after; comparisons with
+for the token pipeline's dedup B1, train_mesh for the same in each rank's
+process) and read just after; comparisons with
 the plain versions run outside those windows. The last lines are the
 card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4945,6 +4956,332 @@ def phase_train() -> dict:
     return {"launches": launches}
 
 
+# --- the LM meshes, the pod-compressed step, the elastic restore ------------
+# (ROADMAP A17 (ii b)): gloo ranks sharing the one card, every collective
+# staged through host memory (launch/mesh.py)
+
+TRAIN_MESH_ARGS = ["--arch", "smoke-lm", "--steps", "10", "--batch", "8",
+                   "--seq", "256", "--dedup", "--mesh", "smoke",
+                   "--log-every", "100"]
+TRAIN_MESH_RANKS = (2, 4)         # (data 1, model 2) and (2, 2)
+TRAIN_MESH_STEPS = 10
+TRAIN_MESH_TIMEOUT_S = 300.0
+POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+# JAX's jitted make_train_step(compress_pods=True) on a (2, 1, 2) mesh of
+# placeholder devices, at smoke-lm's full CONFIG and float32, from
+# seeded_params(LM_WEIGHT_SEED) with AdamWConfig(**LM_TRAIN_OPT), over
+# LM_TRAIN_PIN's batches 0-2 (tests/torch_mesh_jax.py::pod_pin recomputes
+# it, tests/test_torch_compression.py holds the port to it on the CPU)
+LM_TRAIN_POD_PIN = {
+    "loss": [9.047531127929688, 9.033652305603027, 8.967348098754883],
+    "grad_norm": [7.566691875457764, 7.374155044555664, 7.04207181930542],
+    # pod 0's grad_error after each step: its norm and its elements' sum
+    "grad_error_norm": [0.48428765897900466, 0.5073310551626751,
+                        0.5681436546180936],
+    "grad_error_sum": [5.158006904122762, 10.04926013599318,
+                       25.641086476841586],
+}
+# what only the compression moves, pod 0's residual: the largest
+# difference of its norm or sum from the pin's over the pin's norm. The
+# port reads 2.2e-3 on the CPU and 1.6e-2 on an H100; on the CPU a
+# residual never fed back into the next gradient reads 17, one left at
+# zero 45 (the losses and grad norms move by 1.4e-3 under either)
+POD_RESIDUAL_RTOL = 0.1
+TRAIN_MESH_RESUME_ARGS = TRAIN_RESUME_ARGS + ["--log-every", "100"]
+
+
+def mesh_f32_steps(device, shape, axes, compress: bool = False,
+                   steps: int = LM_TRAIN_STEPS, ref_path=None) -> dict:
+    """``steps`` f32 train steps of the full CONFIG on a mesh of this
+    spawn's ranks over LM_TRAIN_PIN's batches, from
+    ``seeded_params(LM_WEIGHT_SEED)`` with AdamWConfig(**LM_TRAIN_OPT),
+    TF32 off: the losses and gradient norms. With ``compress``, pod 0's
+    ``grad_error`` after each step: its norm and the sum of its elements
+    (float64). With ``ref_path`` (a ``torch.save`` of the unmeshed run's
+    initial, first-step and final master weights), rank 0's largest
+    difference of the gathered final master weights from the unmeshed
+    ones, and the first step's update (master - init) against the
+    unmeshed update, as ``card_vs_cpu_steps`` holds the card to the CPU:
+    ``update_rel``, the worst leaf's norm of the difference over the norm
+    of the unmeshed update (a block left at its initial value reads 1,
+    one updated the wrong way 2)."""
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.layers import tree_flatten_with_path
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train.compression import init_error_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    mesh = lm_mesh.make_mesh_compat(shape, axes, device=device)
+    if mesh is None:
+        return {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = LMModel(cfg, mesh)
+        params, specs = seeded_params(cfg, LM_WEIGHT_SEED, mesh=mesh)
+        ocfg = AdamWConfig(**LM_TRAIN_OPT)
+        state = adamw_init(params, ocfg)
+        if compress:
+            state["grad_error"] = init_error_state(params)
+        step = make_train_step(model, ocfg, compress_pods=compress,
+                               param_specs=specs)
+        out = {"loss": [], "grad_norm": []}
+        first = None
+        for i in range(steps):
+            params, state, met = step(params, state, pin_batch(i))
+            for k in ("loss", "grad_norm"):
+                out[k].append(float(met[k]))
+            if compress:
+                # a collective: pod 0's ranks put pod 0's residual together
+                err = [t.double() for _, t in tree_flatten_with_path(
+                    mesh.gather_tree(state["grad_error"], specs))]
+                out.setdefault("grad_error_norm", []).append(
+                    float(torch.sqrt(sum((t * t).sum() for t in err))))
+                out.setdefault("grad_error_sum", []).append(
+                    float(sum(t.sum() for t in err)))
+            if i == 0 and ref_path is not None:
+                first = mesh.gather_tree(state["master"], specs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if ref_path is not None:
+        master = mesh.gather_tree(state["master"], specs)
+        if mesh.rank == 0:
+            ref = torch.load(ref_path)
+            leaves = lambda t: [x.cpu() for _, x in  # noqa: E731
+                                tree_flatten_with_path(t)]
+            out["master_max_abs"] = max(
+                float((a - b).abs().max())
+                for a, b in zip(leaves(master), leaves(ref["last"])))
+            ups = [(a - i, b - i) for a, b, i in zip(
+                leaves(first), leaves(ref["first"]), leaves(ref["init"]))]
+            out["update_rel"] = max(
+                float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in ups)
+    return out
+
+
+def pod_vs_pin(pods: dict) -> dict:
+    """``mesh_f32_steps(compress=True)``'s figures against LM_TRAIN_POD_PIN:
+    the losses' and grad norms' largest relative differences, and the
+    residual's (see POD_RESIDUAL_RTOL)."""
+    pin = LM_TRAIN_POD_PIN
+    out = {k: max(rel(a, b) for a, b in zip(pods[k], pin[k]))
+           for k in ("loss", "grad_norm")}
+    out["residual"] = max(abs(a - b) / n for k in ("grad_error_norm",
+                                                    "grad_error_sum")
+                          for a, b, n in zip(pods[k], pin[k],
+                                             pin["grad_error_norm"]))
+    return out
+
+
+def train_mesh_rank(rank, cases) -> dict:
+    """One rank of the train_mesh phase (a worker for ``mesh.spawn``): each
+    case ``name -> (kind, kwargs)``, in order. "driver" runs
+    ``launch.train.run(argv)`` with B1's count set to 0 just before and
+    read just after; "f32" runs ``mesh_f32_steps``."""
+    from repro_torch.kernels import fused_join as fj
+    from repro_torch.launch import train
+
+    out = {}
+    for name, (kind, kw) in cases.items():
+        if kind == "driver":
+            fj.KERNEL_LAUNCHES = 0
+            rep = train.run(list(kw["argv"]))
+            if rep.device.startswith("cuda"):
+                torch.cuda.synchronize()
+            out[name] = dict(dataclasses.asdict(rep),
+                             b1_launches=fj.KERNEL_LAUNCHES,
+                             tokens_per_s=rep.tokens_per_s())
+        else:
+            out[name] = mesh_f32_steps(**kw)
+    return out
+
+
+def train_mesh_spawn(n_ranks: int, cases: dict) -> tuple:
+    from repro_torch.launch import mesh
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(train_mesh_rank, n_ranks, cases, device=DEVICE,
+                       timeout_s=TRAIN_MESH_TIMEOUT_S)
+    return ranks, time.perf_counter() - t0
+
+
+def phase_train_mesh() -> dict:
+    """ROADMAP A17 (ii b) on the card: (a) the driver with ``--mesh smoke
+    --dedup`` at the full CONFIG on 2 ranks (1, 2) and 4 ranks (2, 2),
+    every rank's losses finite and equal to rank 0's, B1 launched once a
+    batch on each rank; (b) the same meshes at f32 against the card's
+    unmeshed f32 steps; (c) the pod-compressed step on (2, 1, 2) against
+    JAX's LM_TRAIN_POD_PIN; (d) 4 steps with ``--mesh none`` on one rank
+    resumed on 4 ranks to step 8 against an uninterrupted 4-rank run."""
+    import tempfile
+
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.launch import train
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.layers import tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            unmeshed = train_pin_run(DEVICE, LM_TRAIN_STEPS)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        ref_path = os.path.join(tmp, "ref_master.pt")
+        init, _ = seeded_params(dataclasses.replace(CONFIG, dtype="float32"),
+                                LM_WEIGHT_SEED, "cpu")
+        torch.save({"init": init, **{
+            k: tree_map(lambda t: t.detach().cpu(), unmeshed[i]["master"])
+            for k, i in (("first", 0), ("last", -1))}}, ref_path)
+        ckpt = os.path.join(tmp, "resume")
+        first = train.run(TRAIN_MESH_RESUME_ARGS + [
+            "--mesh", "none", "--steps", "4", "--ckpt-dir", ckpt,
+            "--ckpt-every", "4"])
+        runs, spawn_s = {}, {}
+        for n in TRAIN_MESH_RANKS:
+            shape = (n // 2, 2)
+            cases = {
+                "driver": ("driver", dict(argv=TRAIN_MESH_ARGS)),
+                "f32": ("f32", dict(device=DEVICE, shape=shape,
+                                    axes=("data", "model"),
+                                    ref_path=ref_path))}
+            if n == 4:
+                cases.update(
+                    pods=("f32", dict(device=DEVICE, shape=POD_MESH[0],
+                                      axes=POD_MESH[1], compress=True)),
+                    resume=("driver", dict(argv=TRAIN_MESH_RESUME_ARGS + [
+                        "--mesh", "smoke", "--steps", "8", "--ckpt-dir",
+                        ckpt])),
+                    whole=("driver", dict(argv=TRAIN_MESH_RESUME_ARGS + [
+                        "--mesh", "smoke", "--steps", "8"])))
+            runs[n], spawn_s[n] = train_mesh_spawn(n, cases)
+    launches, fields = 0, {}
+    for n, ranks in runs.items():
+        where = f"train_mesh ({n // 2}, 2)"
+        drv = [r["driver"] for r in ranks]
+        losses = np.asarray(drv[0]["losses"])
+        check(len(losses) == TRAIN_MESH_STEPS and np.isfinite(losses).all(),
+              f"{where}: losses {losses.tolist()}")
+        for r in drv:
+            check(r["losses"] == drv[0]["losses"], f"{where}: rank "
+                  f"{r['rank']}'s losses {r['losses']} differ from rank 0's")
+            check(r["b1_launches"] >= TRAIN_MESH_STEPS, f"{where}: rank "
+                  f"{r['rank']} launched B1 {r['b1_launches']} times in "
+                  f"{TRAIN_MESH_STEPS} batches")
+            check(r["mesh"] == {"data": n // 2, "model": 2},
+                  f"{where}: mesh {r['mesh']}")
+        launches += sum(r["b1_launches"] for r in drv)
+        f32 = ranks[0]["f32"]
+        vs = {k: max(rel(a, b[k]) for a, b in zip(f32[k], unmeshed))
+              for k in ("loss", "grad_norm")}
+        check(max(vs.values()) <= LM_TRAIN_RTOL
+              and f32["master_max_abs"] <= LM_TRAIN_RTOL
+              and f32["update_rel"] <= TRAIN_UPDATE_RTOL,
+              f"{where}: f32 against the unmeshed steps {vs}, master "
+              f"{f32['master_max_abs']}, first update {f32['update_rel']}")
+        timed = np.asarray(drv[0]["step_ms"][1:])
+        fields[f"{n // 2}x2"] = dict(
+            losses=losses.tolist(),
+            step_p50_ms=float(np.percentile(timed, 50)),
+            step_p99_ms=float(np.percentile(timed, 99)),
+            batch_p50_ms=float(np.percentile(drv[0]["batch_ms"][1:], 50)),
+            tokens_per_s=drv[0]["tokens_per_s"],
+            peak_bytes=[r["peak_bytes"] for r in drv],
+            b1_launches=[r["b1_launches"] for r in drv],
+            collective_s_a_step={k: v[1] / len(losses) for k, v in
+                                 drv[0]["collective"].items()},
+            collective_calls={k: v[0] for k, v in
+                              drv[0]["collective"].items()},
+            collective_bytes={k: v[2] for k, v in
+                              drv[0]["collective"].items()},
+            f32_vs_unmeshed=vs, f32_master_max_abs=f32["master_max_abs"],
+            f32_update_rel=f32["update_rel"],
+            spawn_s=spawn_s[n])
+    four = runs[4]
+    pods = four[0]["pods"]
+    pin = pod_vs_pin(pods)
+    residual = pin.pop("residual")
+    check(all(r["pods"]["loss"] == pods["loss"] for r in four)
+          and max(pin.values()) <= LM_TRAIN_RTOL
+          and residual <= POD_RESIDUAL_RTOL,
+          f"train_mesh pods: {pods} against LM_TRAIN_POD_PIN ({pin}, "
+          f"residual {residual})")
+    resumed, whole = four[0]["resume"], four[0]["whole"]
+    check(resumed["start"] == 4 and resumed["ranks"] == 4
+          and len(resumed["losses"]) == 4,
+          f"train_mesh resume: start {resumed['start']}, ranks "
+          f"{resumed['ranks']}")
+    resume = max(rel(a, b) for a, b in zip(resumed["losses"],
+                                           whole["losses"][4:]))
+    first_vs_whole = max(rel(a, b) for a, b in zip(first.losses,
+                                                   whole["losses"][:4]))
+    check(resume <= TRAIN_RESUME_RTOL and first_vs_whole <= TRAIN_RESUME_RTOL,
+          f"train_mesh resume: {resumed['losses']} against "
+          f"{whole['losses'][4:]}, one rank {first.losses} against "
+          f"{whole['losses'][:4]}")
+    emit("train_mesh", config="smoke-lm", dtype="bfloat16", remat=True,
+         steps=TRAIN_MESH_STEPS, batch=8, seq=256, dedup=True,
+         backend="gloo", meshes=fields, pods_vs_pin=pin,
+         pods_losses=pods["loss"], pods_residual_vs_pin=residual,
+         pods_residual_norm=pods["grad_error_norm"], resume_rel=resume,
+         first_four_rel=first_vs_whole, resume_tol=TRAIN_RESUME_RTOL,
+         b1_launches=launches, nvidia_smi=nvidia_smi_line(),
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches}
+
+
+def gloo_cuda_rank(rank) -> dict:
+    """Which gloo collectives take CUDA tensors on this machine (a worker
+    for ``mesh.spawn``): each one's outcome on a small tensor, a record
+    (the port stages every collective through host memory)."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    n = dist.get_world_size()
+    calls = {
+        "all_reduce_f32": lambda: dist.all_reduce(torch.ones(4, device=dev)),
+        "all_reduce_bf16": lambda: dist.all_reduce(
+            torch.ones(4, device=dev, dtype=torch.bfloat16)),
+        "all_gather_f32": lambda: dist.all_gather(
+            [torch.empty(4, device=dev) for _ in range(n)],
+            torch.ones(4, device=dev)),
+        "reduce_scatter_tensor_f32": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(4 * n, device=dev)),
+        "all_to_all_single_f32": lambda: dist.all_to_all_single(
+            torch.empty(4 * n, device=dev), torch.ones(4 * n, device=dev)),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except Exception as err:        # noqa: BLE001 -- recorded
+            out[name] = f"{type(err).__name__}: {str(err)[:120]}"
+    return out
+
+
+def train_mesh_alone() -> int:
+    """``--train-mesh``: the build, the train_mesh phase and the gloo probe
+    on CUDA tensors (``gloo_cuda_rank``), without the other phases."""
+    from repro_torch.launch import mesh
+    phase_env()
+    phase_build()
+    probe = mesh.spawn(gloo_cuda_rank, 2, device=DEVICE, backend="gloo",
+                       timeout_s=120)
+    emit("gloo_cuda_probe", ranks=probe)
+    out = phase_train_mesh()
+    print(json.dumps({"train_mesh": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-half-totals"]:
         print(json.dumps(record_half_totals()), flush=True)
@@ -4967,6 +5304,10 @@ def main() -> int:
         return 0
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    if sys.argv[1:] == ["--train-mesh"]:
+        print(nvidia_smi_line(), flush=True)
+        with pinned_tables():
+            return train_mesh_alone()
     with pinned_tables() as table_dir:
         return smoke(table_dir)
 
@@ -4996,6 +5337,7 @@ def smoke(table_dir: Path) -> int:
     analysis = phase_analysis()
     phase_lm()
     trained = phase_train()
+    meshed = phase_train_mesh()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"
@@ -5020,7 +5362,8 @@ def smoke(table_dir: Path) -> int:
                                 "dedup_cosine": deduped["launches"],
                                 "sanitized_main_path":
                                     analysis["launches"],
-                                "train_dedup": trained["launches"]},
+                                "train_dedup": trained["launches"],
+                                "train_mesh_dedup": meshed["launches"]},
         "max_abs_err": max(worst, served["worst"], metrics["worst"],
                            slab["worst"]),
         "ms": b1["ms"],

@@ -20,8 +20,18 @@ Guarantees, as the reference's: a step directory either fully exists
 a manifest whose ``complete`` flag is set; ``CheckpointManager`` snapshots
 to the host on the caller's thread, writes on a background thread, keeps
 one save in flight, raises a save's error on the next ``wait()`` and keeps
-the last k steps. Restoring onto a mesh (``mesh``/``specs``) comes with
-ROADMAP A17 (ii b).
+the last k steps.
+
+On a mesh (``launch.mesh.LMMesh``) the leaves are this rank's blocks. A
+save gathers the whole arrays, in JAX's layout, with a collective that
+every rank joins on the caller's thread; rank 0 alone writes, renames and
+garbage-collects, and ``wait()`` ends with every rank learning whether it
+failed (an all-reduced flag), so that every rank raises or none does and
+no rank reads a step before its rename. A leaf that the spec leaves whole
+over an axis is taken from coordinate 0 of that axis, as JAX's logical
+array reads it: a pod-compressed run's ``grad_error`` is pod 0's (ROADMAP
+§C, C10). ``restore_checkpoint(..., mesh=, specs=)`` keeps each rank's
+block of every stored leaf: the elastic path, from any mesh to any other.
 """
 from __future__ import annotations
 
@@ -110,10 +120,11 @@ def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 def restore_checkpoint(directory: str, step: int, like: Any, *,
                        mesh=None, specs: Any = None) -> Any:
     """Restore into the structure of ``like``: each leaf takes the dtype
-    and device of ``like``'s leaf of the same name."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh comes with ROADMAP A17 (ii b)")
+    and device of ``like``'s leaf of the same name. With ``mesh`` and
+    ``specs`` (a tree of spec tuples over ``like``'s keys), each rank
+    keeps its block of every stored leaf."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("restoring onto a mesh needs both mesh and specs")
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -123,22 +134,41 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
     def load(lpath, leaf):
         e = by_name[_name(lpath)]
         t = _from_host(np.load(os.path.join(path, e["file"])), e["dtype"])
+        if mesh is not None:
+            spec = specs
+            for k in lpath:
+                spec = spec[k]
+            t = t[mesh.block(spec, t.shape)].contiguous()
         return t.to(device=leaf.device, dtype=leaf.dtype)
 
     return tree_map_with_path(load, like)
 
 
 class CheckpointManager:
-    """Async saves + retention. One in-flight save at a time."""
+    """Async saves + retention. One in-flight save at a time. With
+    ``mesh``, every rank calls ``save_async`` and ``wait`` at the same
+    points, with ``specs`` for the tree's blocks."""
 
-    def __init__(self, directory: str, keep_last_k: int = 3):
+    def __init__(self, directory: str, keep_last_k: int = 3, *, mesh=None):
         self.directory = directory
         self.keep = keep_last_k
+        self.mesh = mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save_async(self, step: int, tree: Any, extra: Optional[dict] = None):
+    @property
+    def writes(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def save_async(self, step: int, tree: Any, extra: Optional[dict] = None,
+                   *, specs: Any = None):
         self.wait()
+        if self.mesh is not None:       # every rank gathers the blocks
+            if specs is None:
+                raise ValueError("a save from a mesh needs the tree's specs")
+            tree = self.mesh.gather_tree(tree, specs)
+        if not self.writes:
+            return
         # snapshot on the caller thread (device to host), write on the
         # background thread
         host_tree = tree_map(
@@ -158,8 +188,12 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self.mesh is not None and self.mesh.any(err is not None):
+            raise err if err is not None else RuntimeError(
+                f"a checkpoint save under {self.directory} failed on "
+                f"rank 0")
+        if err is not None:
             raise err
 
     def _gc(self):

@@ -22,19 +22,35 @@ flags and pairs pass through host memory, as gloo's sends take CPU tensors.
         [--device cpu] --points N --dims d --eps e --seed s
 
 runs the collective join from the shell and prints one JSON line.
+
+The LM meshes (``LMMesh``) are the counterparts of JAX's named meshes for
+training: ``make_production_mesh`` ((16, 16) ``("data", "model")`` or
+(2, 16, 16) ``("pod", "data", "model")``), ``make_smoke_mesh``,
+``make_mesh_compat`` and ``make_selfjoin_mesh``. JAX counts devices; these
+count the ranks of the default process group (a one-rank group on a file
+store when none is initialized), lay them out row-major over the mesh's
+axes, as ``jax.make_mesh`` does on the CPU, and refuse a mesh that needs
+more ranks than the world has. Every collective of an ``LMMesh`` passes
+through host memory on gloo (``wire``), so that ranks sharing one card
+run their compute on it.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
+import contextlib
 import dataclasses
 import datetime
+import itertools
 import json
+import math
 import os
 import pickle
+import shutil
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -194,6 +210,381 @@ def spawn(fn, n_ranks: int, *args, backend: Optional[str] = None,
                     p.kill()
         return [pickle.loads((Path(tmp) / f"rank{rank}.pkl").read_bytes())[1]
                 for rank in range(n_ranks)]
+
+
+# ---------------------------------------------------------------------------
+# The LM meshes
+# ---------------------------------------------------------------------------
+
+def init_world(device=None, timeout_s: float = DEFAULT_TIMEOUT_S) -> tuple:
+    """(rank, world size) of the default process group, which is made here
+    when none is: from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``) when it is set, with ``choose_backend``'s backend,
+    else a one-rank gloo group on a file store in a temporary directory,
+    as ``spawn``'s ranks meet."""
+    if not dist.is_initialized():
+        timeout = datetime.timedelta(seconds=timeout_s)
+        env = os.environ
+        if all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+            dist.init_process_group(
+                choose_backend(int(env["WORLD_SIZE"]), device),
+                init_method="env://", timeout=timeout)
+        else:
+            tmp = tempfile.mkdtemp(prefix="lm_mesh_")
+            atexit.register(shutil.rmtree, tmp, True)
+            dist.init_process_group(
+                "gloo", init_method=f"file://{tmp}/store", rank=0,
+                world_size=1, timeout=timeout)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry: ``None``, a name or a tuple of
+    names (major first)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return buf.clone().view(like.dtype).reshape(like.shape)
+
+
+class LMMesh:
+    """One rank's view of a named grid of ranks, the counterpart of a JAX
+    ``Mesh`` for the LM substrate. ``axis_names`` and ``shape`` (axis name
+    to size, in mesh order) are what ``make_shard_ctx`` and
+    ``choose_layout`` read; ``coords`` is this rank's place on each axis,
+    the rank being the row-major index of its coordinates.
+
+    A spec tuple (``models/layers.py``) names, for each dimension of a
+    tensor, the axes it is split over: a rank holds the block of its
+    coordinates (``local``), and ``gather`` puts the blocks back together.
+    The collectives run over the sub-grid of the ranks that differ only on
+    the named axes (one process group each, made when the mesh is), pass
+    through host memory on gloo (``wire``), and add their calls, seconds
+    (ending in a synchronize of the device) and bytes to ``stats`` under a
+    kind: "params" (parameter gathers), "grads" (gradient sums), "loss",
+    "expert" (the moe all-to-all), "pods" (the compressed exchange),
+    "state" (checkpoints, optimizer norms), each in a ``mesh.<kind>``
+    profiler span."""
+
+    def __init__(self, shape, axes, rank: int, device: torch.device,
+                 backend: str, groups: dict):
+        self.axis_names = tuple(axes)
+        self.sizes = tuple(int(n) for n in shape)
+        self.shape = dict(zip(self.axis_names, self.sizes))
+        self.size = math.prod(self.sizes)
+        self.rank = rank
+        self.device = device
+        self.backend = backend
+        self._groups = groups
+        self.coords = self.coords_of(rank)
+        self.stats: dict = {}
+
+    def __repr__(self) -> str:
+        return (f"LMMesh({self.shape}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend})")
+
+    @property
+    def wire(self) -> torch.device:
+        return self.device if self.backend == "nccl" else torch.device("cpu")
+
+    def coords_of(self, rank: int) -> dict:
+        out, rest = {}, rank
+        for name, n in reversed(list(zip(self.axis_names, self.sizes))):
+            out[name] = rest % n
+            rest //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def live(self, axes) -> tuple:
+        """``axes`` of more than one rank, in mesh order; an axis the mesh
+        lacks raises."""
+        axes = set(axes)
+        unknown = axes - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"axes {sorted(unknown)} are not on the mesh "
+                             f"{self.axis_names}")
+        return tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+
+    def group(self, axes):
+        """(process group, member ranks in rank order) of the ranks that
+        share this rank's coordinates off ``axes``; None when ``axes``
+        holds no axis of more than one rank."""
+        live = self.live(axes)
+        return self._groups[frozenset(live)] if live else None
+
+    def spec_live(self, spec) -> tuple:
+        return self.live(a for e in spec for a in spec_axes(e))
+
+    def entry_live(self, entry) -> tuple:
+        """The live axes of one spec entry, in the entry's order (its
+        first axis major, as in JAX's ``PartitionSpec``)."""
+        live = set(self.live(spec_axes(entry)))
+        return tuple(a for a in spec_axes(entry) if a in live)
+
+    def owner(self, spec) -> bool:
+        """Whether this rank holds the first copy of its block of a tensor
+        laid out by ``spec`` (coordinate 0 on every axis the spec leaves
+        out)."""
+        named = set(self.spec_live(spec))
+        return all(self.coords[a] == 0 for a in self.live(self.axis_names)
+                   if a not in named)
+
+    # -- blocks -------------------------------------------------------------
+
+    def _index(self, axes, coords) -> tuple:
+        """(block index, block count) over ``axes``, the first major."""
+        idx, n = 0, 1
+        for a in axes:
+            idx = idx * self.shape[a] + coords[a]
+            n *= self.shape[a]
+        return idx, n
+
+    def block(self, spec, shape, coords=None, over=None) -> tuple:
+        """The slices of this rank's block (or ``coords``') of a tensor of
+        the whole ``shape`` laid out by ``spec``; with ``over``, split
+        over those axes only."""
+        coords = self.coords if coords is None else coords
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        out = []
+        for d, (entry, size) in enumerate(zip(spec, shape)):
+            axes = [a for a in self.entry_live(entry)
+                    if over is None or a in over]
+            idx, n = self._index(axes, coords)
+            if size % n:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                                 f"split over {spec_axes(entry)} ({n} ranks)")
+            step = size // n
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def local(self, full: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of ``full`` (a copy on ``device``)."""
+        return full[self.block(spec, full.shape)].to(
+            self.device, copy=True).contiguous()
+
+    def local_tree(self, tree, specs):
+        from repro_torch.models.layers import tree_map_with_path
+        return tree_map_with_path(
+            lambda path, t: self.local(t, _at(specs, path)), tree)
+
+    # -- collectives --------------------------------------------------------
+
+    @contextlib.contextmanager
+    def timed(self, kind: str, nbytes: int = 0):
+        from torch.profiler import record_function
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        with record_function(f"mesh.{kind}"):
+            yield
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        calls, secs, moved = self.stats.get(kind, (0, 0.0, 0))
+        self.stats[kind] = (calls + 1, secs + time.perf_counter() - t0,
+                            moved + nbytes)
+
+    def _gather_bytes(self, buf: torch.Tensor, group, kind: str) -> list:
+        """Every member's ``buf`` (uint8), in member order."""
+        g, members = group
+        w = buf.to(self.wire)
+        outs = [torch.empty_like(w) for _ in members]
+        with self.timed(kind, buf.numel() * len(members)):
+            dist.all_gather(outs, w, group=g)
+        return [o.to(self.device) for o in outs]
+
+    def gather_many(self, tensors: Sequence[torch.Tensor], specs,
+                    keep=None, kind: str = "params") -> list:
+        """Each tensor's blocks put together over the live axes its spec
+        names, except those its ``keep`` spec names (kept: the result is
+        still this rank's block over them): one all-gather for each set of
+        axes gathered over, whatever the dtypes."""
+        keep = keep or [()] * len(tensors)
+        out = list(tensors)
+        by_axes: dict = {}
+        for i, (t, spec, kp) in enumerate(zip(tensors, specs, keep)):
+            kept = set(self.spec_live(kp))
+            over = tuple(a for a in self.spec_live(spec) if a not in kept)
+            if over:
+                by_axes.setdefault(over, []).append(i)
+        for over, idx in by_axes.items():
+            group = self.group(over)
+            bufs = self._gather_bytes(
+                torch.cat([_bytes(tensors[i]) for i in idx]), group, kind)
+            _, members = group
+            off = 0
+            for i in idx:
+                t, spec = tensors[i], tuple(specs[i])
+                spec = spec + (None,) * (t.ndim - len(spec))
+                nb = t.numel() * t.element_size()
+                dims = [self._index([a for a in spec_axes(e) if a in over],
+                                    self.coords)[1] for e in spec]
+                whole = torch.empty([n * m for n, m in zip(t.shape, dims)],
+                                    dtype=t.dtype, device=self.device)
+                for r, b in zip(members, bufs):
+                    c = self.coords_of(r)
+                    sl = []
+                    for e, size in zip(spec, t.shape):
+                        axes = self.entry_live(e)
+                        moved = [a for a in axes if a in over]
+                        kept = tuple(a for a in axes if a not in over)
+                        if moved and axes[:len(kept)] != kept:
+                            raise ValueError(f"spec entry {e}: a kept axis "
+                                             f"must be major")
+                        j, _ = self._index(moved, c)
+                        sl.append(slice(j * size, (j + 1) * size))
+                    whole[tuple(sl)] = _from_bytes(b[off:off + nb], t)
+                out[i] = whole
+                off += nb
+        return out
+
+    def gather(self, t: torch.Tensor, spec, kind: str = "state"):
+        return self.gather_many([t], [spec], kind=kind)[0]
+
+    def gather_tree(self, tree, specs, kind: str = "state"):
+        """The whole tensors of a tree of blocks (a collective)."""
+        from repro_torch.models.layers import (tree_flatten_with_path,
+                                               tree_map_with_path)
+        flat = tree_flatten_with_path(tree)
+        whole = self.gather_many([t for _, t in flat],
+                                 [_at(specs, p) for p, _ in flat], kind=kind)
+        by_path = {p: w for (p, _), w in zip(flat, whole)}
+        return tree_map_with_path(lambda path, _: by_path[path], tree)
+
+    def all_reduce_many(self, tensors: Sequence[torch.Tensor], axes,
+                        op: str = "sum", kind: str = "grads") -> list:
+        """Each tensor reduced over ``axes`` in one float32 buffer (the sum
+        of bfloat16 gradients in float32, cast back to their dtype)."""
+        group = self.group(axes)
+        if group is None or not tensors:
+            return list(tensors)
+        flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+        w = flat.to(self.wire)
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        with self.timed(kind, flat.numel() * 4):
+            dist.all_reduce(w, op=red, group=group[0])
+        w = w.to(self.device)
+        out, off = [], 0
+        for t in tensors:
+            out.append(w[off:off + t.numel()].reshape(t.shape).to(t.dtype))
+            off += t.numel()
+        return out
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum",
+                   kind: str = "loss") -> torch.Tensor:
+        return self.all_reduce_many([t], axes, op, kind)[0]
+
+    def all_gather_stack(self, t: torch.Tensor, axis: str,
+                         kind: str = "pods") -> torch.Tensor:
+        """(n, *t.shape): every rank's ``t`` along ``axis``, by coordinate."""
+        group = self.group((axis,))
+        if group is None:
+            return t[None]
+        bufs = self._gather_bytes(_bytes(t), group, kind)
+        return torch.stack([_from_bytes(b, t) for b in bufs])
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                   cat_dim: int, kind: str = "expert") -> torch.Tensor:
+        """Split ``x`` along ``split_dim`` into one chunk a rank of
+        ``axis`` (by coordinate), send each its chunk, and concatenate what
+        arrives along ``cat_dim`` (by the sender's coordinate)."""
+        group = self.group((axis,))
+        if group is None:
+            return x
+        g, members = group
+        n = len(members)
+        chunks = [c.contiguous() for c in torch.tensor_split(x, n, split_dim)]
+        send = torch.stack([_bytes(c) for c in chunks]).to(self.wire)
+        recv = torch.empty_like(send)
+        with self.timed(kind, send.numel()):
+            dist.all_to_all_single(recv, send, group=g)
+        recv = recv.to(self.device)
+        return torch.cat([_from_bytes(recv[i], chunks[0]) for i in range(n)],
+                         dim=cat_dim)
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank of the mesh (a collective:
+        every rank calls it before any raises)."""
+        t = torch.tensor([1.0 if flag else 0.0])
+        return bool(self.all_reduce(t.to(self.device), self.axis_names,
+                                    "max", kind="state")[0] > 0)
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def make_mesh_compat(shape, axes, *, device=None) -> Optional[LMMesh]:
+    """This rank's ``LMMesh`` of ``shape`` over the named ``axes``, laid
+    over the first ``prod(shape)`` ranks of the world (a rank past them
+    gets None). Raises ``ValueError`` when the world has fewer ranks.
+    Every rank of the world calls it: the sub-grids' process groups are
+    made together. ``device``: as ``make_slab_mesh``'s."""
+    import numpy as np
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
+    rank, world = init_world(device)
+    need = math.prod(shape)
+    if need > world:
+        raise ValueError(f"a {shape} mesh over {axes} needs {need} ranks, "
+                         f"the world has {world}")
+    grid = np.arange(need).reshape(shape)
+    live = [a for a, n in zip(axes, shape) if n > 1]
+    groups = {}
+    for k in range(1, len(live) + 1):
+        for sub in itertools.combinations(live, k):
+            dims = [axes.index(a) for a in sub]
+            moved = np.moveaxis(grid, dims, range(len(shape) - k, len(shape)))
+            for members in moved.reshape(-1, math.prod(moved.shape[-k:])):
+                members = sorted(int(r) for r in members)
+                g = dist.new_group(members)
+                if rank in members:
+                    groups[frozenset(sub)] = (g, members)
+    if rank >= need:
+        return None
+    dev = _rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.init()
+        torch.cuda.set_device(dev)
+    return LMMesh(shape, axes, rank, dev, dist.get_backend(), groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
+    """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
+    "model")``: batch over ('pod', 'data'), FSDP over 'data', tensor and
+    expert parallelism over 'model'."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_compat(shape, axes, device=device)
+
+
+def make_smoke_mesh(n_devices: int = 1, *, device=None) -> LMMesh:
+    """A small mesh over the world's ranks (tests, the chip smoke):
+    ``(n // model, model)`` ``("data", "model")``, n the smaller of
+    ``n_devices`` and the world, model 2 when n is even."""
+    _, world = init_world(device)
+    n = min(n_devices, world)
+    model = 2 if n % 2 == 0 else 1
+    return make_mesh_compat((n // model, model), ("data", "model"),
+                            device=device)
+
+
+def make_selfjoin_mesh(*, multi_pod: bool = False, device=None) -> SlabMesh:
+    """The self-join's ``("slab", "model")`` mesh: (16, 16), or (32, 16)
+    with pod x data flattened into 'slab'."""
+    init_world(device)
+    return make_slab_mesh(32 if multi_pod else 16, 16, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,23 @@ step -> TokenPipeline (optional self-join dedup, which launches the
 fused-join kernel on the card) -> CheckpointManager (async, atomic,
 keep-last-k) -> StragglerMonitor -> elastic restore from the latest
 complete checkpoint. Runs on CUDA unless ``--device`` names another
-device. Only ``--mesh none`` runs: the meshes and ``--compress-pods`` come
-with ROADMAP A17 (ii b).
+device.
+
+``--mesh smoke|single|multi`` runs SPMD over the ranks of the process
+group (``launch/mesh.py``; a one-rank group when none is initialized):
+every rank runs this driver, builds the same whole batch (the dedup's
+join included), keeps its rows, and holds its blocks of the parameters
+and the optimizer state. Start the ranks with ``torchrun`` or with
+``repro_torch.launch.mesh.spawn(train_rank, n, argv)``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch smoke-lm --reduced --mesh smoke --device cpu
+
+``--compress-pods`` adds the error-feedback buffers to the state and, on
+a mesh with a 'pod' axis, compresses the cross-pod exchange. A checkpoint
+holds whole arrays, so a run restores onto any mesh: the elastic restore
+prints ``[train] elastic restore from step N onto K rank(s)``. Only rank 0
+prints the steps.
 
 Each step's time ends in the read of its loss, which waits for the step's
 work on the device: the driver's one sync point a step, as the reference's
@@ -31,12 +46,14 @@ import torch
 from repro_torch.ckpt import CheckpointManager, latest_step, restore_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.mesh import (init_world, make_production_mesh,
+                                     make_smoke_mesh)
 from repro_torch.models.lm import LMModel
-from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.compression import init_error_state
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                         opt_state_specs)
 from repro_torch.train.steps import make_train_step
 from repro_torch.train.straggler import StragglerMonitor
-
-MESH_TODO = "ROADMAP A17 (ii b)"
 
 
 @dataclasses.dataclass
@@ -44,7 +61,9 @@ class TrainReport:
     """What one run measured. ``step_ms``: host-clock ms of each step run,
     ending in its loss's read; ``batch_ms``: the pipeline's ms for each
     batch (the dedup's join included); ``peak_bytes``: the device's peak
-    allocation (None on the CPU: not measured)."""
+    allocation (None on the CPU: not measured); ``mesh``: the mesh's
+    axis sizes (None without one); ``collective``: the mesh's collectives
+    over the run, kind -> (calls, seconds, bytes)."""
     device: str
     start: int                   # the step the run began at (a restore's)
     losses: list
@@ -53,6 +72,10 @@ class TrainReport:
     tokens_per_step: int
     peak_bytes: Optional[int]
     loss: float                  # the final loss
+    rank: int = 0
+    ranks: int = 1
+    mesh: Optional[dict] = None
+    collective: Optional[dict] = None
 
     def tokens_per_s(self) -> float:
         """What a user of the driver gets: tokens over each iteration's
@@ -92,16 +115,34 @@ def parse_args(argv=None):
 
 
 def build(args):
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: the LM meshes come "
-                                  f"with {MESH_TODO}")
-    if args.compress_pods:
-        raise NotImplementedError(f"--compress-pods needs a pod mesh: "
-                                  f"{MESH_TODO}")
     cfg = get_config(args.arch, reduced=args.reduced)
-    model = LMModel(cfg, device=args.device)
+    if args.mesh == "single":
+        mesh = make_production_mesh(multi_pod=False, device=args.device)
+    elif args.mesh == "multi":
+        mesh = make_production_mesh(multi_pod=True, device=args.device)
+    elif args.mesh == "smoke":
+        _, world = init_world(args.device)
+        mesh = make_smoke_mesh(world, device=args.device)
+    else:
+        mesh = None
+    model = LMModel(cfg, mesh, device=args.device)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=args.warmup)
-    return cfg, model, ocfg
+    return cfg, mesh, model, ocfg
+
+
+def _agreed(mesh, fn):
+    """``fn()``, and on a mesh every rank raises if any rank's call did."""
+    err = None
+    try:
+        out = fn()
+    except Exception as e:          # noqa: BLE001 -- raised below
+        err = e
+    if mesh is not None and mesh.any(err is not None):
+        raise err if err is not None else RuntimeError(
+            "another rank failed; see its error")
+    if err is not None:
+        raise err
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -111,28 +152,44 @@ def _sync(device: torch.device) -> None:
 
 def run(argv=None) -> TrainReport:
     args = parse_args(argv)
-    cfg, model, ocfg = build(args)
+    cfg, mesh, model, ocfg = build(args)
     dev = model.device
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     pipe = TokenPipeline(vocab=cfg.vocab, batch=args.batch, seq=args.seq,
                          seed=args.seed, dedup=args.dedup,
                          input_kind=cfg.input_kind, d_model=cfg.d_model,
                          device=dev)
 
-    params, _ = model.init(np.random.default_rng(args.seed))
+    params, specs = model.init(np.random.default_rng(args.seed))
     opt_state = adamw_init(params, ocfg)
+    ospecs = opt_state_specs(specs, ocfg, params)
+    if args.compress_pods:
+        opt_state["grad_error"] = init_error_state(params)
+        ospecs = {**ospecs, "grad_error": specs}
+    tree_specs = {"params": specs, "opt": ospecs} if mesh else None
+    n_ranks = mesh.size if mesh is not None else 1
 
     start = 0
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    mgr = (CheckpointManager(args.ckpt_dir, mesh=mesh) if args.ckpt_dir
+           else None)
     if mgr is not None:
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            tree = restore_checkpoint(args.ckpt_dir, last,
-                                      {"params": params, "opt": opt_state})
+            tree = _agreed(mesh, lambda: restore_checkpoint(
+                args.ckpt_dir, last, {"params": params, "opt": opt_state},
+                mesh=mesh, specs=tree_specs))
             params, opt_state = tree["params"], tree["opt"]
             start = last
-            print(f"[train] elastic restore from step {last} onto {dev}")
+            say(f"[train] elastic restore from step {last} onto {n_ranks} "
+                f"rank(s) ({dev})")
 
-    step_fn = make_train_step(model, ocfg)
+    def save(at: int):
+        mgr.save_async(at, {"params": params, "opt": opt_state},
+                       specs=tree_specs)
+
+    step_fn = make_train_step(model, ocfg, compress_pods=args.compress_pods,
+                              param_specs=specs if mesh is not None else None)
     if dev.type == "cuda":
         _sync(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -152,26 +209,37 @@ def run(argv=None) -> TrainReport:
         step_ms.append(dt * 1000)
         slow = mon.record(dt)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"[train] step {step} loss {loss:.4f} "
-                  f"{dt*1000:.0f}ms gnorm {float(metrics['grad_norm']):.3f}"
-                  + (" SLOW" if slow else ""), flush=True)
-        if mon.should_rebalance():
-            print("[train] straggler threshold exceeded -> checkpoint + "
-                  "rebalance requested", flush=True)
+            say(f"[train] step {step} loss {loss:.4f} "
+                f"{dt*1000:.0f}ms gnorm {float(metrics['grad_norm']):.3f}"
+                + (" SLOW" if slow else ""), flush=True)
+        rebalance = mon.should_rebalance()
+        if mesh is not None:        # the ranks decide together
+            rebalance = mesh.any(rebalance)
+        if rebalance:
+            say("[train] straggler threshold exceeded -> checkpoint + "
+                "rebalance requested", flush=True)
             mon.reset()
             if mgr is not None:
-                mgr.save_async(step + 1, {"params": params, "opt": opt_state})
+                save(step + 1)
         if mgr is not None and (step + 1) % args.ckpt_every == 0:
-            mgr.save_async(step + 1, {"params": params, "opt": opt_state})
+            save(step + 1)
     if mgr is not None:
-        mgr.save_async(args.steps, {"params": params, "opt": opt_state})
+        save(args.steps)
         mgr.wait()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    print(f"[train] done at step {args.steps}, final loss {loss:.4f}")
+    say(f"[train] done at step {args.steps}, final loss {loss:.4f}")
     return TrainReport(
         device=str(dev), start=start, losses=losses, step_ms=step_ms,
         batch_ms=batch_ms, tokens_per_step=args.batch * args.seq,
-        peak_bytes=peak, loss=loss)
+        peak_bytes=peak, loss=loss,
+        rank=mesh.rank if mesh is not None else 0, ranks=n_ranks,
+        mesh=dict(mesh.shape) if mesh is not None else None,
+        collective=dict(mesh.stats) if mesh is not None else None)
+
+
+def train_rank(rank: int, argv) -> TrainReport:
+    """One rank of a meshed run (a worker for ``launch.mesh.spawn``)."""
+    return run(list(argv))
 
 
 def main(argv=None) -> float:

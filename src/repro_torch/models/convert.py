@@ -10,6 +10,12 @@ refuses; its bits go through a ``uint16`` view, so the port needs no
 ``ml_dtypes`` import. ``seeded_params`` draws one set of weights with
 numpy (JAX's distributions, ``LMModel.init``), so that the same weights
 reach JAX, the CPU and the card from one seed.
+
+On a mesh (``launch.mesh.LMMesh``): ``seeded_params(..., mesh=)`` keeps
+this rank's block of every leaf, and ``params_from_mesh`` gathers the
+blocks back to whole numpy arrays (a collective: every rank calls it), so
+that the port and JAX start from, and are compared on, the same weights
+on any mesh.
 """
 from __future__ import annotations
 
@@ -52,9 +58,16 @@ def params_to_numpy(params, bfloat16=None):
     return tree_map(lambda t: _to_numpy(t, bfloat16), params)
 
 
-def seeded_params(cfg, seed: int, device=None):
+def seeded_params(cfg, seed: int, device=None, *, mesh=None):
     """(params on ``device``, specs) drawn from ``np.random.default_rng(seed)``
-    in JAX's distributions: the same values on every device."""
+    in JAX's distributions: the same values on every device. With
+    ``mesh``, this rank's blocks on the mesh's device."""
     from repro_torch.models.lm import LMModel
 
-    return LMModel(cfg, device=device).init(np.random.default_rng(seed))
+    return LMModel(cfg, mesh, device=device).init(
+        np.random.default_rng(seed))
+
+
+def params_from_mesh(params, specs, mesh, bfloat16=None):
+    """The whole arrays of a tree of blocks, as numpy on every rank."""
+    return params_to_numpy(mesh.gather_tree(params, specs), bfloat16)

@@ -11,14 +11,25 @@ divide its axis, and then that dimension is replicated.
 Values come from a ``ParamInit``: a ``torch.Generator`` (normal draws on the
 host), a numpy ``Generator`` (the same distributions drawn by numpy, so that
 one seeded set of weights reaches JAX and every device alike), or nothing
-(tensors on the ``meta`` device: shapes, dtypes and specs only). JAX's
-``shard`` has no counterpart: off a mesh it is the identity.
+(tensors on the ``meta`` device: shapes, dtypes and specs only).
+
+On a mesh (``launch.mesh.LMMesh``) the port computes with explicit
+collectives, not with GSPMD. A parameter is stored as this rank's block of
+its spec; ``constrain_tree``, JAX's ``with_sharding_constraint`` over a
+parameter slice, gathers the blocks where the model reads them and, in the
+backward, sums the gradient over the batch axes and keeps this rank's
+block (JAX's reduce-scatter into the FSDP shards). An activation holds this
+rank's rows of the batch, split over the layout's batch axes, and is whole
+on every other dimension. The 'model' axis splits storage only: its ranks
+compute the same rows (no tensor parallelism). ``shard`` is JAX's cut
+point where the layout moves: off a mesh the identity, on one it moves a
+batch axis from one dimension to another (the moe's expert all-to-all).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -207,3 +218,190 @@ def cross_entropy(logits, labels, *, z_loss: float = 0.0):
 
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# meshes: placements, the cut points, parameter gathers
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def placements(spec, mesh) -> list:
+    """DTensor's placements of a spec tuple on ``mesh``: for each mesh
+    axis, ``Shard(d)`` where the spec names it on dimension d, else
+    ``Replicate()``. ``('data', 'model')`` on a ``(data, model)`` mesh is
+    ``[Shard(0), Shard(1)]``; an axis the spec leaves out is replicated."""
+    from torch.distributed.tensor.placement_types import Replicate, Shard
+
+    dim_of = {}
+    for d, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            if a not in mesh.axis_names:
+                raise ValueError(f"spec {tuple(spec)} names {a!r}, not an "
+                                 f"axis of {tuple(mesh.axis_names)}")
+            if a in dim_of:
+                raise ValueError(f"spec {tuple(spec)} names {a!r} twice")
+            dim_of[a] = d
+    return [Shard(dim_of[a]) if a in dim_of else Replicate()
+            for a in mesh.axis_names]
+
+
+class MeshCtx(NamedTuple):
+    """The mesh a model runs on, and ``batch_axes``: the live axes (major
+    first) that split an activation's rows and that the cut points move
+    and sum over."""
+    mesh: Any
+    batch_axes: tuple
+
+
+# a process-wide setting, not a context variable: autograd's device thread
+# runs the backward and the checkpoints' recomputation, and must see it
+_MESH: Optional[MeshCtx] = None
+
+
+def current_mesh() -> Optional[MeshCtx]:
+    return _MESH
+
+
+class mesh_context:
+    """``with mesh_context(mesh, batch_axes, manual=()):`` runs the model on
+    ``mesh`` (a no-op for ``mesh=None``); ``manual`` names axes the caller
+    runs by hand (the compressed step's 'pod'), which no cut point moves
+    or sums over. Nests, and restores the outer setting on exit."""
+
+    def __init__(self, mesh, batch_axes, manual=()):
+        self.ctx = None
+        if mesh is not None:
+            live = tuple(a for a in mesh.live(_entry_axes(batch_axes))
+                         if a not in manual)
+            self.ctx = MeshCtx(mesh, live)
+
+    def __enter__(self):
+        global _MESH
+        self.outer = _MESH
+        if self.ctx is not None:
+            _MESH = self.ctx
+        return self.ctx
+
+    def __exit__(self, *exc):
+        global _MESH
+        _MESH = self.outer
+        return False
+
+
+def _activation_dims(spec, mc: MeshCtx) -> dict:
+    """Where ``spec`` puts each batch axis: the dimension that names it,
+    else dimension 0, where the batch layout holds it."""
+    out = {a: 0 for a in mc.batch_axes}
+    for d, entry in enumerate(spec):
+        for a in _entry_axes(entry):
+            if a in out:
+                out[a] = d
+    return out
+
+
+class _Move(torch.autograd.Function):
+    """Move mesh axis ``axis`` of an activation from dimension ``src`` to
+    ``dst`` (an all-to-all); the backward moves it back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, src, dst):
+        ctx.mesh, ctx.axis, ctx.src, ctx.dst = mesh, axis, src, dst
+        return mesh.all_to_all(x, axis, split_dim=dst, cat_dim=src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_to_all(g.contiguous(), ctx.axis,
+                                    split_dim=ctx.src, cat_dim=ctx.dst),
+                None, None, None, None)
+
+
+def shard(x, *spec, src=None):
+    """JAX's ``with_sharding_constraint`` cut point. Off a mesh the
+    identity. On one, ``x`` is laid out as ``src`` says (the batch layout
+    when None: rows over the batch axes) and leaves laid out as ``spec``
+    says: a batch axis that the spec names on another dimension moves
+    there (an all-to-all), one it leaves out goes to (or stays on) the
+    rows, and other axes are ignored, since activations are whole on
+    them."""
+    mc = _MESH
+    if mc is None or not mc.batch_axes:
+        return x
+    have = _activation_dims(src if src is not None else (), mc)
+    want = _activation_dims(spec, mc)
+    for axis in reversed(mc.batch_axes):       # the minor axis first
+        if have[axis] != want[axis]:
+            x = _Move.apply(x, mc.mesh, axis, have[axis], want[axis])
+    return x
+
+
+class _GatherParams(torch.autograd.Function):
+    """Parameter blocks -> the compute views (whole but on the ``keep``
+    axes); the backward sums each view's gradient over the batch axes it
+    is not kept on and returns this rank's block of the sum."""
+
+    @staticmethod
+    def forward(ctx, mesh, specs, keep, reduce_axes, *blocks):
+        ctx.mesh, ctx.specs, ctx.keep = mesh, specs, keep
+        ctx.reduce_axes = reduce_axes
+        views = mesh.gather_many(blocks, specs, keep, kind="params")
+        ctx.shapes = [(v.shape, v.dtype) for v in views]
+        return tuple(v.clone() if v is b else v
+                     for v, b in zip(views, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        grads = [torch.zeros(shape, dtype=dt, device=mesh.device)
+                 if g is None else g for g, (shape, dt) in
+                 zip(grads, ctx.shapes)]
+        by_axes: dict = {}
+        for i, axes in enumerate(ctx.reduce_axes):
+            by_axes.setdefault(axes, []).append(i)
+        summed = list(grads)
+        for axes, idx in by_axes.items():
+            for i, t in zip(idx, mesh.all_reduce_many(
+                    [grads[i] for i in idx], axes, kind="grads")):
+                summed[i] = t
+        out = []
+        for g, spec, kp in zip(summed, ctx.specs, ctx.keep):
+            kept = set(mesh.spec_live(kp))
+            over = [a for a in mesh.spec_live(spec) if a not in kept]
+            sl = mesh.block(spec, g.shape, over=over)
+            out.append(g[sl].contiguous())
+        return (None, None, None, None, *out)
+
+
+def constrain_tree(params, specs, keep=None):
+    """JAX's ``_constrain_tree``: off a mesh (or with ``specs`` None)
+    ``params`` as they are; on one, the compute view of each block
+    (``keep``: a tree of spec tuples, over the same keys, of the axes a
+    view stays split on; the moe's experts over their expert axis)."""
+    mc = _MESH
+    if mc is None or specs is None:
+        return params
+    flat = tree_flatten_with_path(params)
+    if not flat:
+        return params
+
+    def at(tree, path):
+        for k in path:
+            if tree is None:
+                return ()
+            tree = tree.get(k) if isinstance(tree, dict) else tree[k]
+        return () if tree is None else tree
+
+    specs_l = tuple(tuple(at(specs, p)) for p, _ in flat)
+    keep_l = tuple(tuple(at(keep, p)) if keep is not None else ()
+                   for p, _ in flat)
+    red = tuple(tuple(a for a in mc.batch_axes
+                      if a not in set(mc.mesh.spec_live(k)))
+                for k in keep_l)
+    views = _GatherParams.apply(mc.mesh, specs_l, keep_l, red,
+                                *[t for _, t in flat])
+    by_path = {p: v for (p, _), v in zip(flat, views)}
+    return tree_map_with_path(lambda path, _: by_path[path], params)

@@ -5,8 +5,16 @@ dicts of tensors with a parallel tree of specs (``layers.py``), as JAX's
 are; ``LMModel`` holds the config and the device, and its methods take the
 parameters explicitly. The layout choice (``make_shard_ctx``,
 ``choose_layout``) is a pure function of the mesh's axis names and sizes,
-as the reference's reads only ``mesh.axis_names`` and ``mesh.shape``; no
-mesh runs the model here (meshes come with ROADMAP A17 (ii b)).
+as the reference's reads only ``mesh.axis_names`` and ``mesh.shape``.
+
+On an ``LMMesh`` (``launch/mesh.py``) the model runs on this rank's
+device: ``init`` keeps this rank's block of each parameter, and
+``train_loss`` takes the whole batch, as JAX's takes the logical array,
+keeps the rows of this rank (the layout's batch axes), gathers the
+parameters at JAX's cut points (``layers.constrain_tree``) and returns the
+loss of the whole batch: the token count and the losses are summed over
+the batch axes, and the gradient that reaches this rank's parameters is
+this rank's share, summed in the backward.
 
 ``train_loss`` is differentiable: ``train/steps.py`` takes its gradients
 with ``torch.autograd.grad``. Prefill and decode run under
@@ -16,7 +24,9 @@ asked for and absent.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -27,8 +37,10 @@ from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (ParamInit, ShardCtx, embed_param,
-                                       norm_param, rms_norm, torch_dtype)
+from repro_torch.models.layers import (ParamInit, ShardCtx, constrain_tree,
+                                       current_mesh, embed_param,
+                                       mesh_context, norm_param, rms_norm,
+                                       torch_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,16 +103,46 @@ class LMModel(torch.nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         self.ctx = make_shard_ctx(mesh)
-        self.device = resolve_device(device)
+        # a mesh of ranks (launch.mesh.LMMesh), not only axis names and sizes
+        self.ranks = mesh if hasattr(mesh, "local_tree") else None
+        self.device = resolve_device(
+            self.ranks.device if self.ranks is not None and device is None
+            else device)
         self.dtype = torch_dtype(cfg.dtype)
+        self._specs_cache = None
+
+    @property
+    def param_specs(self):
+        """The spec tree (cached; from ``abstract_params``)."""
+        if self._specs_cache is None:
+            _, self._specs_cache = self.abstract_params()
+        return self._specs_cache
+
+    def _stack_kwargs(self) -> dict:
+        if self.mesh is None:
+            return {}
+        s = self.param_specs
+        return dict(block_specs=s.get("blocks"),
+                    shared_specs=s.get("shared_attn"))
+
+    def _no_ranks(self, what: str):
+        """Inference runs on one device: the mesh of ranks trains only."""
+        if self.ranks is not None:
+            raise ValueError(f"LMModel.{what} does not run on a mesh of "
+                             f"ranks; build the model with mesh=None")
 
     # -- parameters ---------------------------------------------------------
 
     def init(self, generator) -> Tuple[Any, Any]:
         """(params, specs) parallel trees. ``generator``: a CPU
         ``torch.Generator``, or a ``numpy.random.Generator`` (the same
-        distributions drawn by numpy; ``convert.seeded_params``)."""
-        return self._init(ParamInit(generator, self.device))
+        distributions drawn by numpy; ``convert.seeded_params``). On a
+        mesh of ranks every rank draws the same weights and keeps its
+        block of each."""
+        if self.ranks is None:
+            return self._init(ParamInit(generator, self.device))
+        params, specs = self._init(ParamInit(generator, torch.device("cpu")))
+        return self.ranks.local_tree(params, specs), specs
 
     def abstract_params(self):
         """(params on the ``meta`` device, specs): shapes, dtypes and specs
@@ -166,6 +208,9 @@ class LMModel(torch.nn.Module):
             ls, n = checkpoint(body, x[:, c:c + chunk], labels[:, c:c + chunk],
                                use_reentrant=False)
             lsum, cnt = lsum + ls, cnt + n
+        mc = current_mesh()
+        if mc is not None:      # the tokens of every rank's rows
+            cnt = mc.mesh.all_reduce(cnt, mc.batch_axes)
         return lsum / torch.clamp(cnt, min=1)
 
     # -- training -----------------------------------------------------------
@@ -173,18 +218,61 @@ class LMModel(torch.nn.Module):
     def train_loss(self, p, batch):
         """(mean token CE, aux) of a batch with ``labels`` (< 0 masked);
         aux holds the stack's ``dropped_frac``. Differentiable in ``p``:
-        the caller enables or disables the graph."""
+        the caller enables or disables the graph. On a mesh of ranks
+        ``batch`` is the whole batch, ``p`` this rank's blocks, and the
+        loss's gradient this rank's share (see the module's note); a
+        caller that runs the step by hand (``train/steps.py``'s pod
+        step) enters its own ``mesh_context`` first."""
+        layout = self.default_layout(batch)
+        if self.ranks is None or current_mesh() is not None:
+            outer = contextlib.nullcontext()
+        else:
+            outer = mesh_context(self.ranks, layout.batch_axes)
+        with outer:
+            return self._train_loss(p, batch, layout)
+
+    def _rows(self, t, layout: Layout) -> torch.Tensor:
+        t = torch.as_tensor(t, device=self.device)
+        if self.ranks is None:
+            return t
+        return self.ranks.local(t, (layout.batch_axes,))
+
+    def _train_loss(self, p, batch, layout: Layout):
+        cfg = self.cfg
+        if self.ranks is not None:
+            batch = {k: self._rows(v, layout) for k, v in batch.items()}
+            specs = self.param_specs
+            top = [k for k in p if k not in ("blocks", "shared_attn")]
+            p = {**p, **constrain_tree({k: p[k] for k in top},
+                                       {k: specs[k] for k in top})}
         x = self._embed_in(p, batch)
         x, _, aux = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
-                                     self.cfg, mode="train")
+                                     cfg, self.ctx, mode="train",
+                                     **self._stack_kwargs())
         x = rms_norm(x, p["final_norm"])
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        return self._loss_from_hidden(p, x, labels), aux
+        loss = self._loss_from_hidden(p, x, labels)
+        mc = current_mesh()
+        if mc is not None and mc.batch_axes:
+            # the value of the whole batch's loss, the gradient of this
+            # rank's share; aux averaged over the rows' ranks
+            whole = mc.mesh.all_reduce(loss.detach(), mc.batch_axes)
+            loss = loss + (whole - loss.detach())
+            n = math.prod(mc.mesh.shape[a] for a in mc.batch_axes)
+            aux = {k: mc.mesh.all_reduce(v.detach(), mc.batch_axes) / n
+                   for k, v in aux.items()}
+        return loss, aux
+
+    def default_layout(self, batch) -> Layout:
+        leaf = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        return choose_layout(self.cfg, self.mesh, leaf.shape[0],
+                             leaf.shape[1])
 
     @torch.inference_mode()
     def encode(self, p, batch):
         """Full forward -> (B, S, vocab) logits (the teacher-forced
         reference of the decode tests; an encoder's 'prefill')."""
+        self._no_ranks("encode")
         x = self._embed_in(p, batch)
         x, _, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
                                    self.cfg, mode="train")
@@ -229,6 +317,7 @@ class LMModel(torch.nn.Module):
     @torch.inference_mode()
     def prefill(self, p, batch, caches: tf.StackCaches):
         """Process a prompt; returns (last-position logits, filled caches)."""
+        self._no_ranks("prefill")
         x = self._embed_in(p, batch)
         x, caches, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
                                         self.cfg, mode="prefill",
@@ -242,6 +331,7 @@ class LMModel(torch.nn.Module):
     @torch.inference_mode()
     def decode_step(self, p, tokens, caches: tf.StackCaches):
         """One token for every sequence. tokens: (B,) ints."""
+        self._no_ranks("decode_step")
         x = p["embed"][self._tokens(tokens)][:, None, :].to(self.dtype)
         x, caches, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
                                         self.cfg, mode="decode",

@@ -13,6 +13,14 @@ its capacity, would differ. Its ``.at[slot].set(..., mode="drop")`` drops
 writes to slot ``E*cap``; here that slot is one spare row, cut off after
 the scatter. On tied router probabilities ``lax.top_k`` takes the lower
 expert first, and ``torch.topk`` promises no order; no test has met a tie.
+
+On a mesh with expert parallelism (``ep_axis``: the experts split over
+the FSDP axis 'data', which they divide), JAX's cut points move the
+dispatched tokens from rows over 'data' to experts over 'data' (the
+all-to-all), each rank runs its own experts on every row of its pod, and
+the outputs move back. Otherwise the experts' weights are whole
+(``constrain_tree`` gathered them) and each rank runs every expert on its
+own rows.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamInit, dense_param, torch_dtype
+from repro_torch.models.layers import (ParamInit, dense_param, shard,
+                                       torch_dtype)
 
 
 def init_moe(init: ParamInit, cfg, ctx):
@@ -77,8 +86,9 @@ def _route_rows(tokens, tope, topw, E, k, cap):
     return dispatched[:, :drop], slot, src_s, wgt_s, keep
 
 
-def moe_ffn(p, x, cfg):
-    """x: (B, S, d) -> (B, S, d). Returns (out, aux) with load stats."""
+def moe_ffn(p, x, cfg, *, ep_axis=None):
+    """x: (B, S, d) -> (B, S, d). Returns (out, aux) with load stats.
+    ``ep_axis``: the mesh axis the experts split over, or None."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     if S == 1 and B > 1:
@@ -97,9 +107,15 @@ def moe_ffn(p, x, cfg):
     dispatched, slot, src_s, wgt_s, keep = _route_rows(x, tope, topw, E, k,
                                                        cap)
     dispatched = dispatched.reshape(B, E, cap, d)
+    if ep_axis is not None:
+        # the all-to-all: rows over ep_axis -> experts over ep_axis
+        dispatched = shard(dispatched, None, ep_axis, None, None)
     h = F.silu(torch.einsum("becd,edf->becf", dispatched, p["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", dispatched, p["w_up"])
     eo = torch.einsum("becf,efd->becd", h, p["w_down"])
+    if ep_axis is not None:
+        # the reverse all-to-all
+        eo = shard(eo, src=(None, ep_axis, None, None))
     eo = eo.reshape(B, E * cap, d)
     eo = torch.cat([eo, torch.zeros((B, 1, d), dtype=eo.dtype,
                                     device=eo.device)], dim=1)

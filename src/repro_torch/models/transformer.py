@@ -12,6 +12,12 @@ training forward that builds a graph runs each layer (and each shared
 block) under ``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` on the
 scan body: its activations are recomputed in the backward, to the same
 bits.
+
+On a mesh (``layers.mesh_context``), each layer's parameter slice passes
+``constrain_tree`` with the layer's specs (``block_specs`` without the
+leading L), JAX's ``_constrain_tree`` inside the scan body: the blocks are
+gathered before the layer runs, and its gradients summed into this rank's
+blocks in the backward. The shared block's parameters pass it once.
 """
 from __future__ import annotations
 
@@ -26,9 +32,10 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (ParamInit, ShardCtx, dense_param,
-                                       norm_param, rms_norm, swiglu,
-                                       torch_dtype, tree_map)
+from repro_torch.models.layers import (ParamInit, ShardCtx, constrain_tree,
+                                       current_mesh, dense_param, norm_param,
+                                       rms_norm, swiglu, torch_dtype,
+                                       tree_map)
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
@@ -105,7 +112,7 @@ def _ffn(fp, h):
     return swiglu(h, fp["w_gate"], fp["w_up"], fp["w_down"])
 
 
-def _apply_attn_layer(bp, x, cfg, *, mode, cache=None):
+def _apply_attn_layer(bp, x, cfg, *, mode, cache=None, ep_axis=None):
     h = rms_norm(x, bp["ln1"])
     new_cache = None
     if mode == "decode":
@@ -119,7 +126,7 @@ def _apply_attn_layer(bp, x, cfg, *, mode, cache=None):
     h = rms_norm(x, bp["ln2"])
     aux = {}
     if cfg.n_experts:
-        m, aux = moe_lib.moe_ffn(bp["moe"], h, cfg)
+        m, aux = moe_lib.moe_ffn(bp["moe"], h, cfg, ep_axis=ep_axis)
         if cfg.moe_dense_residual:
             m = m + _ffn(bp["ffn"], h)
         x = x + m
@@ -159,10 +166,11 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def _apply_layer(bp, x, cfg, kind: str, mode: str, cache):
+def _apply_layer(bp, x, cfg, kind: str, mode: str, cache, ep_axis=None):
     """One layer of any family. Returns (x, new layer cache, dropped)."""
     if cfg.family in ATTN_FAMILIES:
-        x, kv, aux = _apply_attn_layer(bp, x, cfg, mode=mode, cache=cache)
+        x, kv, aux = _apply_attn_layer(bp, x, cfg, mode=mode, cache=cache,
+                                       ep_axis=ep_axis)
         return x, kv, aux.get("dropped_frac")
     h = rms_norm(x, bp["ln1"])
     if cfg.family == "ssm":
@@ -216,13 +224,33 @@ def _pack_caches(layer_caches: list, shared_cache, cfg) -> StackCaches:
     raise ValueError(cfg.family)
 
 
-def stack_forward(stacked, shared_attn, x, cfg: ModelConfig, *, mode: str,
-                  caches: Optional[StackCaches] = None):
+def _strip_layer_dim(specs):
+    if specs is None:
+        return None
+    if isinstance(specs, dict):
+        return {k: _strip_layer_dim(v) for k, v in specs.items()}
+    return tuple(specs)[1:]
+
+
+def _expert_keep(cfg, ep_axis):
+    """The moe experts' compute views stay split over ``ep_axis``."""
+    if not ep_axis:
+        return None
+    return {"moe": {w: (ep_axis, None, None)
+                    for w in ("w_gate", "w_up", "w_down")}}
+
+
+def stack_forward(stacked, shared_attn, x, cfg: ModelConfig,
+                  ctx: Optional[ShardCtx] = None, *, mode: str,
+                  caches: Optional[StackCaches] = None, block_specs=None,
+                  shared_specs=None):
     """Run all layers. mode: 'train' | 'prefill' | 'decode'.
 
     Returns (x, new_caches, aux); 'train' produces no caches (None). The
     shared block's cache length is left as it came: ``LMModel`` sets it
     after a prefill and advances it after a decode, as the reference does.
+    ``ctx`` (the expert axis), ``block_specs`` and ``shared_specs`` are
+    JAX's: they matter on a mesh.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
@@ -236,6 +264,17 @@ def stack_forward(stacked, shared_attn, x, cfg: ModelConfig, *, mode: str,
     every = cfg.shared_attn_every if (cfg.family == "hybrid"
                                       and has_shared) else 0
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    # expert parallelism where the experts split over a batch axis of the
+    # mesh the model runs on: the all-to-all needs the rows split over it
+    mc = current_mesh()
+    ep_axis = (ctx.axis("fsdp", cfg.n_experts)
+               if ctx is not None and cfg.n_experts else None)
+    if mc is None or ep_axis not in mc.batch_axes:
+        ep_axis = None
+    per_layer_specs = _strip_layer_dim(block_specs)
+    keep = _expert_keep(cfg, ep_axis)
+    if has_shared:
+        shared_attn = constrain_tree(shared_attn, shared_specs)
     for i in range(L):
         if every and i % every == 0:
             # the shared attention block before each group (layers 0, k, 2k..)
@@ -249,14 +288,15 @@ def stack_forward(stacked, shared_attn, x, cfg: ModelConfig, *, mode: str,
                 this = KVCache(k=shared_cache.k[g], v=shared_cache.v[g],
                                length=int(shared_cache.length))
                 x, _ = _apply_shared(shared_attn, x, cfg, mode, this)
+        bp = constrain_tree(_layer(stacked, i), per_layer_specs, keep)
         if remat:
             x, new, drop = checkpoint(
-                lambda h, i=i: _apply_layer(_layer(stacked, i), h, cfg,
-                                            kinds[i], mode, None),
+                lambda h, bp=bp, i=i: _apply_layer(bp, h, cfg, kinds[i],
+                                                   mode, None, ep_axis),
                 x, use_reentrant=False)
         else:
-            x, new, drop = _apply_layer(_layer(stacked, i), x, cfg, kinds[i],
-                                        mode, _layer_cache(caches, cfg, i))
+            x, new, drop = _apply_layer(bp, x, cfg, kinds[i], mode,
+                                        _layer_cache(caches, cfg, i), ep_axis)
         layer_caches.append(new)
         dropped.append(torch.zeros((), dtype=torch.float32, device=x.device)
                        if drop is None else drop.float())

@@ -1,5 +1,5 @@
-"""Training substrate of the port: optimizer, steps, straggler monitor (the
-pod compression comes with the meshes, ROADMAP A17 (ii b))."""
+"""Training substrate of the port: optimizer, steps, the pod compression,
+straggler monitor."""
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.train.steps import make_train_step
 

@@ -12,6 +12,14 @@ leaf takes the clip scale, then ``m``, then ``v`` (or its factors), then
 ``mh / (sqrt(vh) + eps) + weight_decay * master`` on the master, cast back
 to the param's dtype. ``torch.optim.AdamW`` is not used: it decays before
 the step, and has neither the factored ``v`` nor ``m_dtype``.
+
+On a mesh (``mesh=``, ``specs=``) every leaf of the gradients, parameters
+and state is this rank's block of its spec, and the update runs on the
+blocks. The global norm sums each leaf's squares over its blocks, each
+counted once (by the rank at coordinate 0 of every axis the spec leaves
+out), in one all-reduce, then over the leaves in the sorted-key order. A
+factored ``v`` takes its row and column means over whole dimensions: the
+gradient and the factors are gathered for them, and the blocks kept.
 """
 from __future__ import annotations
 
@@ -97,19 +105,31 @@ def opt_state_specs(param_specs, cfg: Optional[AdamWConfig] = None,
     return {"step": (), "master": param_specs, "m": param_specs, "v": v}
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    parts = [torch.sum(torch.square(g.float()))
+             for _, g in tree_flatten_with_path(tree)]
+    if mesh is not None and parts:
+        owner = [mesh.owner(_at(specs, path))
+                 for path, _ in tree_flatten_with_path(tree)]
+        parts = [p if own else torch.zeros_like(p)
+                 for p, own in zip(parts, owner)]
+        summed = mesh.all_reduce(torch.stack(parts), mesh.axis_names,
+                                 kind="state")
+        parts = list(summed.unbind(0))
     total = 0
-    for _, g in tree_flatten_with_path(tree):
-        total = total + torch.sum(torch.square(g.float()))
+    for p in parts:
+        total = total + p
     return torch.sqrt(total)
 
 
-def adamw_update(grads, state, params, cfg: Optional[AdamWConfig] = None):
+def adamw_update(grads, state, params, cfg: Optional[AdamWConfig] = None, *,
+                 mesh=None, specs=None):
     """Returns (new_params, new_state, metrics); nothing is updated in
-    place."""
+    place. ``mesh``/``specs``: an ``LMMesh`` and the parameters' spec
+    tree, when the leaves are this rank's blocks."""
     cfg = cfg or AdamWConfig()
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, mesh, specs)
     if cfg.grad_clip:
         clip = torch.full_like(gnorm, cfg.grad_clip)
         scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -120,10 +140,27 @@ def adamw_update(grads, state, params, cfg: Optional[AdamWConfig] = None):
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
     m_dt = torch_dtype(cfg.m_dtype)
 
-    def upd(g, m, v, master):
+    def factored_blocks(path, g, v):
+        """The factored v of a block: whole-dimension means, kept blocks."""
+        sp = tuple(_at(specs, path))
+        vs = {"row": sp[:-1], "col": sp[:-2] + sp[-1:]}
+        gw = mesh.gather(g, sp)
+        g2 = gw * gw
+        vw = {"row": cfg.b2 * mesh.gather(v["row"], vs["row"])
+                     + (1 - cfg.b2) * g2.mean(dim=-1),
+              "col": cfg.b2 * mesh.gather(v["col"], vs["col"])
+                     + (1 - cfg.b2) * g2.mean(dim=-2)}
+        r = vw["row"] / torch.clamp(vw["row"].mean(dim=-1, keepdim=True),
+                                    min=1e-30)
+        vhat = mesh.local(r[..., None] * vw["col"][..., None, :], sp)
+        return {k: mesh.local(vw[k], vs[k]) for k in vw}, vhat
+
+    def upd(path, g, m, v, master):
         g = g.float() * scale
         m = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        if isinstance(v, dict):  # factored second moment
+        if isinstance(v, dict) and mesh is not None:
+            v, vhat = factored_blocks(path, g, v)
+        elif isinstance(v, dict):  # factored second moment
             g2 = g * g
             v = {
                 "row": cfg.b2 * v["row"] + (1 - cfg.b2) * g2.mean(dim=-1),
@@ -141,7 +178,7 @@ def adamw_update(grads, state, params, cfg: Optional[AdamWConfig] = None):
                                     + cfg.weight_decay * master)
         return m.to(m_dt), v, new_master
 
-    out = {path: upd(g, _at(state["m"], path), _at(state["v"], path),
+    out = {path: upd(path, g, _at(state["m"], path), _at(state["v"], path),
                      _at(state["master"], path))
            for path, g in tree_flatten_with_path(grads)}
     def part(i):

@@ -1,7 +1,9 @@
 """The port's training driver (``repro_torch.launch.train``, ROADMAP A17
 (ii a)) on the CPU: a checkpoint at step 6 and a restart to 8 whose losses
 and state equal an uninterrupted run bit for bit, the dedup pipeline, the
-refusals of what comes with A17 (ii b), the CLI and the example as
+mesh flags on one rank (ROADMAP A17 (ii b): ``--mesh smoke``, the
+production meshes' refusals, ``--compress-pods`` without a pod axis), the
+CLI and the example as
 subprocesses, and the chip smoke's recorded JAX losses (LM_TRAIN_PIN)
 recomputed through JAX, which the port on the CPU matches within
 chip_smoke.LM_TRAIN_RTOL (1e-4 relative)."""
@@ -45,7 +47,7 @@ def run(*extra):
 def state_of(ckpt_dir, step):
     """A checkpoint's leaves, restored into the driver's own trees."""
     args = train.parse_args(ARGS)
-    _, model, ocfg = train.build(args)
+    _, _, model, ocfg = train.build(args)
     params, _ = model.init(np.random.default_rng(0))
     from repro_torch.train.optimizer import adamw_init
     like = {"params": params, "opt": adamw_init(params, ocfg)}
@@ -115,11 +117,44 @@ def test_restart_at_the_last_step(tmp_path):
     assert again.start == 1 and again.losses == [] and np.isnan(again.loss)
 
 
+@pytest.fixture
+def one_rank_group():
+    """The driver's meshes make a one-rank process group in this process
+    when none exists; it is taken down after the test."""
+    import torch.distributed as dist
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("extra", [["--mesh", "smoke"], ["--mesh", "single"],
                                    ["--mesh", "multi"], ["--compress-pods"]])
-def test_refusals(extra):
-    with pytest.raises(NotImplementedError, match=r"A17 \(ii b\)"):
-        run("--steps", "1", *extra)
+def test_mesh_flags(extra, tmp_path, one_rank_group):
+    """On one rank: the smoke mesh is (1, 1) and trains as ``--mesh none``
+    does, bit for bit; the production meshes need 256 and 512 ranks;
+    ``--compress-pods`` without a pod axis is the plain step, as JAX's
+    is."""
+    if extra[-1] in ("single", "multi"):
+        need = 256 if extra[-1] == "single" else 512
+        with pytest.raises(ValueError, match=f"needs {need} ranks, the "
+                                             f"world has 1"):
+            run("--steps", "1", *extra)
+        return
+    ckpt = str(tmp_path / "ckpt")
+    rep = run("--steps", "2", "--ckpt-dir", ckpt, *extra)
+    plain = run("--steps", "2")
+    assert rep.losses == plain.losses
+    assert rep.ranks == 1 and rep.rank == 0
+    if extra == ["--mesh", "smoke"]:
+        assert rep.mesh == {"data": 1, "model": 1}
+        return
+    assert rep.mesh is None
+    # the plain step's AdamW returns step, master, m and v alone, as JAX's
+    # does, so the buffers are gone from the saved state (ROADMAP §C, C11)
+    import json
+    with open(os.path.join(ckpt, "step_00000002", "manifest.json")) as f:
+        names = [e["name"] for e in json.load(f)["leaves"]]
+    assert names and not any(n.startswith("opt/grad_error") for n in names)
 
 
 def test_no_cpu_fallback(monkeypatch):
@@ -158,7 +193,8 @@ def test_cli_and_example(tmp_path):
     out = subprocess.run(cmd + ["--steps", "3"], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "[train] elastic restore from step 2 onto cpu" in out.stdout
+    assert ("[train] elastic restore from step 2 onto 1 rank(s) (cpu)"
+            in out.stdout)
     assert "[train] step 2 loss" in out.stdout
     assert "[train] step 1 loss" not in out.stdout
 
