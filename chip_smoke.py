@@ -173,7 +173,22 @@ each printing one JSON line:
                   (2, 1, 2) against JAX's LM_TRAIN_POD_PIN; 4 steps on one
                   rank resumed on 4 ranks against an uninterrupted 4-rank
                   run; step p50 / p99, tokens a second, each rank's peak
-                  memory, the collectives' seconds a step by kind
+                  memory, the collectives' seconds a step by kind; one
+                  step on each mesh recorded for the dryrun phase
+  dryrun          ROADMAP A17 (iii), no kernel on its path: the dry run
+                  (``launch.dryrun``) for smoke-lm train_4k on both
+                  production meshes and selfjoin syn6d2m, in this process,
+                  each exiting 0 with the card's allocated memory unmoved,
+                  its per-cell terms printed; the plan of the train_mesh
+                  phase's step on (1, 2) and (2, 2) and of the pod step on
+                  (2, 1, 2) against the ranks' real steps, every kind's
+                  calls and bytes; the roofline's constants against the
+                  card (a bf16 matmul of 8192^3 and a 2 GiB copy timed by
+                  events, each rate at most 1.05 x its constant); the
+                  roofline's bound of the train phase's cell against that
+                  phase's step p50; the planned argument bytes on (1, 2)
+                  against the real rank's, and the planned peak against
+                  max_memory_allocated
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -193,7 +208,8 @@ join's B1 and the Jaccard join's B1 (e), slab for B1 (d), collective for
 B1 (d) in each rank's process, sharded for B1 (b) on the slabs, dedup for
 its cosine join's B1, analysis for the sanitized main path's B1, train
 for the token pipeline's dedup B1, train_mesh for the same in each rank's
-process) and read just after; comparisons with
+process; the dryrun phase launches no kernel) and read just after;
+comparisons with
 the plain versions run outside those windows. The last lines are the
 card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4953,7 +4969,8 @@ def phase_train() -> dict:
          first_six_rel=first_vs_whole, profile=profiled,
          nvidia_smi=nvidia_smi_line(),
          phase_s=time.perf_counter() - t_phase)
-    return {"launches": launches}
+    return {"launches": launches,
+            "step_p50_ms": float(np.percentile(timed, 50))}
 
 
 # --- the LM meshes, the pod-compressed step, the elastic restore ------------
@@ -4964,6 +4981,7 @@ TRAIN_MESH_ARGS = ["--arch", "smoke-lm", "--steps", "10", "--batch", "8",
                    "--seq", "256", "--dedup", "--mesh", "smoke",
                    "--log-every", "100"]
 TRAIN_MESH_RANKS = (2, 4)         # (data 1, model 2) and (2, 2)
+TRAIN_MESH_BATCH = (8, 256)       # TRAIN_MESH_ARGS' --batch and --seq
 TRAIN_MESH_STEPS = 10
 TRAIN_MESH_TIMEOUT_S = 300.0
 POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
@@ -5078,11 +5096,64 @@ def pod_vs_pin(pods: dict) -> dict:
     return out
 
 
+def mesh_step_stats(device, shape, axes, compress: bool = False) -> dict:
+    """One train step as the driver runs it with TRAIN_MESH_ARGS (the full
+    CONFIG from ``init(default_rng(0))``, AdamWConfig(**LM_TRAIN_OPT), the
+    dedup pipeline's batch 0 of TRAIN_MESH_BATCH) on a mesh of this
+    spawn's ranks, for the dryrun phase: the mesh's ``stats`` difference
+    across the step (kind -> [calls, bytes]), the rank's argument bytes
+    (its blocks of the parameters and the state, its rows of the batch),
+    the device memory allocated before the step and its peak during it."""
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train.compression import init_error_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    mesh = lm_mesh.make_mesh_compat(shape, axes, device=device)
+    if mesh is None:
+        return {}
+    model = LMModel(CONFIG, mesh)
+    dev = model.device
+    params, specs = model.init(np.random.default_rng(0))
+    ocfg = AdamWConfig(**LM_TRAIN_OPT)
+    state = adamw_init(params, ocfg)
+    if compress:
+        state["grad_error"] = init_error_state(params)
+    step = make_train_step(model, ocfg, compress_pods=compress,
+                           param_specs=specs)
+    batch_rows, seq = TRAIN_MESH_BATCH
+    pipe = TokenPipeline(vocab=CONFIG.vocab, batch=batch_rows, seq=seq,
+                         seed=0, dedup=True, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(0).items()}
+    layout = model.default_layout(batch)
+    rows = sum(tree_bytes(model._rows(v, layout)) for v in batch.values())
+    before = dict(mesh.stats)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        allocated = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    step(params, state, batch)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    return {"rank": mesh.rank, "stats": mesh.calls_and_bytes(before),
+            "argument_bytes": tree_bytes(params) + tree_bytes(state) + rows,
+            "allocated_before": allocated if cuda else None,
+            "max_allocated": (torch.cuda.max_memory_allocated(dev) if cuda
+                              else None)}
+
+
 def train_mesh_rank(rank, cases) -> dict:
     """One rank of the train_mesh phase (a worker for ``mesh.spawn``): each
     case ``name -> (kind, kwargs)``, in order. "driver" runs
     ``launch.train.run(argv)`` with B1's count set to 0 just before and
-    read just after; "f32" runs ``mesh_f32_steps``."""
+    read just after; "f32" runs ``mesh_f32_steps``, "stats"
+    ``mesh_step_stats``."""
     from repro_torch.kernels import fused_join as fj
     from repro_torch.launch import train
 
@@ -5096,6 +5167,8 @@ def train_mesh_rank(rank, cases) -> dict:
             out[name] = dict(dataclasses.asdict(rep),
                              b1_launches=fj.KERNEL_LAUNCHES,
                              tokens_per_s=rep.tokens_per_s())
+        elif kind == "stats":
+            out[name] = mesh_step_stats(**kw)
         else:
             out[name] = mesh_f32_steps(**kw)
     return out
@@ -5159,7 +5232,14 @@ def phase_train_mesh() -> dict:
                         "--mesh", "smoke", "--steps", "8", "--ckpt-dir",
                         ckpt])),
                     whole=("driver", dict(argv=TRAIN_MESH_RESUME_ARGS + [
-                        "--mesh", "smoke", "--steps", "8"])))
+                        "--mesh", "smoke", "--steps", "8"])),
+                    pod_stats=("stats", dict(device=DEVICE,
+                                             shape=POD_MESH[0],
+                                             axes=POD_MESH[1],
+                                             compress=True)))
+            # one step for the dryrun phase, after the timed runs
+            cases["stats"] = ("stats", dict(device=DEVICE, shape=shape,
+                                            axes=("data", "model")))
             runs[n], spawn_s[n] = train_mesh_spawn(n, cases)
     launches, fields = 0, {}
     for n, ranks in runs.items():
@@ -5233,7 +5313,173 @@ def phase_train_mesh() -> dict:
          first_four_rel=first_vs_whole, resume_tol=TRAIN_RESUME_RTOL,
          b1_launches=launches, nvidia_smi=nvidia_smi_line(),
          phase_s=time.perf_counter() - t_phase)
-    return {"launches": launches}
+    stats = {f"{n // 2}x2": [r["stats"] for r in ranks]
+             for n, ranks in runs.items()}
+    stats["pods"] = [r["pod_stats"] for r in runs[4]]
+    return {"launches": launches, "step_stats": stats}
+
+
+# --- the dry run and the roofline (ROADMAP A17 (iii)) -----------------------
+# no kernel on this path: the dry run counts steps on meta tensors
+
+DRYRUN_ARGS = (["--arch", "smoke-lm", "--shape", "train_4k", "--mesh", "both"],
+               ["--arch", "selfjoin", "--shape", "syn6d2m", "--mesh",
+                "single"])
+DRYRUN_MATMUL_N = 8192
+DRYRUN_COPY_BYTES = 2 ** 31
+DRYRUN_MATMUL_REPS = 20
+DRYRUN_COPY_REPS = 10
+# a rate the card measures above its constant by more than this means the
+# constant is wrong
+DRYRUN_RATE_SLACK = 1.05
+DRYRUN_MESHES = {"1x2": ((1, 2), ("data", "model"), False),
+                 "2x2": ((2, 2), ("data", "model"), False),
+                 "pods": (POD_MESH[0], POD_MESH[1], True)}
+
+
+def roofline_rates() -> dict:
+    """The card's bf16 matmul rate (2 n^3 flops) and copy rate (bytes read
+    and written), by CUDA events, as fractions of the roofline's
+    ``PEAK_FLOPS`` and ``HBM_BW``."""
+    from repro_torch.launch import roofline
+
+    n = DRYRUN_MATMUL_N
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    a = torch.randn((n, n), device=DEVICE, dtype=torch.bfloat16,
+                    generator=gen)
+    b = torch.randn((n, n), device=DEVICE, dtype=torch.bfloat16,
+                    generator=gen)
+    torch.matmul(a, b)
+    mm_ms = event_ms(lambda: torch.matmul(a, b), DRYRUN_MATMUL_REPS)
+    del a, b
+    src = torch.empty(DRYRUN_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    copy_ms = event_ms(lambda: dst.copy_(src), DRYRUN_COPY_REPS)
+    del src, dst
+    torch.cuda.empty_cache()
+    mm_rate = 2.0 * n ** 3 / (mm_ms / 1e3)
+    copy_rate = 2.0 * DRYRUN_COPY_BYTES / (copy_ms / 1e3)
+    return {"matmul_ms": mm_ms, "matmul_flops_per_s": mm_rate,
+            "matmul_fraction": mm_rate / roofline.PEAK_FLOPS,
+            "copy_ms": copy_ms, "copy_bytes_per_s": copy_rate,
+            "copy_fraction": copy_rate / roofline.HBM_BW}
+
+
+def phase_dryrun(trained: dict, meshed: dict) -> dict:
+    """ROADMAP A17 (iii) on the card: (a) the dry run's CLI (DRYRUN_ARGS)
+    in this process, each exiting 0 with ``memory_allocated`` unmoved;
+    (b) the plan of the train_mesh phase's recorded steps on (1, 2),
+    (2, 2) and the pod step on (2, 1, 2), rank by rank: every kind's calls
+    and bytes equal the real step's ``LMMesh.stats`` difference; (c) the
+    card's matmul and copy rates at most DRYRUN_RATE_SLACK x the
+    roofline's constants; (d) the roofline's bound of the train phase's
+    cell (the larger of its compute and memory terms) at most that
+    phase's step p50; (e) the planned argument bytes on (1, 2) equal to
+    the real rank's, the planned peak beside ``max_memory_allocated``."""
+    import tempfile
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import plan_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t_phase = time.perf_counter()
+    # (a) the CLI, in this process: meta tensors only
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dryrun.json")
+        sync()
+        allocated = torch.cuda.memory_allocated()
+        for argv in DRYRUN_ARGS:
+            rc = dryrun.main(argv + ["--out", out])
+            check(rc == 0, f"dryrun: {' '.join(argv)} exited {rc}")
+        sync()
+        moved = torch.cuda.memory_allocated() - allocated
+        check(moved == 0, f"dryrun: the dry run moved the card's allocated "
+              f"memory by {moved} B")
+        with open(out) as f:
+            results = json.load(f)
+    cells = {}
+    for key, res in results.items():
+        if key.startswith("_"):
+            continue
+        r = res["roofline"]
+        cells[key] = {k: r[k] for k in (
+            "compute_s", "memory_s", "collective_s", "bottleneck",
+            "flops_per_device", "bytes_per_device",
+            "wire_bytes_per_device")}
+        cells[key]["memory_s_lower"] = r.get("memory_s_lower")
+        cells[key]["temp_size_in_bytes"] = res["memory_analysis"][
+            "temp_size_in_bytes"]
+    # (b) the plans against the train_mesh phase's real steps
+    batch_rows, seq = TRAIN_MESH_BATCH
+    cell = ShapeCell("train_mesh", seq, batch_rows, "train")
+    ocfg = AdamWConfig(**LM_TRAIN_OPT)
+    plans = {}
+    for name, (shape, axes, compress) in DRYRUN_MESHES.items():
+        for real in meshed["step_stats"][name]:
+            _, _, plan = dryrun.lower_lm_cell(
+                "smoke-lm", cell, plan_mesh(shape, axes, real["rank"]),
+                cfg=CONFIG, opt_cfg=ocfg, compress_pods=compress)
+            planned = plan["mesh"].calls_and_bytes()
+            check(planned == real["stats"],
+                  f"dryrun {name} rank {real['rank']}: planned "
+                  f"collectives {planned}, the real step's {real['stats']}")
+            check(plan["memory"]["argument_size_in_bytes"]
+                  == real["argument_bytes"],
+                  f"dryrun {name} rank {real['rank']}: planned arguments "
+                  f"{plan['memory']['argument_size_in_bytes']} B, the real "
+                  f"rank's {real['argument_bytes']} B")
+            if real["rank"] == 0:
+                plans[name] = (plan, real)
+    # (c) the constants against the card
+    rates = roofline_rates()
+    check(rates["matmul_fraction"] <= DRYRUN_RATE_SLACK
+          and rates["copy_fraction"] <= DRYRUN_RATE_SLACK,
+          f"dryrun: the card beats the roofline's constants {rates}")
+    # (d) the train phase's cell: one rank, no collectives
+    tcell = ShapeCell("train", seq, batch_rows, "train")
+    probe = dryrun.cost_probe("smoke-lm", tcell)
+    compute_s = probe["flops_total"] / roofline.PEAK_FLOPS
+    memory_s = probe["bytes_total"] / roofline.HBM_BW
+    floor_s = roofline.traffic_floor(CONFIG, tcell, 1) / roofline.HBM_BW
+    bound_ms = 1e3 * max(compute_s, memory_s)
+    check(bound_ms <= trained["step_p50_ms"],
+          f"dryrun: the roofline's bound {bound_ms} ms of the train cell "
+          f"is above the measured step p50 {trained['step_p50_ms']} ms")
+    # (e) memory on (1, 2)
+    plan, real = plans["1x2"]
+    mem = plan["memory"]
+    predicted_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    emit("dryrun", cells=cells,
+         ranks_checked={k: len(v) for k, v in meshed["step_stats"].items()},
+         planned_stats={k: p["mesh"].calls_and_bytes()
+                        for k, (p, _) in plans.items()},
+         rates=rates, rate_slack=DRYRUN_RATE_SLACK,
+         train_cell={"flops": probe["flops_total"],
+                     "bytes": probe["bytes_total"],
+                     "compute_ms": 1e3 * compute_s,
+                     "memory_ms": 1e3 * memory_s,
+                     "floor_memory_ms": 1e3 * floor_s,
+                     "bound_ms": bound_ms,
+                     "step_p50_ms": trained["step_p50_ms"],
+                     "bound_over_p50": bound_ms / trained["step_p50_ms"],
+                     "floor_over_p50": 1e3 * floor_s
+                     / trained["step_p50_ms"]},
+         memory_1x2={"argument_bytes": mem["argument_size_in_bytes"],
+                     "temp_bytes": mem["temp_size_in_bytes"],
+                     "predicted_peak": predicted_peak,
+                     "allocated_before": real["allocated_before"],
+                     "max_memory_allocated": real["max_allocated"],
+                     "predicted_over_real": predicted_peak
+                     / real["max_allocated"],
+                     # what the step itself added at its peak
+                     "step_growth": (real["max_allocated"]
+                                     - real["allocated_before"])},
+         nvidia_smi=nvidia_smi_line(),
+         phase_s=time.perf_counter() - t_phase)
+    return {"rates": rates}
 
 
 def gloo_cuda_rank(rank) -> dict:
@@ -5266,6 +5512,17 @@ def gloo_cuda_rank(rank) -> dict:
         except Exception as err:        # noqa: BLE001 -- recorded
             out[name] = f"{type(err).__name__}: {str(err)[:120]}"
     return out
+
+
+def dryrun_alone() -> int:
+    """``--dryrun``: the build, the train, train_mesh and dryrun phases,
+    without the others."""
+    phase_env()
+    phase_build()
+    trained = phase_train()
+    meshed = phase_train_mesh()
+    print(json.dumps({"dryrun": phase_dryrun(trained, meshed)}), flush=True)
+    return 0
 
 
 def train_mesh_alone() -> int:
@@ -5308,6 +5565,10 @@ def main() -> int:
         print(nvidia_smi_line(), flush=True)
         with pinned_tables():
             return train_mesh_alone()
+    if sys.argv[1:] == ["--dryrun"]:
+        print(nvidia_smi_line(), flush=True)
+        with pinned_tables():
+            return dryrun_alone()
     with pinned_tables() as table_dir:
         return smoke(table_dir)
 
@@ -5338,6 +5599,7 @@ def smoke(table_dir: Path) -> int:
     phase_lm()
     trained = phase_train()
     meshed = phase_train_mesh()
+    phase_dryrun(trained, meshed)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"

@@ -55,13 +55,13 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.findings import SEV_WARNING, Finding
+# C6's limit: the H100's opt-in shared memory a block, defined beside the
+# roofline's other H100 constants (JAX's prover imports its VMEM budget
+# from its roofline the same way)
+from repro_torch.launch.roofline import SMEM_OPTIN_H100
 
 _AN = "contracts"
 
-# The most dynamic shared memory a block may opt in to on the H100
-# (``cudaDevAttrMaxSharedMemoryPerBlockOptin``: 227 KiB); without the
-# opt-in attribute a block gets 48 KiB (``fused_join.SMEM_DEFAULT``).
-SMEM_OPTIN_H100 = 232448
 
 
 def _host(x) -> np.ndarray:

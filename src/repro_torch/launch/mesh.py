@@ -33,6 +33,12 @@ axes, as ``jax.make_mesh`` does on the CPU, and refuse a mesh that needs
 more ranks than the world has. Every collective of an ``LMMesh`` passes
 through host memory on gloo (``wire``), so that ranks sharing one card
 run their compute on it.
+
+A ``PlanMesh`` (``plan_mesh``, ``make_production_mesh(plan=True)``) is one
+rank of an ``LMMesh`` of any size with no world: it records each
+collective, with its bytes and member ranks, and returns meta tensors, so
+that ``launch/dryrun.py`` plans a step of the production meshes on a
+machine with no card and no process group.
 """
 from __future__ import annotations
 
@@ -391,13 +397,30 @@ class LMMesh:
         self.stats[kind] = (calls + 1, secs + time.perf_counter() - t0,
                             moved + nbytes)
 
+    def calls_and_bytes(self, since=None) -> dict:
+        """``stats`` as kind -> [calls, bytes], less ``since`` (an earlier
+        copy of ``stats``): what a stretch of work issued."""
+        since = since or {}
+        out = {}
+        for kind, (calls, _, moved) in self.stats.items():
+            c0, _, m0 = since.get(kind, (0, 0.0, 0))
+            out[kind] = [calls - c0, moved - m0]
+        return out
+
+    def _issue(self, op: str, kind: str, nbytes: int, group, call) -> None:
+        """Run ``call``, one collective ``op`` (a ``roofline.KINDS`` name)
+        over ``group``, counted under ``kind`` with ``nbytes`` (S of the
+        roofline's ring model)."""
+        with self.timed(kind, nbytes):
+            call()
+
     def _gather_bytes(self, buf: torch.Tensor, group, kind: str) -> list:
         """Every member's ``buf`` (uint8), in member order."""
         g, members = group
         w = buf.to(self.wire)
         outs = [torch.empty_like(w) for _ in members]
-        with self.timed(kind, buf.numel() * len(members)):
-            dist.all_gather(outs, w, group=g)
+        self._issue("all-gather", kind, buf.numel() * len(members), group,
+                    lambda: dist.all_gather(outs, w, group=g))
         return [o.to(self.device) for o in outs]
 
     def gather_many(self, tensors: Sequence[torch.Tensor], specs,
@@ -468,8 +491,8 @@ class LMMesh:
         flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
         w = flat.to(self.wire)
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        with self.timed(kind, flat.numel() * 4):
-            dist.all_reduce(w, op=red, group=group[0])
+        self._issue("all-reduce", kind, flat.numel() * 4, group,
+                    lambda: dist.all_reduce(w, op=red, group=group[0]))
         w = w.to(self.device)
         out, off = [], 0
         for t in tensors:
@@ -503,8 +526,8 @@ class LMMesh:
         chunks = [c.contiguous() for c in torch.tensor_split(x, n, split_dim)]
         send = torch.stack([_bytes(c) for c in chunks]).to(self.wire)
         recv = torch.empty_like(send)
-        with self.timed(kind, send.numel()):
-            dist.all_to_all_single(recv, send, group=g)
+        self._issue("all-to-all", kind, send.numel(), group,
+                    lambda: dist.all_to_all_single(recv, send, group=g))
         recv = recv.to(self.device)
         return torch.cat([_from_bytes(recv[i], chunks[0]) for i in range(n)],
                          dim=cat_dim)
@@ -515,6 +538,67 @@ class LMMesh:
         t = torch.tensor([1.0 if flag else 0.0])
         return bool(self.all_reduce(t.to(self.device), self.axis_names,
                                     "max", kind="state")[0] > 0)
+
+
+class PlanMesh(LMMesh):
+    """A planning mesh: one rank's view of an ``LMMesh`` with no process
+    group, no world and no device. Its tensors live on ``meta``; each
+    collective the model and the step issue is recorded in ``plan`` as
+    ``(kind, op, bytes, member ranks)`` (``kind`` the ``stats`` kind,
+    ``op`` a ``roofline.KINDS`` name, ``bytes`` what ``timed`` counts) and
+    in ``stats`` with 0 seconds, and its result is a meta tensor of the
+    shape the real collective gives. ``any`` is recorded as its
+    all-reduce and returns False. Every rank of an ``LMMesh`` issues the
+    same collectives (SPMD: a skipped one hangs the others), so one rank's
+    plan is the step's schedule. ``launch/dryrun.py`` runs the train step
+    on one to count its FLOPs, bytes and collectives."""
+
+    def __init__(self, shape, axes, rank: int = 0):
+        super().__init__(shape, axes, rank, torch.device("meta"), "plan", {})
+        self.plan: list = []
+
+    @property
+    def wire(self) -> torch.device:
+        return self.device
+
+    def group(self, axes):
+        live = self.live(axes)
+        if not live:
+            return None
+        key = frozenset(live)
+        if key not in self._groups:
+            fixed = {a: c for a, c in self.coords.items() if a not in key}
+            members = [r for r in range(self.size)
+                       if all(self.coords_of(r)[a] == c
+                              for a, c in fixed.items())]
+            self._groups[key] = (None, members)
+        return self._groups[key]
+
+    @contextlib.contextmanager
+    def timed(self, kind: str, nbytes: int = 0):
+        yield
+        calls, secs, moved = self.stats.get(kind, (0, 0.0, 0))
+        self.stats[kind] = (calls + 1, secs, moved + nbytes)
+
+    def _issue(self, op: str, kind: str, nbytes: int, group, call) -> None:
+        with self.timed(kind, nbytes):
+            self.plan.append((kind, op, int(nbytes), tuple(group[1])))
+
+    def any(self, flag: bool) -> bool:
+        self.all_reduce(torch.zeros(1, device=self.device), self.axis_names,
+                        "max", kind="state")
+        return False
+
+
+def plan_mesh(shape, axes, rank: int = 0) -> PlanMesh:
+    """Rank ``rank``'s ``PlanMesh`` of ``shape`` over the named ``axes``
+    (any size: no world is asked)."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not on a {shape} mesh")
+    return PlanMesh(shape, axes, rank)
 
 
 def _at(tree, path: tuple):
@@ -560,12 +644,16 @@ def make_mesh_compat(shape, axes, *, device=None) -> Optional[LMMesh]:
     return LMMesh(shape, axes, rank, dev, dist.get_backend(), groups)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         plan: bool = False) -> LMMesh:
     """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
     "model")``: batch over ('pod', 'data'), FSDP over 'data', tensor and
-    expert parallelism over 'model'."""
+    expert parallelism over 'model'. ``plan=True``: rank 0's
+    ``PlanMesh`` of that shape, which needs no world (the dry run's)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if plan:
+        return plan_mesh(shape, axes)
     return make_mesh_compat(shape, axes, device=device)
 
 
@@ -580,11 +668,17 @@ def make_smoke_mesh(n_devices: int = 1, *, device=None) -> LMMesh:
                             device=device)
 
 
-def make_selfjoin_mesh(*, multi_pod: bool = False, device=None) -> SlabMesh:
+def make_selfjoin_mesh(*, multi_pod: bool = False, device=None,
+                       plan: bool = False) -> SlabMesh:
     """The self-join's ``("slab", "model")`` mesh: (16, 16), or (32, 16)
-    with pod x data flattened into 'slab'."""
+    with pod x data flattened into 'slab'. ``plan=True``: rank 0's place
+    on it with no process group (backend "plan", device ``meta``), which
+    ``launch/dryrun.py`` plans the ring of the slab join on."""
+    n_slabs = 32 if multi_pod else 16
+    if plan:
+        return SlabMesh(None, n_slabs, 16, 0, torch.device("meta"), "plan")
     init_world(device)
-    return make_slab_mesh(32 if multi_pod else 16, 16, device=device)
+    return make_slab_mesh(n_slabs, 16, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -39,11 +39,10 @@ class ModelConfig:
     loss_chunk: int = 2048       # sequence chunk for the CE loss
     remat: bool = True
     z_loss: float = 0.0
-    # Fully unroll every lax.scan. Never for real execution -- this exists
-    # for the dry-run cost probe: XLA's HloCostAnalysis counts while bodies
-    # once, so exact FLOP/byte counts require a loop-free lowering
-    # (launch/dryrun.py probes small layer counts unrolled and extrapolates).
-    unroll_scans: bool = False
+    # JAX's config carries ``unroll_scans`` for its dry run, whose XLA cost
+    # analysis counts a while body once. The port's stack is a Python loop
+    # that runs every layer, and its dry run (launch/dryrun.py) counts the
+    # eager step on meta tensors, so it has no such field.
 
     @property
     def head_dim(self) -> int:

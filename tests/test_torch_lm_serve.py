@@ -143,8 +143,12 @@ def test_registry_matches_jax():
     for arch in list(tconfigs.ALIASES) + ["smoke_lm"]:
         for reduced in (False, True):
             got = tconfigs.get_config(arch, reduced=reduced)
-            want = jconfigs.get_config(arch, reduced=reduced)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            want = dataclasses.asdict(jconfigs.get_config(arch,
+                                                          reduced=reduced))
+            # JAX's dry run unrolls its scans; the port's counts an eager
+            # step and has no such field
+            assert want.pop("unroll_scans", False) is False
+            assert dataclasses.asdict(got) == want
     for arch in ("smoke-lm",):
         got = [(dataclasses.astuple(c), skip)
                for c, skip in tconfigs.cell_plan(arch)]

@@ -308,6 +308,96 @@ def moved(shape, axes, batch_axes):
             "grad": g.numpy(), "coords": mesh.coords}
 
 
+def step_stats(fam, dtype, shape, axes, batch=(4, 32), compress=False,
+               seed=1):
+    """One train step of ``make_train_step`` on a mesh, as
+    ``dryrun.lower_lm_cell`` plans it (AdamWConfig(warmup_steps=2)): the
+    difference of the mesh's ``stats`` across the step (kind -> [calls,
+    bytes]) and this rank's argument bytes (its blocks of the parameters
+    and the state, and its rows of the batch)."""
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel
+    from repro_torch.train.compression import init_error_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = config(fam, dtype)
+    mesh = tmesh.make_mesh_compat(shape, axes, device=CPU)
+    if mesh is None:
+        return None
+    model = LMModel(cfg, mesh, device=CPU)
+    params, specs = seeded_params(cfg, 0, CPU, mesh=mesh)
+    ocfg = AdamWConfig(warmup_steps=2)
+    state = adamw_init(params, ocfg)
+    if compress:
+        state["grad_error"] = init_error_state(params)
+    step = make_train_step(model, ocfg, compress_pods=compress,
+                           param_specs=specs)
+    b = batches(cfg, 1, batch, seed)[0]
+    layout = model.default_layout(b)
+    rows = sum(tree_bytes(model._rows(v, layout)) for v in b.values())
+    before = dict(mesh.stats)
+    step(params, state, b)
+    return {"rank": mesh.rank, "stats": mesh.calls_and_bytes(before),
+            "argument_bytes": tree_bytes(params) + tree_bytes(state) + rows}
+
+
+def selfjoin_sends(n_slabs, n_model, eps, npts=400, dims=2, seed=0):
+    """``distributed_self_join_count`` on a (slab, model) mesh with
+    ``torch.distributed``'s all-reduce, all-gather and batched sends
+    wrapped: the collectives this rank issued, in order, as (op, bytes,
+    group size or peer), and the ``DistJoinConfig`` its count step ran
+    with."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as slab_join
+
+    mesh = tmesh.make_slab_mesh(n_slabs, n_model, device=CPU)
+    pts = np.random.default_rng(seed).uniform(0, 100, (npts, dims))
+    sent, cfgs = [], []
+    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather",
+                                          "batch_isend_irecv")}
+    make_step = slab_join.make_distributed_count_step
+
+    def all_reduce(t, *a, group=None, **kw):
+        sent.append(("all-reduce", t.numel() * t.element_size(),
+                     dist.get_world_size(group)))
+        return real["all_reduce"](t, *a, group=group, **kw)
+
+    def all_gather(outs, t, *a, group=None, **kw):
+        sent.append(("all-gather", t.numel() * t.element_size() * len(outs),
+                     dist.get_world_size(group)))
+        return real["all_gather"](outs, t, *a, group=group, **kw)
+
+    def batch_isend_irecv(ops):
+        by_peer = {}
+        for op in ops:
+            if op.op is dist.isend:
+                by_peer[op.peer] = by_peer.get(op.peer, 0) + (
+                    op.tensor.numel() * op.tensor.element_size())
+        sent.extend(("collective-permute", nb, peer)
+                    for peer, nb in by_peer.items())
+        return real["batch_isend_irecv"](ops)
+
+    def recording_step(m, cfg):
+        cfgs.append(dataclasses.asdict(cfg))
+        return make_step(m, cfg)
+
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+    dist.batch_isend_irecv = batch_isend_irecv
+    slab_join.make_distributed_count_step = recording_step
+    try:
+        total = slab_join.distributed_self_join_count(
+            pts, eps, mesh, model_axis="model" if n_model > 1 else None)
+    finally:
+        for k, fn in real.items():
+            setattr(dist, k, fn)
+        slab_join.make_distributed_count_step = make_step
+    return {"rank": mesh.rank, "sent": sent, "cfg": cfgs[0],
+            "total": int(total)}
+
+
 def run_cases(rank, cases) -> dict:
     """Each case ``name -> (function name, kwargs)``, in order."""
     out = {}
