@@ -175,6 +175,18 @@ each printing one JSON line:
                   run; step p50 / p99, tokens a second, each rank's peak
                   memory, the collectives' seconds a step by kind; one
                   step on each mesh recorded for the dryrun phase
+  infer_mesh      ROADMAP A17 (iv), no kernel on its path, gloo ranks
+                  sharing the card: smoke-lm's full CONFIG serving 256
+                  prompts of 32 tokens, 16 decoded (teacher forced), on
+                  (1, 2) and (2, 2) with tensor parallelism over 'model'
+                  and the KV cache's sequence split: every rank's logits
+                  equal, f32 against the card's unmeshed model within
+                  1e-4 (TF32 off), bf16 argmax agreement >= 0.95, each
+                  rank's KV cache the unmeshed bytes over its batch and
+                  cache_seq ranks; bf16 prefill ms, per-token p50 / p99,
+                  each rank's peak memory, collective seconds a token by
+                  kind; the last decode step of each rank recorded for
+                  the dryrun phase
   dryrun          ROADMAP A17 (iii), no kernel on its path: the dry run
                   (``launch.dryrun``) for smoke-lm train_4k on both
                   production meshes and selfjoin syn6d2m, in this process,
@@ -188,7 +200,8 @@ each printing one JSON line:
                   roofline's bound of the train phase's cell against that
                   phase's step p50; the planned argument bytes on (1, 2)
                   against the real rank's, and the planned peak against
-                  max_memory_allocated
+                  max_memory_allocated; the plan of the infer_mesh
+                  phase's decode step against every rank's
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
@@ -200,7 +213,9 @@ workload's widest class, every bench workload's launches), and
 and (d) by events, the main path's "pallas" and fused joins, serving p50
 and p99), from the package in SRC (another checkout's ``src``, the parent
 commit's say) or this checkout's, so that two versions can be compared in
-one chip call, in turns.
+one chip call, in turns. ``--train-mesh``, ``--infer-mesh`` and
+``--dryrun`` run those phases alone (``--dryrun`` with the phases it
+reads: build, train, train_mesh, infer_mesh).
 
 Launch counters are set to 0 just before each path (main_path for B1 and B3,
 unfused for B4, brute for B2, serve for B1 (b), metrics for the cosine
@@ -208,7 +223,8 @@ join's B1 and the Jaccard join's B1 (e), slab for B1 (d), collective for
 B1 (d) in each rank's process, sharded for B1 (b) on the slabs, dedup for
 its cosine join's B1, analysis for the sanitized main path's B1, train
 for the token pipeline's dedup B1, train_mesh for the same in each rank's
-process; the dryrun phase launches no kernel) and read just after;
+process; the infer_mesh and dryrun phases launch no kernel) and read
+just after;
 comparisons with
 the plain versions run outside those windows. The last lines are the
 card's ``nvidia-smi`` name and power limit, then
@@ -221,6 +237,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -5319,6 +5336,256 @@ def phase_train_mesh() -> dict:
     return {"launches": launches, "step_stats": stats}
 
 
+# --- meshed inference (ROADMAP A17 (iv)): tensor parallelism over 'model',
+# the KV cache's sequence over cache_seq; gloo ranks sharing the one card
+
+INFER_MESH_SHAPES = {"1x2": (1, 2), "2x2": (2, 2)}
+INFER_MESH_BATCH = (256, 32)     # the lm phase's serve shape: 256 prompts
+INFER_MESH_TOKENS = 16           # of 32 tokens, 16 decoded
+INFER_MESH_TIMEOUT_S = 300.0
+
+
+def infer_mesh_tokens(vocab: int, batch, n_tokens: int) -> np.ndarray:
+    """The prompts and the teacher-forced decode tokens, (B, S + T)."""
+    B, S = batch
+    return np.random.default_rng(LM_PROMPT_SEED).integers(
+        0, vocab, (B, S + n_tokens))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_serve_steps(model, params, toks, n_tokens: int, mesh=None) -> dict:
+    """The prefill of the prompts ``toks[:, :-n_tokens]`` and ``n_tokens``
+    teacher-forced decode steps on ``model``: every step's logits (float32, on the host),
+    the prefill's ms and each decode step's (host clock ending in a
+    synchronize, the copy to the host outside it), the KV caches' bytes on
+    this rank; on a mesh, the collectives of the decode steps (kind ->
+    [calls, seconds, bytes]) and of the last step (kind -> [calls,
+    bytes])."""
+    B, S = toks.shape[0], toks.shape[1] - n_tokens
+    dev = model.device
+    caches = model.init_caches(B, S + n_tokens)
+    kv = caches.kv.k.numel() * caches.kv.k.element_size() * 2
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": toks[:, :S]}, caches)
+    _sync(dev)
+    out = {"prefill_ms": 1e3 * (time.perf_counter() - t0), "token_ms": [],
+           "kv_bytes": kv}
+    steps = [logits.float().cpu()]
+    first = dict(mesh.stats) if mesh is not None else {}
+    for t in range(n_tokens):
+        last = dict(mesh.stats) if mesh is not None else {}
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(params, toks[:, S + t], caches)
+        _sync(dev)
+        out["token_ms"].append(1e3 * (time.perf_counter() - t0))
+        steps.append(logits.float().cpu())
+    if mesh is not None:
+        out["decode_collectives"] = {
+            k: [c - first.get(k, (0, 0.0, 0))[0],
+                s_ - first.get(k, (0, 0.0, 0))[1],
+                b - first.get(k, (0, 0.0, 0))[2]]
+            for k, (c, s_, b) in mesh.stats.items()
+            if (c, s_, b) != first.get(k)}
+        out["step_stats"] = {k: v for k, v in
+                             mesh.calls_and_bytes(last).items() if v[0]}
+    out["logits"] = steps
+    return out
+
+
+def infer_mesh_rank(rank, cases) -> dict:
+    """One rank of the infer_mesh phase (a worker for ``mesh.spawn``):
+    each case ``name -> kwargs`` of ``infer_mesh_case``, in order."""
+    return {name: infer_mesh_case(**kw) for name, kw in cases.items()}
+
+
+def infer_mesh_case(device, shape, dtype: str, ref_path: str, batch,
+                    n_tokens: int) -> dict:
+    """smoke-lm's full CONFIG at ``dtype`` from
+    ``seeded_params(LM_WEIGHT_SEED)`` on a (data, model) mesh of this
+    spawn's ranks, TF32 off: ``lm_serve_steps`` against the card's
+    unmeshed run saved at ``ref_path`` (f32: the largest difference of
+    any logit; bf16: the argmax agreement over every row), a digest of
+    this rank's logits, the layout's batch and cache_seq ranks, this
+    rank's peak memory."""
+    import hashlib
+
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel, choose_layout
+
+    cfg = dataclasses.replace(CONFIG, dtype=dtype)
+    mesh = lm_mesh.make_mesh_compat(shape, ("data", "model"), device=device)
+    if mesh is None:
+        return {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = LMModel(cfg, mesh)
+        params, _ = seeded_params(cfg, LM_WEIGHT_SEED, mesh=mesh)
+        dev = model.device
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        run = lm_serve_steps(model, params,
+                             infer_mesh_tokens(cfg.vocab, batch, n_tokens),
+                             n_tokens, mesh)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref = torch.load(ref_path)
+    got = run.pop("logits")
+    digest = hashlib.sha256()
+    for t in got:
+        digest.update(t.numpy().tobytes())
+    if dtype == "float32":
+        run["max_abs"] = max(float((a - b).abs().max())
+                             for a, b in zip(got, ref))
+    else:
+        run["argmax_agree"] = float(torch.cat([
+            (a.argmax(-1) == b) for a, b in zip(got, ref)]).float().mean())
+    layout = choose_layout(cfg, mesh, batch[0], batch[1] + n_tokens)
+    ranks = lambda entry: math.prod(   # noqa: E731
+        mesh.shape[a] for a in mesh.entry_live(entry))
+    run.update(rank=mesh.rank, digest=digest.hexdigest(),
+               layout=dataclasses.astuple(layout),
+               batch_ranks=ranks(layout.batch_axes),
+               seq_ranks=ranks(layout.cache_seq),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None))
+    return run
+
+
+def phase_infer_mesh() -> dict:
+    """ROADMAP A17 (iv) on the card: smoke-lm's full CONFIG served at the
+    lm phase's shape (256 prompts of 32 tokens, 16 decoded, teacher
+    forced) by gloo ranks sharing the card on (1, 2) and (2, 2): every
+    rank's logits equal (their digests); f32 within LM_F32_TOL of the
+    card's unmeshed model, TF32 off; bf16 argmax agreement with the
+    unmeshed bf16 model at least LM_ARGMAX_AGREE; each rank's KV cache
+    the unmeshed one's bytes over its batch ranks and cache_seq ranks.
+    Prints the bf16 prefill ms, per-token p50 / p99 (the first decode step
+    untimed, as the lm phase's), each rank's peak memory and the
+    collectives' seconds a token by kind; returns the last decode step's
+    collectives of every rank for the dryrun phase."""
+    import tempfile
+
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card
+    fields, stats = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        refs, kv = {}, {}
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for dtype in ("float32", "bfloat16"):
+                cfg = dataclasses.replace(CONFIG, dtype=dtype)
+                model = LMModel(cfg, device=DEVICE)
+                params, _ = seeded_params(cfg, LM_WEIGHT_SEED, DEVICE)
+                run = lm_serve_steps(
+                    model, params, infer_mesh_tokens(
+                        cfg.vocab, INFER_MESH_BATCH, INFER_MESH_TOKENS),
+                    INFER_MESH_TOKENS)
+                logits = run["logits"]
+                if dtype == "bfloat16":
+                    logits = [t.argmax(-1) for t in logits]
+                refs[dtype] = os.path.join(tmp, f"{dtype}.pt")
+                torch.save(logits, refs[dtype])
+                kv[dtype] = run["kv_bytes"]
+                del model, params, run, logits
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+        for name, shape in INFER_MESH_SHAPES.items():
+            n = math.prod(shape)
+            cases = {dt: dict(device=DEVICE, shape=shape, dtype=dt,
+                              ref_path=refs[dt], batch=INFER_MESH_BATCH,
+                              n_tokens=INFER_MESH_TOKENS)
+                     for dt in ("float32", "bfloat16")}
+            t0 = time.perf_counter()
+            ranks = lm_mesh.spawn(infer_mesh_rank, n, cases, device=DEVICE,
+                                  timeout_s=INFER_MESH_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t0
+            where = f"infer_mesh {name}"
+            for dt in ("float32", "bfloat16"):
+                rs = [r[dt] for r in ranks]
+                check(len({r["digest"] for r in rs}) == 1,
+                      f"{where} {dt}: the ranks' logits differ")
+                for r in rs:
+                    want = kv[dt] // (r["batch_ranks"] * r["seq_ranks"])
+                    check(r["kv_bytes"] == want,
+                          f"{where} {dt} rank {r['rank']}: KV cache "
+                          f"{r['kv_bytes']} B, not {want}")
+            worst = max(r["float32"]["max_abs"] for r in ranks)
+            agree = min(r["bfloat16"]["argmax_agree"] for r in ranks)
+            check(worst <= LM_F32_TOL, f"{where}: f32 logits {worst} from "
+                  f"the unmeshed model's, over {LM_F32_TOL}")
+            check(agree >= LM_ARGMAX_AGREE,
+                  f"{where}: bf16 argmax agreement {agree}")
+            bf = [r["bfloat16"] for r in ranks]
+            timed = np.asarray(bf[0]["token_ms"][1:])
+            fields[name] = dict(
+                layout=bf[0]["layout"], prefill_ms=bf[0]["prefill_ms"],
+                f32_prefill_ms=ranks[0]["float32"]["prefill_ms"],
+                token_p50_ms=float(np.percentile(timed, 50)),
+                token_p99_ms=float(np.percentile(timed, 99)),
+                peak_bytes=[r["peak_bytes"] for r in bf],
+                kv_bytes=[r["kv_bytes"] for r in bf],
+                unmeshed_kv_bytes=kv["bfloat16"],
+                collective_s_a_token={
+                    k: v[1] / INFER_MESH_TOKENS
+                    for k, v in bf[0]["decode_collectives"].items()},
+                collective_calls_a_token={
+                    k: v[0] / INFER_MESH_TOKENS
+                    for k, v in bf[0]["decode_collectives"].items()},
+                collective_bytes_a_token={
+                    k: v[2] / INFER_MESH_TOKENS
+                    for k, v in bf[0]["decode_collectives"].items()},
+                f32_max_abs=worst, bf16_argmax_agree=agree,
+                spawn_s=spawn_s)
+            stats[name] = [(r["rank"], r["step_stats"]) for r in bf]
+    emit("infer_mesh", config=CONFIG.name, dtype=CONFIG.dtype,
+         batch=INFER_MESH_BATCH[0], prompt_len=INFER_MESH_BATCH[1],
+         tokens=INFER_MESH_TOKENS, backend="gloo", meshes=fields,
+         f32_tol=LM_F32_TOL, nvidia_smi=nvidia_smi_line(),
+         phase_s=time.perf_counter() - t_phase)
+    return {"decode_stats": stats}
+
+
+def decode_plans(inferred: dict) -> dict:
+    """The dry run's plan of the infer_mesh phase's decode step (a decode
+    cell of its batch and cache length at smoke-lm's CONFIG) on each
+    rank's ``PlanMesh``, against that rank's last real decode step: every
+    kind's calls and bytes equal. Returns rank 0's plan by mesh."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.configs.smoke_lm import CONFIG
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import plan_mesh
+
+    B, S = INFER_MESH_BATCH
+    cell = ShapeCell("infer_mesh", S + INFER_MESH_TOKENS, B, "decode")
+    out = {}
+    for name, shape in INFER_MESH_SHAPES.items():
+        for rank, real in inferred["decode_stats"][name]:
+            _, _, plan = dryrun.lower_lm_cell(
+                "smoke-lm", cell, plan_mesh(shape, ("data", "model"), rank),
+                cfg=CONFIG)
+            planned = plan["mesh"].calls_and_bytes()
+            check(planned == real, f"dryrun decode {name} rank {rank}: "
+                  f"planned {planned}, the real step's {real}")
+            if rank == 0:
+                out[name] = planned
+    return out
+
+
 # --- the dry run and the roofline (ROADMAP A17 (iii)) -----------------------
 # no kernel on this path: the dry run counts steps on meta tensors
 
@@ -5366,7 +5633,7 @@ def roofline_rates() -> dict:
             "copy_fraction": copy_rate / roofline.HBM_BW}
 
 
-def phase_dryrun(trained: dict, meshed: dict) -> dict:
+def phase_dryrun(trained: dict, meshed: dict, inferred: dict) -> dict:
     """ROADMAP A17 (iii) on the card: (a) the dry run's CLI (DRYRUN_ARGS)
     in this process, each exiting 0 with ``memory_allocated`` unmoved;
     (b) the plan of the train_mesh phase's recorded steps on (1, 2),
@@ -5376,7 +5643,9 @@ def phase_dryrun(trained: dict, meshed: dict) -> dict:
     roofline's constants; (d) the roofline's bound of the train phase's
     cell (the larger of its compute and memory terms) at most that
     phase's step p50; (e) the planned argument bytes on (1, 2) equal to
-    the real rank's, the planned peak beside ``max_memory_allocated``."""
+    the real rank's, the planned peak beside ``max_memory_allocated``;
+    (f) the plan of the infer_mesh phase's decode step on (1, 2) and
+    (2, 2) against every rank's real step (``decode_plans``)."""
     import tempfile
 
     from repro_torch.configs import ShapeCell
@@ -5448,6 +5717,8 @@ def phase_dryrun(trained: dict, meshed: dict) -> dict:
     check(bound_ms <= trained["step_p50_ms"],
           f"dryrun: the roofline's bound {bound_ms} ms of the train cell "
           f"is above the measured step p50 {trained['step_p50_ms']} ms")
+    # (f) the infer_mesh phase's decode step
+    decode = decode_plans(inferred)
     # (e) memory on (1, 2)
     plan, real = plans["1x2"]
     mem = plan["memory"]
@@ -5456,6 +5727,9 @@ def phase_dryrun(trained: dict, meshed: dict) -> dict:
          ranks_checked={k: len(v) for k, v in meshed["step_stats"].items()},
          planned_stats={k: p["mesh"].calls_and_bytes()
                         for k, (p, _) in plans.items()},
+         planned_decode_stats=decode,
+         decode_ranks_checked={k: len(v) for k, v in
+                               inferred["decode_stats"].items()},
          rates=rates, rate_slack=DRYRUN_RATE_SLACK,
          train_cell={"flops": probe["flops_total"],
                      "bytes": probe["bytes_total"],
@@ -5515,13 +5789,26 @@ def gloo_cuda_rank(rank) -> dict:
 
 
 def dryrun_alone() -> int:
-    """``--dryrun``: the build, the train, train_mesh and dryrun phases,
-    without the others."""
+    """``--dryrun``: the build, the train, train_mesh, infer_mesh and
+    dryrun phases, without the others."""
     phase_env()
     phase_build()
     trained = phase_train()
     meshed = phase_train_mesh()
-    print(json.dumps({"dryrun": phase_dryrun(trained, meshed)}), flush=True)
+    inferred = phase_infer_mesh()
+    print(json.dumps({"dryrun": phase_dryrun(trained, meshed, inferred)}),
+          flush=True)
+    return 0
+
+
+def infer_mesh_alone() -> int:
+    """``--infer-mesh``: the infer_mesh phase and the plans of its decode
+    step (``decode_plans``), without the others (no kernel on this
+    path: no build)."""
+    phase_env()
+    inferred = phase_infer_mesh()
+    print(json.dumps({"infer_mesh": {"planned_decode_stats":
+                                     decode_plans(inferred)}}), flush=True)
     return 0
 
 
@@ -5569,6 +5856,9 @@ def main() -> int:
         print(nvidia_smi_line(), flush=True)
         with pinned_tables():
             return dryrun_alone()
+    if sys.argv[1:] == ["--infer-mesh"]:
+        print(nvidia_smi_line(), flush=True)
+        return infer_mesh_alone()
     with pinned_tables() as table_dir:
         return smoke(table_dir)
 
@@ -5599,7 +5889,8 @@ def smoke(table_dir: Path) -> int:
     phase_lm()
     trained = phase_train()
     meshed = phase_train_mesh()
-    phase_dryrun(trained, meshed)
+    inferred = phase_infer_mesh()
+    phase_dryrun(trained, meshed, inferred)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "the smoke imported JAX or the JAX package")
     csrc = "src/repro_torch/kernels/csrc"

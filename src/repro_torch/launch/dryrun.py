@@ -36,19 +36,25 @@ and takes its costs from three sources:
 
 Train cells run ``train.steps.make_train_step`` with meta parameters and
 state (``LMModel.abstract_params``, this rank's blocks of them, and
-``adamw_init``). ``flops_per_device`` is rank 0's counted step. The
-'model' ranks compute the same rows (``models/layers.py``: the port has no
-tensor parallelism yet, ROADMAP A17 (iv)), so ``model_check``'s
-``useful_fraction`` reads about 1 / n_model; it is reported as it is.
-``memory_analysis`` gives ``argument_size_in_bytes`` (rank 0's blocks of
-the parameters and the state, and its rows of the batch), the step's
-outputs, and ``temp_size_in_bytes``: the peak of the bytes of the meta
-storages the step made that something still held (nothing is donated in
-the eager step, so the new parameters and state are part of it).
+``adamw_init``); prefill cells run ``LMModel.prefill`` (``encode`` for an
+encoder) and decode cells one ``LMModel.decode_step``, laid out as JAX's
+``lower_lm_cell`` lays them out: the layout of (global batch, seq_len),
+this rank's blocks of the parameters and of the caches
+(``init_caches``: the KV caches' sequence over ``cache_seq``), its rows of
+the batch. ``flops_per_device`` is rank 0's counted step. The 'model'
+ranks compute with tensor parallelism where the layout splits (the
+attention when ``head_tp`` is set, the FFN and the moe experts where
+``d_ff`` divides 'model', the head where the vocab does); the recurrent
+layers, and the attention without ``head_tp`` (smoke-lm's 8 heads on
+'model' 16), repeat over 'model', and ``model_check``'s
+``useful_fraction`` reads that repeat as it is. ``memory_analysis``
+gives ``argument_size_in_bytes`` (rank 0's blocks of the parameters, the
+state or the caches, and its rows of the batch), the step's outputs, and
+``temp_size_in_bytes``: the peak of the bytes of the meta storages the
+step made that something still held (nothing is donated in the eager
+step, so the new parameters and state are part of it).
 
-Prefill and decode cells on a mesh are skipped: the port runs inference
-on one device (``LMModel._no_ranks``); the record holds the mesh-free
-``cost_probe``. Self-join cells take their FLOPs and bytes from JAX's
+Self-join cells take their FLOPs and bytes from JAX's
 analytic work model (``selfjoin_analytic_cost``) and their collectives
 from the ring of ``core.distributed``'s count step, planned from its
 ``DistJoinConfig`` (``selfjoin_ring_plan``).
@@ -72,7 +78,6 @@ from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_production_mesh, make_selfjoin_mesh
 
 META = torch.device("meta")
-MESHED_INFERENCE = "meshed inference: ROADMAP A17 (iv)"
 # the self-join cells' points: uniform in [0, SPAN]^n (configs/selfjoin.py)
 SELFJOIN_SPAN = 100.0
 
@@ -277,38 +282,56 @@ def _rows_bytes(mesh, batch: dict, layout) -> int:
 
 def lower_lm_cell(arch: str, cell: ShapeCell, mesh, cfg=None, *,
                   compress_pods: bool = False, opt_cfg=None, batch=None):
-    """Plan one train step of ``cell`` on ``mesh`` (a ``PlanMesh``):
-    ``(cfg, layout, plan)``, ``plan`` holding the counted ``costs`` of
-    the rank's step (``count_costs`` with the live peak), its collective
-    ``records`` (``PlanMesh.plan``), the ``mesh`` and ``memory``
-    (``memory_analysis``'s keys). ``opt_cfg`` defaults to
+    """Plan one step of ``cell`` on ``mesh`` (a ``PlanMesh``): a train
+    step, a prefill (``encode`` for an encoder) or one decode step.
+    Returns ``(cfg, layout, plan)``, ``plan`` holding the counted
+    ``costs`` of the rank's step (``count_costs`` with the live peak),
+    its collective ``records`` (``PlanMesh.plan``), the ``mesh`` and
+    ``memory`` (``memory_analysis``'s keys). ``opt_cfg`` defaults to
     ``opt_config_for(cfg)``, ``batch`` to the cell's meta batch."""
     from repro_torch.models.lm import LMModel, choose_layout
     from repro_torch.train.compression import init_error_state
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.steps import make_train_step
 
-    if cell.kind != "train":
-        raise ValueError(f"the port plans train cells on a mesh; "
-                         f"{cell.kind}: {MESHED_INFERENCE}")
     cfg = cfg if cfg is not None else get_config(arch)
     model = LMModel(cfg, mesh)
     whole, specs = model.abstract_params()
     params = mesh.local_tree(whole, specs)
-    ocfg = opt_cfg if opt_cfg is not None else opt_config_for(cfg)
-    state = adamw_init(params, ocfg)
-    if compress_pods:
-        state["grad_error"] = init_error_state(params)
     batch = batch if batch is not None else batch_struct(cfg, cell)
-    layout = choose_layout(cfg, mesh, cell.global_batch, cell.seq_len)
-    step = make_train_step(model, ocfg, compress_pods=compress_pods,
-                           param_specs=specs)
+    B = cell.global_batch
+    layout = choose_layout(cfg, mesh, B, cell.seq_len)
+    arg = {"params_bytes": tree_bytes(params)}
+    if cell.kind == "train":
+        ocfg = opt_cfg if opt_cfg is not None else opt_config_for(cfg)
+        state = adamw_init(params, ocfg)
+        if compress_pods:
+            state["grad_error"] = init_error_state(params)
+        arg["opt_state_bytes"] = tree_bytes(state)
+        step = make_train_step(model, ocfg, compress_pods=compress_pods,
+                               param_specs=specs)
+        run = lambda: step(params, state, batch)              # noqa: E731
+    else:
+        batch = {k: v for k, v in batch.items() if k != "labels"}
+        if cell.kind == "prefill" and cfg.encoder_only:
+            run = lambda: model.encode(params, batch, layout)   # noqa: E731
+        elif cell.kind == "prefill":
+            caches = model.init_caches(B, cell.seq_len, layout)
+            arg["cache_bytes"] = tree_bytes(caches)
+            run = lambda: model.prefill(params, batch, caches,  # noqa: E731
+                                        layout)
+        elif cell.kind == "decode":
+            caches = model.init_caches(B, cell.seq_len, layout)
+            arg["cache_bytes"] = tree_bytes(caches)
+            batch = {"tokens": torch.empty((B,), dtype=torch.int32,
+                                           device=META)}
+            run = lambda: model.decode_step(  # noqa: E731
+                params, batch["tokens"], caches, layout)
+        else:
+            raise ValueError(cell.kind)
+    arg["batch_bytes"] = _rows_bytes(mesh, batch, layout)
     n_records = len(mesh.plan)
-    out, costs = count_costs(lambda: step(params, state, batch),
-                             track_live=True)
-    arg = {"params_bytes": tree_bytes(params),
-           "opt_state_bytes": tree_bytes(state),
-           "batch_bytes": _rows_bytes(mesh, batch, layout)}
+    out, costs = count_costs(run, track_live=True)
     memory = {
         "argument_size_in_bytes": sum(arg.values()),
         "output_size_in_bytes": tree_bytes(out),
@@ -339,9 +362,6 @@ def _lm_cell(arch, cell, mesh, probe_cache) -> dict:
     probe = probe_cache[probe_key]
     chips = mesh.size
     shape = dict(mesh.shape)
-    if cell.kind != "train":
-        return {"skipped": MESHED_INFERENCE, "chips": chips, "mesh": shape,
-                "probe": probe}
     t0 = time.time()
     cfg, layout, plan = lower_lm_cell(arch, cell, mesh)
     costs = plan["costs"]

@@ -275,7 +275,14 @@ class LMMesh:
     through host memory on gloo (``wire``), and add their calls, seconds
     (ending in a synchronize of the device) and bytes to ``stats`` under a
     kind: "params" (parameter gathers), "grads" (gradient sums), "loss",
-    "expert" (the moe all-to-all), "pods" (the compressed exchange),
+    "expert" (the moe all-to-all, and the decode fold's row and expert
+    gathers), "tp" (the activation collectives of tensor parallelism over
+    'model': the cut points' sums, the vocab's logsumexp combine, the
+    decode's head gathers, and the KV cache's heads-to-sequence
+    all-to-all at prefill, which moves 'model' like any other 'model'
+    collective), "cache" (a decode's partial-softmax combine over the
+    cache's sequence axes), "logits" (the inference logits gathered over
+    the batch axes and 'model'), "pods" (the compressed exchange),
     "state" (checkpoints, optimizer norms), each in a ``mesh.<kind>``
     profiler span."""
 
@@ -376,9 +383,9 @@ class LMMesh:
             self.device, copy=True).contiguous()
 
     def local_tree(self, tree, specs):
-        from repro_torch.models.layers import tree_map_with_path
+        from repro_torch.models.layers import tree_at, tree_map_with_path
         return tree_map_with_path(
-            lambda path, t: self.local(t, _at(specs, path)), tree)
+            lambda path, t: self.local(t, tree_at(specs, path)), tree)
 
     # -- collectives --------------------------------------------------------
 
@@ -473,11 +480,13 @@ class LMMesh:
 
     def gather_tree(self, tree, specs, kind: str = "state"):
         """The whole tensors of a tree of blocks (a collective)."""
-        from repro_torch.models.layers import (tree_flatten_with_path,
+        from repro_torch.models.layers import (tree_at,
+                                               tree_flatten_with_path,
                                                tree_map_with_path)
         flat = tree_flatten_with_path(tree)
         whole = self.gather_many([t for _, t in flat],
-                                 [_at(specs, p) for p, _ in flat], kind=kind)
+                                 [tree_at(specs, p) for p, _ in flat],
+                                 kind=kind)
         by_path = {p: w for (p, _), w in zip(flat, whole)}
         return tree_map_with_path(lambda path, _: by_path[path], tree)
 
@@ -599,12 +608,6 @@ def plan_mesh(shape, axes, rank: int = 0) -> PlanMesh:
     if not 0 <= rank < math.prod(shape):
         raise ValueError(f"rank {rank} is not on a {shape} mesh")
     return PlanMesh(shape, axes, rank)
-
-
-def _at(tree, path: tuple):
-    for k in path:
-        tree = tree[k]
-    return tree
 
 
 def make_mesh_compat(shape, axes, *, device=None) -> Optional[LMMesh]:

@@ -20,10 +20,21 @@ parameter slice, gathers the blocks where the model reads them and, in the
 backward, sums the gradient over the batch axes and keeps this rank's
 block (JAX's reduce-scatter into the FSDP shards). An activation holds this
 rank's rows of the batch, split over the layout's batch axes, and is whole
-on every other dimension. The 'model' axis splits storage only: its ranks
-compute the same rows (no tensor parallelism). ``shard`` is JAX's cut
-point where the layout moves: off a mesh the identity, on one it moves a
-batch axis from one dimension to another (the moe's expert all-to-all).
+on every other dimension.
+
+The 'model' axis computes (tensor parallelism, as JAX's layouts state it
+and GSPMD runs it): ``constrain_tree``'s ``keep`` leaves the column-split
+and row-split weights' compute views split over 'model', so their
+gradients need no sum over 'model', and two cut points bracket each split
+product. ``tp_copy`` is the identity in the forward and sums the gradient
+over 'model' in the backward: it stands before a column-split product,
+whose input every 'model' rank holds whole. ``tp_sum`` sums the partial
+outputs of a row-split product over 'model' in the forward and is the
+identity in the backward. Both issue their collectives under the "tp"
+kind. ``shard`` is JAX's cut point where the layout moves: off a mesh the
+identity, on one it moves a batch axis from one dimension to another (the
+moe's expert all-to-all), and moves 'model' between dimensions of an
+activation (a KV cache's heads to its sequence).
 """
 from __future__ import annotations
 
@@ -63,6 +74,14 @@ def tree_flatten_with_path(tree, path: tuple = ()) -> list:
     if tree is None:
         return []
     return [(path, tree)]
+
+
+def tree_at(tree, path: tuple):
+    """The subtree of ``tree`` at ``path`` (as ``tree_flatten_with_path``
+    gives it)."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def tree_map_with_path(fn, tree, path: tuple = ()):
@@ -251,11 +270,15 @@ def placements(spec, mesh) -> list:
 
 
 class MeshCtx(NamedTuple):
-    """The mesh a model runs on, and ``batch_axes``: the live axes (major
+    """The mesh a model runs on; ``batch_axes``: the live axes (major
     first) that split an activation's rows and that the cut points move
-    and sum over."""
+    and sum over; ``tp_axis``: 'model' when it is live and not run by
+    hand, the axis of tensor parallelism; ``manual``: the axes the caller
+    runs by hand."""
     mesh: Any
     batch_axes: tuple
+    tp_axis: Optional[str] = None
+    manual: tuple = ()
 
 
 # a process-wide setting, not a context variable: autograd's device thread
@@ -276,9 +299,12 @@ class mesh_context:
     def __init__(self, mesh, batch_axes, manual=()):
         self.ctx = None
         if mesh is not None:
+            manual = tuple(manual)
             live = tuple(a for a in mesh.live(_entry_axes(batch_axes))
                          if a not in manual)
-            self.ctx = MeshCtx(mesh, live)
+            tp = ("model" if "model" in mesh.live(mesh.axis_names)
+                  and "model" not in manual else None)
+            self.ctx = MeshCtx(mesh, live, tp, manual)
 
     def __enter__(self):
         global _MESH
@@ -309,34 +335,115 @@ class _Move(torch.autograd.Function):
     ``dst`` (an all-to-all); the backward moves it back."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, src, dst):
+    def forward(ctx, x, mesh, axis, src, dst, kind):
         ctx.mesh, ctx.axis, ctx.src, ctx.dst = mesh, axis, src, dst
-        return mesh.all_to_all(x, axis, split_dim=dst, cat_dim=src)
+        ctx.kind = kind
+        return mesh.all_to_all(x, axis, split_dim=dst, cat_dim=src, kind=kind)
 
     @staticmethod
     def backward(ctx, g):
         return (ctx.mesh.all_to_all(g.contiguous(), ctx.axis,
-                                    split_dim=ctx.src, cat_dim=ctx.dst),
-                None, None, None, None)
+                                    split_dim=ctx.src, cat_dim=ctx.dst,
+                                    kind=ctx.kind),
+                None, None, None, None, None)
+
+
+def _named_dim(spec, axis):
+    for d, entry in enumerate(spec):
+        if axis in _entry_axes(entry):
+            return d
+    return None
 
 
 def shard(x, *spec, src=None):
     """JAX's ``with_sharding_constraint`` cut point. Off a mesh the
     identity. On one, ``x`` is laid out as ``src`` says (the batch layout
-    when None: rows over the batch axes) and leaves laid out as ``spec``
-    says: a batch axis that the spec names on another dimension moves
-    there (an all-to-all), one it leaves out goes to (or stays on) the
-    rows, and other axes are ignored, since activations are whole on
-    them."""
+    when None: rows over the batch axes, whole on every other axis) and
+    leaves laid out as ``spec`` says. A batch axis that the spec names on
+    another dimension moves there (an all-to-all, "expert"), one it leaves
+    out goes to (or stays on) the rows. An axis that is not a batch axis
+    moves from the dimension ``src`` names to the one ``spec`` names (an
+    all-to-all, "tp": a KV cache's heads to its sequence); one that either
+    leaves out is left as it is."""
     mc = _MESH
-    if mc is None or not mc.batch_axes:
+    if mc is None:
         return x
     have = _activation_dims(src if src is not None else (), mc)
     want = _activation_dims(spec, mc)
     for axis in reversed(mc.batch_axes):       # the minor axis first
         if have[axis] != want[axis]:
-            x = _Move.apply(x, mc.mesh, axis, have[axis], want[axis])
+            x = _Move.apply(x, mc.mesh, axis, have[axis], want[axis],
+                            "expert")
+    if src is None:
+        return x
+    for axis in mc.mesh.live(mc.mesh.axis_names):
+        if axis in mc.batch_axes or axis in mc.manual:
+            continue
+        a, b = _named_dim(src, axis), _named_dim(spec, axis)
+        if a is not None and b is not None and a != b:
+            x = _Move.apply(x, mc.mesh, axis, a, b, "tp")
     return x
+
+
+class _TPSum(torch.autograd.Function):
+    """The forward sums each tensor over mesh axis ``axis`` (one
+    all-reduce); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        return tuple(mesh.all_reduce_many(xs, (axis,), kind="tp"))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *gs)
+
+
+class _TPCopy(torch.autograd.Function):
+    """The identity in the forward; the backward sums each gradient over
+    mesh axis ``axis`` (one all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.shapes = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(shape, dtype=dt, device=dev) if g is None else g
+              for g, (shape, dt, dev) in zip(gs, ctx.shapes)]
+        return (None, None, *ctx.mesh.all_reduce_many(gs, (ctx.axis,),
+                                                       kind="tp"))
+
+
+def _tp_apply(fn, xs):
+    mc = _MESH
+    if mc is None or mc.tp_axis is None:
+        return xs[0] if len(xs) == 1 else xs
+    out = fn.apply(mc.mesh, mc.tp_axis, *xs)
+    return out[0] if len(xs) == 1 else out
+
+
+def tp_sum(*xs):
+    """The row-split product's cut point: ``xs`` summed over 'model' (one
+    all-reduce, float32 on the wire); the identity off a mesh or where
+    'model' is not live."""
+    return _tp_apply(_TPSum, xs)
+
+
+def tp_copy(*xs):
+    """The column-split product's cut point: ``xs`` as they are, their
+    gradients summed over 'model' in the backward (one all-reduce)."""
+    return _tp_apply(_TPCopy, xs)
+
+
+def tp_index(axis) -> tuple:
+    """(this rank's coordinate on ``axis``, its size) on the current mesh;
+    (0, 1) off a mesh or for ``axis`` None."""
+    mc = _MESH
+    if mc is None or axis is None:
+        return 0, 1
+    return mc.mesh.coords[axis], mc.mesh.shape[axis]
 
 
 class _GatherParams(torch.autograd.Function):

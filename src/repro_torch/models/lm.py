@@ -9,12 +9,28 @@ as the reference's reads only ``mesh.axis_names`` and ``mesh.shape``.
 
 On an ``LMMesh`` (``launch/mesh.py``) the model runs on this rank's
 device: ``init`` keeps this rank's block of each parameter, and
-``train_loss`` takes the whole batch, as JAX's takes the logical array,
-keeps the rows of this rank (the layout's batch axes), gathers the
-parameters at JAX's cut points (``layers.constrain_tree``) and returns the
-loss of the whole batch: the token count and the losses are summed over
-the batch axes, and the gradient that reaches this rank's parameters is
-this rank's share, summed in the backward.
+``train_loss``, ``encode``, ``prefill`` and ``decode_step`` take the whole
+batch, as JAX's take the logical array, keep the rows of this rank (the
+layout's batch axes), gather the parameters at JAX's cut points
+(``layers.constrain_tree``) and compute with tensor parallelism over
+'model' where JAX's layout splits (``models/transformer.py``). The head is
+split over 'model' where the vocab divides it: each rank computes the
+logits of its vocab block, the loss's ``logsumexp`` combines over 'model'
+(a max, then a sum), and the rank that owns each label's logit supplies
+it. The embedding is looked up the same way: each rank reads the rows of
+its vocab block, zero elsewhere, and one sum over 'model' puts the rows
+together (exact: one term a row is not zero). ``train_loss``
+returns the loss of the whole batch (the token count and the losses
+summed over the batch axes; the gradient that reaches this rank's
+parameters is this rank's share, summed in the backward); ``encode``,
+``prefill`` and ``decode_step`` return the whole batch's logits on every
+rank. ``init_caches`` returns this rank's block of the caches
+(``cache_specs``: rows over the batch axes, the KV caches' sequence over
+``cache_seq``); a KV cache keeps its whole ``max_len`` on the host, which
+a rank's block does not tell, and ``prefill`` and ``decode_step`` lay
+the caches out by ``choose_layout(cfg, mesh, B, max_len)`` when no
+layout is passed, as JAX's ``decode_step`` does (JAX's ``prefill`` takes
+the prompt's length: the port's caches are blocks of that layout).
 
 ``train_loss`` is differentiable: ``train/steps.py`` takes its gradients
 with ``torch.autograd.grad``. Prefill and decode run under
@@ -40,7 +56,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamInit, ShardCtx, constrain_tree,
                                        current_mesh, embed_param,
                                        mesh_context, norm_param, rms_norm,
-                                       torch_dtype)
+                                       torch_dtype, tp_copy, tp_index, tp_sum,
+                                       tree_at, tree_map_with_path)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,18 +135,21 @@ class LMModel(torch.nn.Module):
             _, self._specs_cache = self.abstract_params()
         return self._specs_cache
 
-    def _stack_kwargs(self) -> dict:
+    def _stack_kwargs(self, layout: "Layout") -> dict:
         if self.mesh is None:
             return {}
         s = self.param_specs
         return dict(block_specs=s.get("blocks"),
-                    shared_specs=s.get("shared_attn"))
+                    shared_specs=s.get("shared_attn"),
+                    head_tp=layout.head_tp, seq_axes=layout.cache_seq,
+                    dp_spec=layout.batch_axes)
 
-    def _no_ranks(self, what: str):
-        """Inference runs on one device: the mesh of ranks trains only."""
-        if self.ranks is not None:
-            raise ValueError(f"LMModel.{what} does not run on a mesh of "
-                             f"ranks; build the model with mesh=None")
+    def _context(self, layout: "Layout"):
+        """The mesh context of a call on a mesh of ranks (unless the
+        caller entered one)."""
+        if self.ranks is None or current_mesh() is not None:
+            return contextlib.nullcontext()
+        return mesh_context(self.ranks, layout.batch_axes)
 
     # -- parameters ---------------------------------------------------------
 
@@ -170,33 +190,103 @@ class LMModel(torch.nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _lookup(self, p, tokens) -> torch.Tensor:
+        """The embedding rows of ``tokens``. Where the vocab splits over
+        'model', the masked lookup of this rank's vocab block, summed
+        over 'model' (one term a row is not zero: the sum is exact)."""
+        tok = self._tokens(tokens)
+        tp = self._vocab_tp()
+        if tp is None:
+            return p["embed"][tok].to(self.dtype)
+        block = p["embed"]
+        own = tok - tp_index(tp)[0] * block.shape[0]
+        mine = (own >= 0) & (own < block.shape[0])
+        rows = block[own.clamp(0, block.shape[0] - 1)]
+        return tp_sum(torch.where(mine[..., None], rows,
+                                  torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device))
+                      ).to(self.dtype)
+
     def _embed_in(self, p, batch):
         if self.cfg.input_kind == "tokens":
-            return p["embed"][self._tokens(batch["tokens"])].to(self.dtype)
+            return self._lookup(p, batch["tokens"])
         return torch.as_tensor(batch["embeds"], device=self.device).to(
             self.dtype)
 
+    def _vocab_tp(self) -> Optional[str]:
+        """The live 'model' axis where the head's vocab splits over it."""
+        mc = current_mesh()
+        if mc is None or mc.tp_axis is None:
+            return None
+        tp = mc.tp_axis
+        return tp if self.ctx.axis("tp", self.cfg.vocab) == tp else None
+
+    def _top_params(self, p):
+        """On a mesh of ranks, the compute views of the parameters outside
+        the stack: gathered whole, the head and the embedding kept split
+        over 'model' where the vocab splits."""
+        if self.ranks is None:
+            return p
+        specs = self.param_specs
+        top = [k for k in p if k not in ("blocks", "shared_attn")]
+        tp = self._vocab_tp()
+        keep = {"head": (tp, None), "embed": (tp, None)} if tp else None
+        return {**p, **constrain_tree({k: p[k] for k in top},
+                                      {k: specs[k] for k in top}, keep)}
+
     def _head(self, p, x):
+        """Logits of ``x`` (of this rank's vocab block where it splits)."""
         x = rms_norm(x, p["final_norm"])
+        if self._vocab_tp():
+            x = tp_copy(x)
         return x @ p["head"].T.to(x.dtype)
+
+    def _whole(self, logits):
+        """The whole batch's logits on every rank: this rank's rows and
+        vocab block gathered over the batch axes and 'model' (one
+        all-gather, the "logits" kind)."""
+        mc = current_mesh()
+        if mc is None:
+            return logits
+        spec = ((mc.batch_axes or None,) + (None,) * (logits.ndim - 2)
+                + (self._vocab_tp(),))
+        return mc.mesh.gather_many([logits], [spec], kind="logits")[0]
 
     def _loss_from_hidden(self, p, x, labels):
         """Sequence-chunked CE against the head (memory-bounded): each
         chunk's logits are recomputed in the backward, as JAX's
-        ``jax.checkpoint`` on the scan body does."""
+        ``jax.checkpoint`` on the scan body does. Where the vocab splits
+        over 'model', each rank's logits are its vocab block's."""
         cfg = self.cfg
         B, S, _ = x.shape
         chunk = min(cfg.loss_chunk, S)
         if S % chunk:
             chunk = S
         head = p["head"]
+        tp = self._vocab_tp()
+
+        def terms(lo, lc):
+            """(logsumexp, the label's logit) over the whole vocab."""
+            if tp is None:
+                lse = torch.logsumexp(lo, dim=-1)
+                ll = torch.gather(lo, -1, lc.clamp(min=0)[..., None])[..., 0]
+                return lse, ll
+            mesh = current_mesh().mesh
+            top = mesh.all_reduce(lo.detach().amax(-1), (tp,), "max",
+                                  kind="tp")
+            own = lc.clamp(min=0) - tp_index(tp)[0] * lo.shape[-1]
+            mine = (own >= 0) & (own < lo.shape[-1])
+            ll = torch.gather(lo, -1, own.clamp(0, lo.shape[-1] - 1)[..., None])
+            ll = torch.where(mine, ll[..., 0], 0.0)
+            total, ll = tp_sum(torch.exp(lo - top[..., None]).sum(-1), ll)
+            return top + torch.log(total), ll
 
         def body(xc, lc):
+            if tp is not None:
+                xc = tp_copy(xc)
             logits = xc @ head.T.to(xc.dtype)
             mask = lc >= 0
-            lo = logits.float()
-            lse = torch.logsumexp(lo, dim=-1)
-            ll = torch.gather(lo, -1, lc.clamp(min=0)[..., None])[..., 0]
+            lse, ll = terms(logits.float(), lc)
             loss = (lse - ll) * mask
             if cfg.z_loss:
                 loss = loss + cfg.z_loss * (lse * mask) ** 2
@@ -224,11 +314,7 @@ class LMModel(torch.nn.Module):
         caller that runs the step by hand (``train/steps.py``'s pod
         step) enters its own ``mesh_context`` first."""
         layout = self.default_layout(batch)
-        if self.ranks is None or current_mesh() is not None:
-            outer = contextlib.nullcontext()
-        else:
-            outer = mesh_context(self.ranks, layout.batch_axes)
-        with outer:
+        with self._context(layout):
             return self._train_loss(p, batch, layout)
 
     def _rows(self, t, layout: Layout) -> torch.Tensor:
@@ -241,14 +327,11 @@ class LMModel(torch.nn.Module):
         cfg = self.cfg
         if self.ranks is not None:
             batch = {k: self._rows(v, layout) for k, v in batch.items()}
-            specs = self.param_specs
-            top = [k for k in p if k not in ("blocks", "shared_attn")]
-            p = {**p, **constrain_tree({k: p[k] for k in top},
-                                       {k: specs[k] for k in top})}
+            p = self._top_params(p)
         x = self._embed_in(p, batch)
         x, _, aux = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
                                      cfg, self.ctx, mode="train",
-                                     **self._stack_kwargs())
+                                     **self._stack_kwargs(layout))
         x = rms_norm(x, p["final_norm"])
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         loss = self._loss_from_hidden(p, x, labels)
@@ -269,30 +352,45 @@ class LMModel(torch.nn.Module):
                              leaf.shape[1])
 
     @torch.inference_mode()
-    def encode(self, p, batch):
+    def encode(self, p, batch, layout: Optional[Layout] = None):
         """Full forward -> (B, S, vocab) logits (the teacher-forced
         reference of the decode tests; an encoder's 'prefill')."""
-        self._no_ranks("encode")
-        x = self._embed_in(p, batch)
-        x, _, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
-                                   self.cfg, mode="train")
-        return self._head(p, x)
+        layout = layout or self.default_layout(batch)
+        with self._context(layout):
+            p, batch = self._serving_inputs(p, batch, layout)
+            x = self._embed_in(p, batch)
+            x, _, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
+                                       self.cfg, self.ctx, mode="train",
+                                       **self._stack_kwargs(layout))
+            return self._whole(self._head(p, x))
 
     def forward(self, p, batch):
         return self.encode(p, batch)
 
+    def _serving_inputs(self, p, batch, layout: Layout):
+        """On a mesh of ranks: the top parameters' compute views and this
+        rank's rows of ``batch`` (a dict, or the decode's tokens)."""
+        if self.ranks is None:
+            return p, batch
+        if isinstance(batch, dict):
+            batch = {k: self._rows(v, layout) for k, v in batch.items()}
+        else:
+            batch = self._rows(batch, layout)
+        return self._top_params(p), batch
+
     # -- serving ------------------------------------------------------------
 
-    def init_caches(self, batch: int, max_len: int) -> tf.StackCaches:
+    def _caches(self, batch: int, max_len: int, dev) -> tf.StackCaches:
         cfg = self.cfg
         L = cfg.n_layers
-        dev, dt = self.device, self.dtype
+        dt = self.dtype
 
         def stack_kv(n, length):
             shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
             return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
                            v=torch.zeros(shape, dtype=dt, device=dev),
-                           length=length)
+                           length=length,
+                           max_len=torch.tensor(max_len, dtype=torch.int32))
 
         if cfg.family in tf.ATTN_FAMILIES:
             return tf.StackCaches(kv=stack_kv(
@@ -314,29 +412,84 @@ class LMModel(torch.nn.Module):
             return tf.StackCaches(mamba=mamba, shared_kv=kv)
         raise ValueError(cfg.family)
 
+    def init_caches(self, batch: int, max_len: int,
+                    layout: Optional[Layout] = None) -> tf.StackCaches:
+        """Zeroed caches for ``batch`` sequences of up to ``max_len``
+        tokens. On a mesh of ranks, this rank's block of them, laid out
+        by ``layout`` (``choose_layout(cfg, mesh, batch, max_len)`` when
+        None)."""
+        if self.ranks is None:
+            return self._caches(batch, max_len, self.device)
+        layout = layout or choose_layout(self.cfg, self.mesh, batch, max_len)
+        specs = self.cache_specs(layout)
+        meta = self._caches(batch, max_len, torch.device("meta"))
+
+        def block(path, t):
+            if t.device.type != "meta":         # the lengths, on the host
+                return t
+            sl = self.ranks.block(tree_at(specs, path), t.shape)
+            return torch.zeros([s.stop - s.start for s in sl],
+                               dtype=t.dtype, device=self.device)
+
+        return tree_map_with_path(block, meta)
+
+    def cache_specs(self, layout: Layout) -> tf.StackCaches:
+        """The spec tree of the caches (JAX's): rows over the batch axes,
+        the KV caches' sequence over ``cache_seq``."""
+        cfg = self.cfg
+        b, s_ = layout.batch_axes, layout.cache_seq
+        kv = (None, b, s_, None, None)
+        if cfg.family in tf.ATTN_FAMILIES:
+            return tf.StackCaches(kv=KVCache(k=kv, v=kv, length=(None,),
+                                             max_len=()))
+        if cfg.family == "ssm":
+            return tf.StackCaches(mlstm=(None, b, None, None, None),
+                                  slstm=((None, b, None), (None, b, None)))
+        if cfg.family == "hybrid":
+            return tf.StackCaches(
+                mamba=mamba_lib.Mamba2State(conv=(None, b, None, None),
+                                            ssm=(None, b, None, None, None)),
+                shared_kv=KVCache(k=kv, v=kv, length=(), max_len=()))
+        raise ValueError(cfg.family)
+
+    def _cache_layout(self, caches, batch: int) -> Layout:
+        """JAX's decode default: the layout of ``batch`` rows and the
+        caches' whole ``max_len``."""
+        return choose_layout(self.cfg, self.mesh, batch,
+                             self._cache_len(caches))
+
     @torch.inference_mode()
-    def prefill(self, p, batch, caches: tf.StackCaches):
+    def prefill(self, p, batch, caches: tf.StackCaches,
+                layout: Optional[Layout] = None):
         """Process a prompt; returns (last-position logits, filled caches)."""
-        self._no_ranks("prefill")
-        x = self._embed_in(p, batch)
-        x, caches, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
-                                        self.cfg, mode="prefill",
-                                        caches=caches)
-        logits = self._head(p, x[:, -1, :])
+        leaf = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        layout = layout or self._cache_layout(caches, leaf.shape[0])
+        with self._context(layout):
+            p, batch = self._serving_inputs(p, batch, layout)
+            x = self._embed_in(p, batch)
+            x, caches, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"),
+                                            x, self.cfg, self.ctx,
+                                            mode="prefill", caches=caches,
+                                            **self._stack_kwargs(layout))
+            logits = self._whole(self._head(p, x[:, -1, :]))
         if self.cfg.family == "hybrid":
             caches = caches._replace(shared_kv=caches.shared_kv._replace(
                 length=torch.tensor(x.shape[1], dtype=torch.int32)))
         return logits, caches
 
     @torch.inference_mode()
-    def decode_step(self, p, tokens, caches: tf.StackCaches):
+    def decode_step(self, p, tokens, caches: tf.StackCaches,
+                    layout: Optional[Layout] = None):
         """One token for every sequence. tokens: (B,) ints."""
-        self._no_ranks("decode_step")
-        x = p["embed"][self._tokens(tokens)][:, None, :].to(self.dtype)
-        x, caches, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"), x,
-                                        self.cfg, mode="decode",
-                                        caches=caches)
-        logits = self._head(p, x[:, 0, :])
+        layout = layout or self._cache_layout(caches, tokens.shape[0])
+        with self._context(layout):
+            p, tokens = self._serving_inputs(p, tokens, layout)
+            x = self._lookup(p, tokens)[:, None, :]
+            x, caches, _ = tf.stack_forward(p["blocks"], p.get("shared_attn"),
+                                            x, self.cfg, self.ctx,
+                                            mode="decode", caches=caches,
+                                            **self._stack_kwargs(layout))
+            logits = self._whole(self._head(p, x[:, 0, :]))
         if self.cfg.family == "hybrid":
             caches = caches._replace(shared_kv=caches.shared_kv._replace(
                 length=caches.shared_kv.length + 1))
@@ -345,7 +498,7 @@ class LMModel(torch.nn.Module):
     def _cache_len(self, caches):
         cfg = self.cfg
         if cfg.family in tf.ATTN_FAMILIES:
-            return caches.kv.k.shape[2]
+            return int(caches.kv.max_len)
         if cfg.family == "hybrid" and cfg.shared_attn_every:
-            return caches.shared_kv.k.shape[2]
+            return int(caches.shared_kv.max_len)
         return 0

@@ -18,9 +18,18 @@ On a mesh with expert parallelism (``ep_axis``: the experts split over
 the FSDP axis 'data', which they divide), JAX's cut points move the
 dispatched tokens from rows over 'data' to experts over 'data' (the
 all-to-all), each rank runs its own experts on every row of its pod, and
-the outputs move back. Otherwise the experts' weights are whole
-(``constrain_tree`` gathered them) and each rank runs every expert on its
-own rows.
+the outputs move back. Otherwise the experts' weights are whole over
+'data' (``constrain_tree`` gathered them) and each rank runs every expert
+on its own rows. With ``ffn_tp`` (the live 'model' axis, where ``d_ff``
+divides it) each rank holds its block of every expert's ``d_ff``: its
+``w_gate`` / ``w_up`` columns and ``w_down`` rows, and the partial outputs
+are summed over 'model'.
+
+At decode on a mesh, the rows of every rank are gathered over the batch
+axes before the fold, so that one routing row holds the whole decode
+batch, as JAX's does; with expert parallelism each rank then runs its own
+experts on it and the outputs are gathered over ``ep_axis``; each rank
+keeps its own rows of the result.
 """
 from __future__ import annotations
 
@@ -29,8 +38,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (ParamInit, dense_param, shard,
-                                       torch_dtype)
+from repro_torch.models.layers import (ParamInit, current_mesh, dense_param,
+                                       shard, torch_dtype, tp_copy, tp_sum)
 
 
 def init_moe(init: ParamInit, cfg, ctx):
@@ -86,16 +95,49 @@ def _route_rows(tokens, tope, topw, E, k, cap):
     return dispatched[:, :drop], slot, src_s, wgt_s, keep
 
 
-def moe_ffn(p, x, cfg, *, ep_axis=None):
+def _fold_meshed(p, x, cfg, ep_axis, ffn_tp):
+    """The decode fold on a mesh: every rank's rows gathered over the
+    batch axes (the "expert" kind), routed as one row, this rank's rows
+    kept."""
+    mc = current_mesh()
+    mesh, rows = mc.mesh, (mc.batch_axes or None,)
+    B, S, d = x.shape
+    whole = mesh.gather_many([x], [rows], kind="expert")[0]
+    out, aux = moe_ffn(p, whole.reshape(1, -1, d), cfg, ep_axis=ep_axis,
+                       ffn_tp=ffn_tp, _folded=True)
+    out = out.reshape(-1, S, d)
+    return out[mesh.block(rows, out.shape)], aux
+
+
+def _experts(p, dispatched, ffn_tp):
+    """(B, E, cap, d) through each expert's SwiGLU; the partial outputs
+    summed over 'model' where ``d_ff`` splits."""
+    if ffn_tp is not None:
+        dispatched = tp_copy(dispatched)
+    h = F.silu(torch.einsum("becd,edf->becf", dispatched, p["w_gate"]))
+    h = h * torch.einsum("becd,edf->becf", dispatched, p["w_up"])
+    eo = torch.einsum("becf,efd->becd", h, p["w_down"])
+    return tp_sum(eo) if ffn_tp is not None else eo
+
+
+def moe_ffn(p, x, cfg, *, ep_axis=None, ffn_tp=None, _folded=False):
     """x: (B, S, d) -> (B, S, d). Returns (out, aux) with load stats.
-    ``ep_axis``: the mesh axis the experts split over, or None."""
+    ``ep_axis``: the mesh axis the experts split over, or None;
+    ``ffn_tp``: the 'model' axis ``d_ff`` splits over, or None."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    if S == 1 and B > 1:
-        # decode: fold the batch into one routing row, so capacity is
-        # shared across the decode batch
-        out, aux = moe_ffn(p, x.reshape(1, B, d), cfg)
-        return out.reshape(B, S, d), aux
+    mc = current_mesh()
+    if S == 1 and not _folded:
+        n_rows = B
+        if mc is not None:
+            n_rows *= math.prod(mc.mesh.shape[a] for a in mc.batch_axes)
+        if mc is not None and n_rows > 1:
+            return _fold_meshed(p, x, cfg, ep_axis, ffn_tp)
+        if B > 1:
+            # decode: fold the batch into one routing row, so capacity is
+            # shared across the decode batch
+            out, aux = moe_ffn(p, x.reshape(1, B, d), cfg)
+            return out.reshape(B, S, d), aux
 
     # router: operands in the activations' dtype, float32 accumulation
     logits = x.float() @ p["router"].to(x.dtype).float()
@@ -107,15 +149,20 @@ def moe_ffn(p, x, cfg, *, ep_axis=None):
     dispatched, slot, src_s, wgt_s, keep = _route_rows(x, tope, topw, E, k,
                                                        cap)
     dispatched = dispatched.reshape(B, E, cap, d)
-    if ep_axis is not None:
+    if ep_axis is not None and _folded:
+        # the folded row is whole on every rank: run this rank's experts
+        # and gather their outputs over ep_axis
+        blk = mc.mesh.block((None, ep_axis), dispatched.shape)
+        eo = _experts(p, dispatched[blk], ffn_tp)
+        eo = mc.mesh.gather_many([eo], [(None, ep_axis)], kind="expert")[0]
+    elif ep_axis is not None:
         # the all-to-all: rows over ep_axis -> experts over ep_axis
         dispatched = shard(dispatched, None, ep_axis, None, None)
-    h = F.silu(torch.einsum("becd,edf->becf", dispatched, p["w_gate"]))
-    h = h * torch.einsum("becd,edf->becf", dispatched, p["w_up"])
-    eo = torch.einsum("becf,efd->becd", h, p["w_down"])
-    if ep_axis is not None:
+        eo = _experts(p, dispatched, ffn_tp)
         # the reverse all-to-all
         eo = shard(eo, src=(None, ep_axis, None, None))
+    else:
+        eo = _experts(p, dispatched, ffn_tp)
     eo = eo.reshape(B, E * cap, d)
     eo = torch.cat([eo, torch.zeros((B, 1, d), dtype=eo.dtype,
                                     device=eo.device)], dim=1)

@@ -17,7 +17,15 @@ On a mesh (``layers.mesh_context``), each layer's parameter slice passes
 ``constrain_tree`` with the layer's specs (``block_specs`` without the
 leading L), JAX's ``_constrain_tree`` inside the scan body: the blocks are
 gathered before the layer runs, and its gradients summed into this rank's
-blocks in the backward. The shared block's parameters pass it once.
+blocks in the backward. The shared block's parameters pass it once. The
+layout (``head_tp``, ``seq_axes``, ``dp_spec``) is threaded to the
+attention as JAX threads it. Where 'model' is live, the compute views
+that split over it stay split (``_tp_keep``): the attention's when
+``head_tp`` is set, the FFN's ``w_gate`` / ``w_up`` (column-split) and
+``w_down`` (row-split, then one sum over 'model') and the moe experts'
+``d_ff`` when ``d_ff`` divides 'model'. The recurrent layers (mLSTM,
+sLSTM, Mamba2) take no sharding constraint in JAX: their weights are
+gathered whole and every 'model' rank repeats their compute.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamInit, ShardCtx, constrain_tree,
                                        current_mesh, dense_param, norm_param,
                                        rms_norm, swiglu, torch_dtype,
-                                       tree_map)
+                                       tp_copy, tp_sum, tree_map)
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
 
@@ -108,45 +116,65 @@ def init_shared_attn(init: ParamInit, cfg, ctx):
 # per-layer apply
 # ---------------------------------------------------------------------------
 
-def _ffn(fp, h):
-    return swiglu(h, fp["w_gate"], fp["w_up"], fp["w_down"])
+def _ffn(fp, h, ffn_tp=None):
+    """SwiGLU; with ``ffn_tp`` (the live 'model' axis) ``w_gate`` /
+    ``w_up`` are this rank's columns and ``w_down`` its rows, and the
+    partial outputs are summed over 'model'."""
+    if ffn_tp is None:
+        return swiglu(h, fp["w_gate"], fp["w_up"], fp["w_down"])
+    return tp_sum(swiglu(tp_copy(h), fp["w_gate"], fp["w_up"],
+                         fp["w_down"]))
 
 
-def _apply_attn_layer(bp, x, cfg, *, mode, cache=None, ep_axis=None):
-    h = rms_norm(x, bp["ln1"])
-    new_cache = None
+class _Lay(NamedTuple):
+    """The layout threaded to a layer: JAX's ``head_tp``, ``seq_axes`` and
+    ``dp_spec``, and ``ffn_tp``, the live 'model' axis where ``d_ff``
+    splits over it (or None)."""
+    head_tp: Any = None
+    seq_axes: Any = None
+    dp_spec: Any = None
+    ffn_tp: Any = None
+
+
+def _attn(ap, h, cfg, mode, cache, lay: _Lay, causal: bool):
     if mode == "decode":
-        a, new_cache = attn_lib.attention_decode(bp["attn"], h, cache, cfg)
-    elif mode == "prefill":
-        a, new_cache = attn_lib.prefill_cache(bp["attn"], h, cfg, cache=cache)
-    else:
-        a = attn_lib.attention_forward(bp["attn"], h, cfg,
-                                       causal=not cfg.encoder_only)
+        return attn_lib.attention_decode(ap, h, cache, cfg,
+                                         head_tp=lay.head_tp,
+                                         seq_axes=lay.seq_axes)
+    if mode == "prefill":
+        return attn_lib.prefill_cache(ap, h, cfg, cache=cache,
+                                      head_tp=lay.head_tp,
+                                      seq_axes=lay.seq_axes,
+                                      dp_spec=lay.dp_spec)
+    return attn_lib.attention_forward(ap, h, cfg, causal=causal,
+                                      head_tp=lay.head_tp), None
+
+
+def _apply_attn_layer(bp, x, cfg, *, mode, cache=None, ep_axis=None,
+                      lay: _Lay = _Lay()):
+    h = rms_norm(x, bp["ln1"])
+    a, new_cache = _attn(bp["attn"], h, cfg, mode, cache, lay,
+                         causal=not cfg.encoder_only)
     x = x + a
     h = rms_norm(x, bp["ln2"])
     aux = {}
     if cfg.n_experts:
-        m, aux = moe_lib.moe_ffn(bp["moe"], h, cfg, ep_axis=ep_axis)
+        m, aux = moe_lib.moe_ffn(bp["moe"], h, cfg, ep_axis=ep_axis,
+                                 ffn_tp=lay.ffn_tp)
         if cfg.moe_dense_residual:
-            m = m + _ffn(bp["ffn"], h)
+            m = m + _ffn(bp["ffn"], h, lay.ffn_tp)
         x = x + m
     else:
-        x = x + _ffn(bp["ffn"], h)
+        x = x + _ffn(bp["ffn"], h, lay.ffn_tp)
     return x, new_cache, aux
 
 
-def _apply_shared(sp, x, cfg, mode, cache):
+def _apply_shared(sp, x, cfg, mode, cache, lay: _Lay = _Lay()):
     h = rms_norm(x, sp["ln1"])
-    nc = None
-    if mode == "decode":
-        a, nc = attn_lib.attention_decode(sp["attn"], h, cache, cfg)
-    elif mode == "prefill":
-        a, nc = attn_lib.prefill_cache(sp["attn"], h, cfg, cache=cache)
-    else:
-        a = attn_lib.attention_forward(sp["attn"], h, cfg, causal=True)
+    a, nc = _attn(sp["attn"], h, cfg, mode, cache, lay, causal=True)
     x = x + a
     h2 = rms_norm(x, sp["ln2"])
-    return x + _ffn(sp["ffn"], h2), nc
+    return x + _ffn(sp["ffn"], h2, lay.ffn_tp), nc
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +182,8 @@ def _apply_shared(sp, x, cfg, mode, cache):
 # ---------------------------------------------------------------------------
 
 class StackCaches(NamedTuple):
-    """Union cache tree; unused slots are () for a given family."""
+    """Union cache tree; unused slots are () for a given family. A KV
+    cache's length and its 0-d ``max_len`` are int32 on the host."""
     kv: Any = ()          # attn: KVCache with (L, ...) leaves, length (L,)
     mlstm: Any = ()       # (L, B, H, dh, dh)
     slstm: Any = ()       # ((L,B,d), (L,B,d))
@@ -166,11 +195,12 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def _apply_layer(bp, x, cfg, kind: str, mode: str, cache, ep_axis=None):
+def _apply_layer(bp, x, cfg, kind: str, mode: str, cache, ep_axis=None,
+                 lay: _Lay = _Lay()):
     """One layer of any family. Returns (x, new layer cache, dropped)."""
     if cfg.family in ATTN_FAMILIES:
         x, kv, aux = _apply_attn_layer(bp, x, cfg, mode=mode, cache=cache,
-                                       ep_axis=ep_axis)
+                                       ep_axis=ep_axis, lay=lay)
         return x, kv, aux.get("dropped_frac")
     h = rms_norm(x, bp["ln1"])
     if cfg.family == "ssm":
@@ -206,7 +236,8 @@ def _layer_cache(caches: Optional[StackCaches], cfg, i: int):
     if cfg.family == "hybrid":
         return _layer(caches.mamba, i)
     kv = caches.kv
-    return KVCache(k=kv.k[i], v=kv.v[i], length=int(kv.length[i]))
+    return KVCache(k=kv.k[i], v=kv.v[i], length=int(kv.length[i]),
+                   max_len=int(kv.max_len))
 
 
 def _pack_caches(layer_caches: list, shared_cache, cfg) -> StackCaches:
@@ -232,25 +263,46 @@ def _strip_layer_dim(specs):
     return tuple(specs)[1:]
 
 
-def _expert_keep(cfg, ep_axis):
-    """The moe experts' compute views stay split over ``ep_axis``."""
-    if not ep_axis:
-        return None
-    return {"moe": {w: (ep_axis, None, None)
-                    for w in ("w_gate", "w_up", "w_down")}}
+def _tp_keep(cfg, ep_axis, lay: _Lay):
+    """The compute views that stay split: the moe experts over
+    ``ep_axis``, and over 'model' the attention's (``head_tp``: q's
+    columns, k's and v's where ``n_kv_heads == n_heads``, wo's rows) and
+    the FFN's and the experts' ``d_ff`` (``ffn_tp``)."""
+    keep = {}
+    tp = lay.ffn_tp
+    if ep_axis or tp:
+        keep["moe"] = {"w_gate": (ep_axis, None, tp),
+                       "w_up": (ep_axis, None, tp),
+                       "w_down": (ep_axis, tp, None)}
+    if tp:
+        keep["ffn"] = {"w_gate": (None, tp), "w_up": (None, tp),
+                       "w_down": (tp, None)}
+    h = lay.head_tp
+    if h:
+        names = ["q"] + (["k", "v"] if cfg.n_kv_heads == cfg.n_heads
+                         else [])
+        attn = {"wo": (h, None)}
+        for n in names:
+            attn[f"w{n}"] = (None, h)
+            if cfg.qkv_bias:
+                attn[f"b{n}"] = (h,)
+        keep["attn"] = attn
+    return keep or None
 
 
 def stack_forward(stacked, shared_attn, x, cfg: ModelConfig,
                   ctx: Optional[ShardCtx] = None, *, mode: str,
                   caches: Optional[StackCaches] = None, block_specs=None,
-                  shared_specs=None):
+                  shared_specs=None, head_tp=None, seq_axes=None,
+                  dp_spec=None):
     """Run all layers. mode: 'train' | 'prefill' | 'decode'.
 
     Returns (x, new_caches, aux); 'train' produces no caches (None). The
     shared block's cache length is left as it came: ``LMModel`` sets it
     after a prefill and advances it after a decode, as the reference does.
-    ``ctx`` (the expert axis), ``block_specs`` and ``shared_specs`` are
-    JAX's: they matter on a mesh.
+    ``ctx`` (the expert and 'model' axes), ``block_specs``,
+    ``shared_specs`` and the layout (``head_tp``, ``seq_axes``,
+    ``dp_spec``) are JAX's: they matter on a mesh.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
@@ -271,32 +323,42 @@ def stack_forward(stacked, shared_attn, x, cfg: ModelConfig,
                if ctx is not None and cfg.n_experts else None)
     if mc is None or ep_axis not in mc.batch_axes:
         ep_axis = None
+    # tensor parallelism over the live 'model' axis, where JAX's layout
+    # splits: the heads (head_tp), d_ff where it divides the axis
+    tp = mc.tp_axis if mc is not None else None
+    lay = _Lay(head_tp=head_tp if tp and head_tp == tp else None,
+               seq_axes=seq_axes, dp_spec=dp_spec,
+               ffn_tp=(tp if tp and ctx is not None
+                       and ctx.axis("tp", cfg.d_ff) == tp else None))
     per_layer_specs = _strip_layer_dim(block_specs)
-    keep = _expert_keep(cfg, ep_axis)
+    keep = _tp_keep(cfg, ep_axis, lay)
     if has_shared:
-        shared_attn = constrain_tree(shared_attn, shared_specs)
+        shared_attn = constrain_tree(shared_attn, shared_specs,
+                                     _tp_keep(cfg, None, lay))
     for i in range(L):
         if every and i % every == 0:
             # the shared attention block before each group (layers 0, k, 2k..)
             g = i // every
             if mode == "train":
                 shared = lambda h: _apply_shared(shared_attn, h, cfg, mode,
-                                                 None)[0]
+                                                 None, lay)[0]
                 x = (checkpoint(shared, x, use_reentrant=False) if remat
                      else shared(x))
             else:
                 this = KVCache(k=shared_cache.k[g], v=shared_cache.v[g],
-                               length=int(shared_cache.length))
-                x, _ = _apply_shared(shared_attn, x, cfg, mode, this)
+                               length=int(shared_cache.length),
+                               max_len=int(shared_cache.max_len))
+                x, _ = _apply_shared(shared_attn, x, cfg, mode, this, lay)
         bp = constrain_tree(_layer(stacked, i), per_layer_specs, keep)
         if remat:
             x, new, drop = checkpoint(
                 lambda h, bp=bp, i=i: _apply_layer(bp, h, cfg, kinds[i],
-                                                   mode, None, ep_axis),
+                                                   mode, None, ep_axis, lay),
                 x, use_reentrant=False)
         else:
             x, new, drop = _apply_layer(bp, x, cfg, kinds[i], mode,
-                                        _layer_cache(caches, cfg, i), ep_axis)
+                                        _layer_cache(caches, cfg, i),
+                                        ep_axis, lay)
         layer_caches.append(new)
         dropped.append(torch.zeros((), dtype=torch.float32, device=x.device)
                        if drop is None else drop.float())
@@ -308,7 +370,7 @@ def stack_forward(stacked, shared_attn, x, cfg: ModelConfig,
         kv = caches.kv
         lengths = torch.tensor([c.length for c in layer_caches],
                                dtype=torch.int32)
-        return x, StackCaches(kv=KVCache(k=kv.k, v=kv.v, length=lengths)), aux
+        return x, StackCaches(kv=kv._replace(length=lengths)), aux
     return x, _pack_caches(layer_caches, shared_cache, cfg), aux
 
 

@@ -28,8 +28,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import (torch_dtype, tree_flatten_with_path,
-                                       tree_map, tree_map_with_path)
+from repro_torch.models.layers import (torch_dtype, tree_at,
+                                       tree_flatten_with_path, tree_map,
+                                       tree_map_with_path)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +48,6 @@ class AdamWConfig:
     # storage dtype for the first moment (compute stays f32): 'bfloat16'
     # drops optimizer bytes 4->2 per param.
     m_dtype: str = "float32"
-
-
-def _at(tree, path: tuple):
-    for k in path:
-        tree = tree[k]
-    return tree
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -93,7 +88,7 @@ def opt_state_specs(param_specs, cfg: Optional[AdamWConfig] = None,
     cfg = cfg or AdamWConfig()
 
     def v_spec(path, shape):
-        sp = _at(param_specs, path)
+        sp = tree_at(param_specs, path)
         if len(shape.shape) >= 2:
             return {"row": tuple(sp[:-1]), "col": tuple(sp[:-2] + sp[-1:])}
         return sp
@@ -109,7 +104,7 @@ def _global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     parts = [torch.sum(torch.square(g.float()))
              for _, g in tree_flatten_with_path(tree)]
     if mesh is not None and parts:
-        owner = [mesh.owner(_at(specs, path))
+        owner = [mesh.owner(tree_at(specs, path))
                  for path, _ in tree_flatten_with_path(tree)]
         parts = [p if own else torch.zeros_like(p)
                  for p, own in zip(parts, owner)]
@@ -142,7 +137,7 @@ def adamw_update(grads, state, params, cfg: Optional[AdamWConfig] = None, *,
 
     def factored_blocks(path, g, v):
         """The factored v of a block: whole-dimension means, kept blocks."""
-        sp = tuple(_at(specs, path))
+        sp = tuple(tree_at(specs, path))
         vs = {"row": sp[:-1], "col": sp[:-2] + sp[-1:]}
         gw = mesh.gather(g, sp)
         g2 = gw * gw
@@ -178,8 +173,8 @@ def adamw_update(grads, state, params, cfg: Optional[AdamWConfig] = None, *,
                                     + cfg.weight_decay * master)
         return m.to(m_dt), v, new_master
 
-    out = {path: upd(path, g, _at(state["m"], path), _at(state["v"], path),
-                     _at(state["master"], path))
+    out = {path: upd(path, g, tree_at(state["m"], path),
+                     tree_at(state["v"], path), tree_at(state["master"], path))
            for path, g in tree_flatten_with_path(grads)}
     def part(i):
         return tree_map_with_path(lambda path, _: out[path][i], params)

@@ -17,8 +17,8 @@ against JAX's counts and against real steps on gloo ranks on the CPU.
   sends on 2 and 4 ranks (``torch.distributed`` wrapped in the ranks),
   one hop and two.
 * ``python -m repro_torch.launch.dryrun --all --mesh both`` in a
-  subprocess: every cell, the meshed inference cells skipped with the
-  A17 (iv) reason, exit code 0.
+  subprocess: every cell, the meshed prefill and decode cells planned
+  (only long_500k skipped, full attention), exit code 0.
 
 The gloo ranks (``tests/torch_train_mesh_ranks.py``) and the CLI start
 as subprocesses when the module does.
@@ -195,9 +195,12 @@ def test_plan_records_member_ranks():
     plan = _plan((2, 2, 2), POD_AXES, 5, compress=True)
     groups = {tuple(m) for _, _, _, m in plan["records"]}
     # pod x data x model: rank 5 is (1, 0, 1); the compressed step runs
-    # 'pod' by hand, so its rows' sums go over 'data' alone
-    assert groups == {(5, 7), (4, 5), (1, 5), (4, 5, 6, 7),
-                      (0, 1, 2, 3, 4, 5, 6, 7)}
+    # 'pod' by hand, so its rows' sums go over 'data' alone; every weight
+    # of the reduced config splits over 'model' and stays split, so no
+    # parameter is gathered over 'data' and 'model' together
+    assert groups == {(5, 7), (4, 5), (1, 5), (0, 1, 2, 3, 4, 5, 6, 7)}
+    kinds = {(kind, tuple(m)) for kind, _, _, m in plan["records"]}
+    assert ("tp", (4, 5)) in kinds and ("params", (5, 7)) in kinds
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +233,7 @@ def test_cli_all_cells(procs):
     _, dryrun_cli = procs
     rc, out, err, results = dryrun_cli()
     assert rc == 0, err[-3000:]
-    assert "done: 10 ok, 6 skipped, 0 failed" in out
+    assert "done: 14 ok, 2 skipped, 0 failed" in out
     keys = {f"{a}|{c.name}|{m}" for a, c, _ in all_cells()
             for m in ("single", "multi")}
     keys |= {f"selfjoin|{s[0]}|{m}" for s in SJ_SHAPES
@@ -240,9 +243,9 @@ def test_cli_all_cells(procs):
         res = results[key]
         kind = key.split("|")[1].split("_")[0]
         if kind in ("prefill", "decode"):
-            assert res["skipped"] == dryrun.MESHED_INFERENCE, key
-            assert res["probe"]["flops_total"] > 0, key
-        elif key.startswith("smoke-lm|long_500k"):
+            assert res["roofline"]["probe"]["flops_total"] > 0, key
+            assert res["memory_analysis"]["cache_bytes"] > 0, key
+        if key.startswith("smoke-lm|long_500k"):
             assert "quadratic" in res["skipped"]
         else:
             r = res["roofline"]

@@ -14,7 +14,7 @@ A checkpoint saved on one rank restores onto four with ``('data',
 None)`` (the counterpart of ``tests/test_ckpt.py::
 test_elastic_restore_subprocess``); a checkpoint written from four ranks
 reads back in JAX's ``restore_checkpoint``. Inference on a mesh of ranks
-is refused.
+runs, and refuses what it cannot do on every rank alike.
 """
 import types
 
@@ -109,15 +109,23 @@ def test_production_meshes_refused(runs, world):
 
 
 def test_inference_refused_on_mesh_of_ranks(runs):
-    """Meshed inference is not ported (every 'model' rank holds a block
-    of the embedding): ``encode``, ``prefill`` and ``decode_step`` of a
-    model on a (1, 2) mesh of ranks raise ValueError on every rank."""
+    """``encode``, ``prefill`` and ``decode_step`` run on a (1, 2) mesh of
+    ranks (ROADMAP A17 (iv); their values: ``test_torch_tp.py``) and
+    return the whole batch's logits. A decode past the caches' max_len
+    (C7) and a prompt longer than it raise ValueError on every rank,
+    before any collective (a rank that raised alone would leave the other
+    waiting). A copy of the caches decodes as the caches do: their layout
+    comes from the ``max_len`` they carry."""
     get, _ = runs
     for r in get("torch")[2]:
-        for name, err in r["infer"].items():
-            assert err == ("ValueError",
-                           f"LMModel.{name} does not run on a mesh of "
-                           f"ranks; build the model with mesh=None"), name
+        assert r["infer"]["ran"] == {"encode": (2, 8, 512),
+                                     "prefill": (2, 512), "decode": (2, 512)}
+        assert r["infer"]["decode_past_max_len"] == (
+            "ValueError", "decode at position 8 past the KV cache's max_len "
+            "8: allocate the cache for the prompt and every decoded token")
+        assert r["infer"]["prompt_past_max_len"] == (
+            "ValueError", "a prompt of 8 tokens does not fit a KV cache of "
+            "max_len 4")
 
 
 def fake(names):

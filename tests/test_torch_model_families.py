@@ -59,13 +59,16 @@ def close(port, ref, dtype, argmax: bool = False):
 
 
 def cache_leaves(caches):
-    """The caches' arrays in field order, the lengths as ints."""
+    """The caches' arrays in field order, the lengths as ints; the port's
+    KV caches' ``max_len`` (JAX's has none) left out."""
     out = []
 
     def walk(t):
         if isinstance(t, tuple):
-            for v in t:
-                walk(v)
+            fields = getattr(t, "_fields", range(len(t)))
+            for f, v in zip(fields, t):
+                if f != "max_len":
+                    walk(v)
         elif t is not None:
             out.append(t)
 

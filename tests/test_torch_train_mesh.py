@@ -129,12 +129,17 @@ def test_f32_steps(runs, unmeshed, shape, against):
 
 
 def test_f32_collectives_ran(runs):
-    """(2, 2): parameters gathered over 'data' and 'model', gradients
-    summed over 'data'; (1, 2) sums no gradient (one batch shard)."""
+    """(2, 2): parameters gathered over 'data', gradients summed over
+    'data', the tensor-parallel cut points over 'model'; (1, 2) sums no
+    gradient (one batch shard) and gathers no parameter: every weight of
+    the reduced config splits over 'model' and its compute view stays
+    split, and 'data' is 1."""
     ranks = runs[0]("torch")
-    assert {"params", "grads", "loss"} <= set(ranks[0]["f32/2x2"]["calls"])
+    assert {"params", "grads", "loss", "tp"} <= set(
+        ranks[0]["f32/2x2"]["calls"])
     assert "grads" not in ranks[0]["f32/1x2"]["calls"]
-    assert "params" in ranks[0]["f32/1x2"]["calls"]
+    assert "params" not in ranks[0]["f32/1x2"]["calls"]
+    assert "tp" in ranks[0]["f32/1x2"]["calls"]
 
 
 @pytest.mark.parametrize("against", ["port", "jax"])

@@ -1,5 +1,5 @@
-"""JAX's side of the meshed-training tests, run in a subprocess on four
-placeholder CPU devices (the caller sets
+"""JAX's side of the meshed-training and meshed-inference tests, run in a
+subprocess on four placeholder CPU devices (the caller sets
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
 
     python tests/torch_mesh_jax.py IN.pkl OUT.pkl
@@ -24,7 +24,8 @@ from repro.train import compression as jcomp
 from repro.train.optimizer import AdamWConfig, adamw_init, opt_state_specs
 from repro.train.steps import make_train_step
 from repro_torch.models.convert import params_to_numpy, seeded_params
-from torch_train_mesh_ranks import batches, config
+from torch_train_mesh_ranks import (INFER_MAX_LEN, INFER_SHAPE, INFER_STEPS,
+                                    batches, config, prompt_tokens)
 
 IS_SPEC = lambda x: isinstance(x, P)   # noqa: E731
 
@@ -221,6 +222,93 @@ def mesh_shapes(worlds=(1, 2, 4, 8)):
         except Exception as err:        # noqa: BLE001 -- recorded
             out[name] = type(err).__name__
     return out
+
+
+def infer(fam, dtype, shape, axes, batch=INFER_SHAPE, steps=INFER_STEPS,
+          max_len=INFER_MAX_LEN, seed=2):
+    """JAX's jitted meshed ``prefill``, ``decode_step`` (teacher-forced,
+    ``steps`` times) and ``encode``, laid out as JAX's dry run lays out
+    its prefill and decode cells (``lower_lm_cell``: the layout of
+    (batch, max_len), the parameters, the batch and the caches placed by
+    their specs, the caches' out_shardings theirs): the logits as
+    float32, the layout, and each cache leaf's shards after the prefill
+    by device coordinates, as (index as (start, stop) pairs, float32
+    values)."""
+    from repro.models.lm import choose_layout
+
+    cfg = config(fam, dtype)
+    mesh = mesh_of(shape, axes)
+    model = JaxLM(JaxConfig(**dataclasses.asdict(cfg)), mesh)
+    _, specs = model.abstract_params()
+    B, S = batch
+    layout = choose_layout(model.cfg, mesh, B, max_len)
+    b = layout.batch_axes
+    cspecs = model.cache_specs(layout)
+    toks = prompt_tokens(cfg, batch, steps, seed)
+    ns = lambda sp: NamedSharding(mesh, sp)   # noqa: E731
+    with mesh:
+        params = jax.device_put(weights(cfg), named(mesh, specs))
+        caches = jax.device_put(model.init_caches(B, max_len),
+                                named(mesh, cspecs))
+        prefill = jax.jit(lambda p, t, c: model.prefill(p, t, c, layout),
+                          in_shardings=(named(mesh, specs),
+                                        {"tokens": ns(P(b, None))},
+                                        named(mesh, cspecs)),
+                          out_shardings=(None, named(mesh, cspecs)))
+        decode = jax.jit(lambda p, t, c: model.decode_step(p, t, c, layout),
+                         in_shardings=(named(mesh, specs), ns(P(b)),
+                                       named(mesh, cspecs)),
+                         out_shardings=(None, named(mesh, cspecs)))
+        encode = jax.jit(lambda p, t: model.encode(p, t, layout),
+                         in_shardings=(named(mesh, specs),
+                                       {"tokens": ns(P(b, None))}))
+        logits, caches = prefill(params, {"tokens": jnp.asarray(toks[:, :S])},
+                                 caches)
+        out = {"prefill": np.asarray(logits, np.float32),
+               "layout": (layout.batch_axes, layout.head_tp,
+                          layout.cache_seq),
+               "shards": cache_shards(caches, mesh), "decode": []}
+        for t in range(steps):
+            logits, caches = decode(params, jnp.asarray(toks[:, S + t]),
+                                    caches)
+            out["decode"].append(np.asarray(logits, np.float32))
+        out["encode"] = np.asarray(
+            encode(params, {"tokens": jnp.asarray(toks[:, :S])}), np.float32)
+    return out
+
+
+def cache_shards(caches, mesh) -> dict:
+    """{leaf path: {device coordinates: (index, float32 values)}} of
+    every cache leaf of more than one dimension, copied: a CPU buffer that
+    a later step reuses would change under a view."""
+    out = {}
+    for name, arr in flat_arrays(caches).items():
+        if arr.ndim < 2:
+            continue                 # the lengths
+        by = {}
+        for s in arr.addressable_shards:
+            coords = tuple(int(c) for c in
+                           np.argwhere(mesh.devices == s.device)[0])
+            by[coords] = ([(i.start or 0, arr.shape[d] if i.stop is None
+                            else i.stop) for d, i in enumerate(s.index)],
+                          np.array(s.data, np.float32, copy=True))
+        out[name] = by
+    return out
+
+
+def shard_shapes(fam, dtype, shape, axes) -> dict:
+    """Each parameter's shard shape on the mesh, by its specs
+    ({"a/b/c": shape})."""
+    cfg = config(fam, dtype)
+    mesh = mesh_of(shape, axes)
+    model = JaxLM(JaxConfig(**dataclasses.asdict(cfg)), mesh)
+    shapes, specs = model.abstract_params()
+    sh = jax.tree.map(lambda a, sp: NamedSharding(mesh, sp).shard_shape(
+        a.shape), shapes, specs, is_leaf=IS_SPEC)
+    paths, _ = jax.tree_util.tree_flatten_with_path(
+        sh, is_leaf=lambda x: isinstance(x, tuple))
+    return {"/".join(str(getattr(k, "key", k)) for k in path): tuple(v)
+            for path, v in paths}
 
 
 def main():

@@ -8,6 +8,7 @@ one spawn (gloo), in order; each case builds the meshes it needs over the
 world's first ranks, and a rank outside a case's mesh returns None for it.
 Results are numpy arrays, lists and dicts, or ``("error", type, text)``.
 """
+import collections
 import dataclasses
 import os
 
@@ -244,9 +245,175 @@ def pod_pin():
     return cs.mesh_f32_steps("cpu", *cs.POD_MESH, compress=True)
 
 
+INFER_SHAPE = (4, 16)     # (batch, prompt) of the meshed inference cases
+INFER_STEPS = 4
+INFER_MAX_LEN = 24        # divides 'model' 2 and ('data', 'model') 4
+
+
+def prompt_tokens(cfg, batch=INFER_SHAPE, steps=INFER_STEPS, seed=2):
+    """The prompt and the teacher-forced decode tokens, (B, S + steps)."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch[0], batch[1] + steps)).astype(np.int32)
+
+
+def jax_name(tree, path) -> str:
+    """A cache leaf's path as ``tests/torch_mesh_jax.py::flat`` names JAX's
+    (".kv/.k", ".slstm/[0]")."""
+    parts = []
+    for k in path:
+        parts.append(f".{tree._fields[k]}" if hasattr(tree, "_fields")
+                     else f"[{k}]")
+        tree = tree[k]
+    return "/".join(parts)
+
+
+def _cache_blocks(caches, block_of) -> dict:
+    """{JAX's leaf name: (this rank's slices of the whole shape as
+    (start, stop) pairs, a float32 copy of its values)} of every cache
+    tensor but the lengths (the decode writes the caches in place);
+    ``block_of(path, t)`` gives the slices."""
+    from repro_torch.models.layers import tree_flatten_with_path
+    return {jax_name(caches, path): (block_of(path, t),
+                                     t.float().numpy().copy())
+            for path, t in tree_flatten_with_path(caches) if t.ndim > 1}
+
+
+# JAX's KV cache tuple: no max_len
+JaxKV = collections.namedtuple("KVCache", "k v length")
+
+
+def _carried(cfg, model, caches, layout, toks, S, max_len) -> dict:
+    """Caches across the mesh (``convert``): the whole caches gathered
+    from the ranks' blocks after the prefill (rank 0's, float32 numpy),
+    and the first decode step's logits from this rank's block of the
+    unmeshed model's prefilled caches, carried as JAX's tree (numpy,
+    KV caches of (k, v, length))."""
+    from repro_torch.models.convert import (caches_from_mesh,
+                                            caches_to_mesh, params_to_numpy,
+                                            seeded_params)
+    from repro_torch.models.layers import tree_flatten_with_path
+    from repro_torch.models.lm import LMModel
+
+    whole = caches_from_mesh(caches, model, layout)
+    plain = LMModel(cfg, device=CPU)
+    pp, _ = seeded_params(cfg, 0, CPU)
+    _, mine = plain.prefill(pp, {"tokens": toks[:, :S]},
+                            plain.init_caches(toks.shape[0], max_len))
+    mine = params_to_numpy(mine)
+    as_jax = lambda kv: JaxKV(*kv[:3]) if kv else kv   # noqa: E731
+    mine = mine._replace(kv=as_jax(mine.kv),
+                         shared_kv=as_jax(mine.shared_kv))
+    params, _ = seeded_params(cfg, 0, CPU, mesh=model.ranks)
+    blocks = caches_to_mesh(mine, model, layout)
+    logits, _ = model.decode_step(params, toks[:, S], blocks)
+    return {"gathered": ({jax_name(whole, p): np.asarray(a, np.float32)
+                          for p, a in tree_flatten_with_path(whole)
+                          if np.ndim(a) > 1}
+                         if model.ranks.rank == 0 else None),
+            "carried": logits.float().numpy()}
+
+
+def infer(fam, dtype, shape, axes, batch=INFER_SHAPE, steps=INFER_STEPS,
+          max_len=INFER_MAX_LEN, seed=2):
+    """Meshed inference from ``seeded_params(cfg, 0)``: the prefill's
+    last-position logits, each decode step's logits (teacher-forced),
+    the cache blocks after the prefill (``_cache_blocks``), ``encode``'s
+    logits of the prompt, the mesh's collectives of the last decode step
+    (kind -> [calls, bytes]) and of the prefill, the layout, and this
+    rank's coordinates. ``shape`` None runs without a mesh."""
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.lm import LMModel, choose_layout
+
+    cfg = config(fam, dtype)
+    mesh = tmesh.make_mesh_compat(shape, axes, device=CPU) if shape else None
+    if shape and mesh is None:
+        return None
+    model = LMModel(cfg, mesh, device=CPU)
+    params, _ = seeded_params(cfg, 0, CPU, mesh=mesh)
+    toks = prompt_tokens(cfg, batch, steps, seed)
+    S = batch[1]
+    caches = model.init_caches(batch[0], max_len)
+    f32 = lambda t: t.float().numpy()    # noqa: E731
+    before = dict(mesh.stats) if mesh else {}
+    logits, caches = model.prefill(params, {"tokens": toks[:, :S]}, caches)
+    out = {"prefill": f32(logits), "decode": []}
+    if mesh is not None:
+        out["prefill_stats"] = mesh.calls_and_bytes(before)
+        layout = choose_layout(cfg, mesh, batch[0], max_len)
+        specs = model.cache_specs(layout)
+        whole = LMModel(cfg, device="meta").init_caches(batch[0], max_len)
+        out["blocks"] = _cache_blocks(caches, lambda path, t: [
+            (s.start, s.stop) for s in mesh.block(
+                _at(specs, path), _at(whole, path).shape)])
+        out["layout"] = dataclasses.astuple(layout)
+        out["coords"] = mesh.coords
+    else:
+        out["blocks"] = _cache_blocks(
+            caches, lambda path, t: [(0, n) for n in t.shape])
+    if mesh is not None:
+        out.update(_carried(cfg, model, caches, layout, toks, S, max_len))
+    for t in range(steps):
+        before = dict(mesh.stats) if mesh else {}
+        logits, caches = model.decode_step(params, toks[:, S + t], caches)
+        out["decode"].append(f32(logits))
+    if mesh is not None:
+        out["decode_stats"] = {k: v for k, v in
+                               mesh.calls_and_bytes(before).items() if v[0]}
+        out["rank"] = mesh.rank
+    out["encode"] = f32(model.encode(params, {"tokens": toks[:, :S]}))
+    return out
+
+
+def tp_views(shape, axes):
+    """On a mesh: the compute views ``constrain_tree`` gives one
+    ``encode`` of the reduced dense config ({path: shape}), and the
+    matrix-product FLOPs that ``FlopCounterMode`` counts on this rank
+    ({op: flops}); ``shape`` None runs without a mesh (FLOPs only)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.models.convert import seeded_params
+    from repro_torch.models.layers import tree_flatten_with_path
+    from repro_torch.models.lm import LMModel
+
+    cfg = config("dense", "float32")
+    mesh = tmesh.make_mesh_compat(shape, axes, device=CPU) if shape else None
+    if shape and mesh is None:
+        return None
+    model = LMModel(cfg, mesh, device=CPU)
+    params, _ = seeded_params(cfg, 0, CPU, mesh=mesh)
+    views, real = {}, tf_mod.constrain_tree
+
+    def recording(tree, specs, keep=None, prefix=()):
+        out = real(tree, specs, keep)
+        for path, t in tree_flatten_with_path(out):
+            views["/".join(map(str, prefix + path))] = tuple(t.shape)
+        return out
+
+    tf_mod.constrain_tree = lambda t, s, k=None: recording(t, s, k,
+                                                         ("blocks",))
+    lm_mod.constrain_tree = recording
+    toks = prompt_tokens(cfg)[:, :INFER_SHAPE[1]]
+    try:
+        fc = FlopCounterMode(display=False)
+        with fc:
+            model.encode(params, {"tokens": toks})
+    finally:
+        tf_mod.constrain_tree = lm_mod.constrain_tree = real
+    flops = {str(op): int(n) for op, n in fc.get_flop_counts()["Global"]
+             .items()}
+    return {"views": views, "flops": flops}
+
+
 def inference_refused(shape, axes):
-    """``encode``, ``prefill`` and ``decode_step`` of a model on a mesh of
-    ranks: each one's error (type name, message)."""
+    """What meshed inference refuses, on every rank, each as (type name,
+    message): a decode past the caches' ``max_len`` (ROADMAP C7, taken
+    by every rank before any collective) and a prompt longer than it;
+    and that the calls run otherwise (``ran``: the shapes of ``encode``'s
+    and the prefill's logits, and of a decode's from a copy of caches
+    that ``init_caches`` made, whose layout comes from their ``max_len``
+    as from the originals')."""
     from repro_torch.models.convert import seeded_params
     from repro_torch.models.lm import LMModel
 
@@ -257,11 +424,21 @@ def inference_refused(shape, axes):
     model = LMModel(cfg, mesh, device=CPU)
     params, _ = seeded_params(cfg, 0, CPU, mesh=mesh)
     toks = torch.zeros((2, 8), dtype=torch.long)
-    calls = {"encode": lambda: model.encode(params, {"tokens": toks}),
-             "prefill": lambda: model.prefill(params, {"tokens": toks}, None),
-             "decode_step": lambda: model.decode_step(params, toks[:, 0],
-                                                      None)}
-    out = {}
+    full = model.init_caches(2, 8)
+    ran = {"encode": tuple(model.encode(params, {"tokens": toks}).shape)}
+    logits, full = model.prefill(params, {"tokens": toks}, full)
+    ran["prefill"] = tuple(logits.shape)
+    short = model.init_caches(2, 4)
+    fresh = model.init_caches(2, 8)
+    copied = type(fresh)(kv=fresh.kv._replace(k=fresh.kv.k.clone(),
+                                              v=fresh.kv.v.clone()))
+    ran["decode"] = tuple(model.decode_step(params, toks[:, 0],
+                                            copied)[0].shape)
+    calls = {"decode_past_max_len": lambda: model.decode_step(
+                 params, toks[:, 0], full),
+             "prompt_past_max_len": lambda: model.prefill(
+                 params, {"tokens": toks}, short)}
+    out = {"ran": ran}
     for name, call in calls.items():
         try:
             call()
