@@ -47,10 +47,10 @@ each printing one JSON line:
                   brute_force_count(distance_impl="pallas") against the
                   recorded totals; each kernel's time and bound
   profile         one main-path join under torch.profiler: host and device
-                  time per stage span (and of the run plans its l2 run-loop
-                  launches are given and do not read, ``run_plan.launch``),
-                  B1's device time by name, device time by kernel name and
-                  the device's busy share
+                  time per stage span and sub-stage span (the run plans its
+                  l2 run-loop launches are given and do not read, in
+                  ``self_join.plan.run_plan``), B1's device time by name,
+                  device time by kernel name and the device's busy share
   serve           the join services on the card: index A (the main path's
                   2 M points) serves 64 requests of 1,024 external queries
                   with pairs (counts against B2 row sums, sampled neighbour
@@ -1598,35 +1598,29 @@ def phase_brute(workloads):
 
 
 def phase_profile():
-    """One main-path join under ``torch.profiler``: per stage span of the
-    driver (``self_join.grid`` / ``.plan`` / ``.kernel`` / ``.emit``) its host
-    time and the device time of the kernels it launched, B1's device time by
-    name, device time by kernel name, and the device's busy share of the wall
-    time. Reports null device figures when the profiler records no device
+    """One main-path join under ``torch.profiler``: per stage and sub-stage
+    span of the join (``self_join.grid`` / ``.plan`` / ``.kernel`` /
+    ``.emit``; ``self_join.plan.run_plan`` holds the run plans the l2
+    run-loop launches are given and do not read) its host time and the
+    device time of the kernels it launched, B1's device time by name, device
+    time by kernel name, and the device's busy share of the wall time.
+    Reports null device figures when the profiler records no device
     activity."""
-    from torch.profiler import record_function
-
     import repro_torch
-    from repro_torch.core import selfjoin as sj
     pts = syn(MAIN_POINTS, MAIN_DIMS)
-    # the run plans the l2 run-loop launches are given and do not read, in
-    # a span of their own inside self_join.plan
-    real = sj._launch_run_plan
-
-    def spanned(*args, **kw):
-        with record_function("run_plan.launch"):
-            return real(*args, **kw)
-
-    sj._launch_run_plan = spanned
-    try:
-        prof = profiled_join(
-            lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE),
-            spans=("self_join.", "run_plan."))
-    finally:
-        sj._launch_run_plan = real
-    check("run_plan.launch" in prof["stages"], "the profiled join built no "
-          "run plan")
+    prof = profiled_join(
+        lambda: repro_torch.self_join(pts, MAIN_EPS, device=DEVICE))
+    check("self_join.plan.run_plan" in prof["stages"], "the profiled join "
+          "built no run plan")
     emit("profile", points=MAIN_POINTS, **prof)
+
+
+# the join's stage spans, which every profiled join enters, and the
+# sub-stage spans inside them, which some joins enter
+STAGE_SPANS = {"self_join.grid", "self_join.plan", "self_join.kernel",
+               "self_join.emit"}
+SUB_STAGE_SPANS = {"self_join.plan.tables", "self_join.plan.launch",
+                   "self_join.plan.run_plan", "self_join.emit.sort"}
 
 
 def profiled_join(join, kernel: str = "fused_join_kernel",
@@ -1658,18 +1652,19 @@ def profiled_join(join, kernel: str = "fused_join_kernel",
               for e in averages
               if e.key.startswith(spans)
               and e.device_type == torch.autograd.DeviceType.CPU}
-    check({k for k in stages if k.startswith("self_join.")}
-          == {"self_join.grid", "self_join.plan", "self_join.kernel",
-              "self_join.emit"},
+    entered = {k for k in stages if k.startswith("self_join.")}
+    check(STAGE_SPANS <= entered <= STAGE_SPANS | SUB_STAGE_SPANS,
           f"profiled join entered the stage spans {sorted(stages)}")
     # device-side entries only (kernels, copies, fills): the CPU ops that
     # launched them carry the same device time, the spans' device-side
-    # copies cover other entries, and the profiler's own activity buffers
-    # are not the join's work
+    # copies (the root ``self_join``'s and the ``host_sync`` spans' too)
+    # cover other entries, and the profiler's own activity buffers are not
+    # the join's work
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and device_us(e) > 0
-              and not e.key.startswith(("Activity Buffer", *spans))]
+              and not e.key.startswith(("Activity Buffer", "self_join",
+                                        "host_sync", *spans))]
     busy_ms = sum(device_us(e) for e in events) / 1e3
     ours = [e for e in events if kernel in e.key]
     ours_ms = sum(device_us(e) for e in ours) / 1e3 if ours else None

@@ -19,12 +19,16 @@ Public API, as the JAX package's ``repro.core`` names it:
                                              global ids in kernel B1's masks
     rtree_join / ego_join                 -- CPU baselines (paper SVI-B),
                                              numpy on the host
+    join_events                           -- (the port's own) the self-join
+                                             path's counters
+                                             (calls, host syncs, the emit's
+                                             slots and hits)
 """
 from repro_torch.core.baselines import ego_join, rtree_join
 from repro_torch.core.brute import brute_force_count, brute_force_join
 from repro_torch.core.distributed import (distributed_self_join,
                                           distributed_self_join_count)
-from repro_torch.core.grid import GridIndex, build_grid
+from repro_torch.core.grid import GridIndex, build_grid, join_events
 from repro_torch.core.query_join import epsilon_join, prepare
 from repro_torch.core.selfjoin import (JoinStats, per_point_neighbor_counts,
                                        range_query, self_join,
@@ -36,4 +40,4 @@ __all__ = ["GridIndex", "JoinStats", "build_grid", "self_join",
            "per_point_neighbor_counts", "brute_force_count",
            "brute_force_join", "epsilon_join", "prepare", "range_query",
            "distributed_self_join", "distributed_self_join_count",
-           "rtree_join", "ego_join"]
+           "rtree_join", "ego_join", "join_events"]

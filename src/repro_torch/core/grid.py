@@ -25,12 +25,14 @@ this module guards each one:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import weakref
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.metric import FLOAT_DTYPES, scalar_as
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
@@ -285,7 +287,12 @@ def check_merged_lane(index: "GridIndex") -> None:
 
 def host_dims(index: GridIndex) -> np.ndarray:
     """Host copy of ``index.dims``, cached per index."""
-    return index_cached(index, "dims_np", lambda: index.dims.cpu().numpy())
+
+    def build():
+        with host_sync():
+            return index.dims.cpu().numpy()
+
+    return index_cached(index, "dims_np", build)
 
 
 def build_grid(points, eps: float, *, device=None) -> GridIndex:
@@ -302,7 +309,12 @@ def build_grid(points, eps: float, *, device=None) -> GridIndex:
     """
     if not isinstance(points, torch.Tensor):
         points = torch.from_numpy(np.ascontiguousarray(points))
-    pts = points.to(resolve_device(device))
+    dev = resolve_device(device)
+    if points.device.type == "cpu" and dev.type != "cpu":
+        with host_sync():
+            pts = points.to(dev)
+    else:
+        pts = points.to(dev)
     check_float_points(pts)
     if pts.ndim != 2 or pts.shape[0] == 0:
         raise ValueError(f"points must be a non-empty (N, n) array, got "
@@ -326,7 +338,9 @@ def points_geometry(pts: torch.Tensor, eps) -> tuple[np.ndarray, np.ndarray]:
     """``host_grid_geometry`` of a tensor of points: only the per-dimension
     min and max come to the host, in ``geometry_dtype``."""
     extremes = torch.stack([pts.min(dim=0).values, pts.max(dim=0).values])
-    extremes = extremes.cpu().to(geometry_dtype(pts.dtype))
+    with host_sync():
+        extremes = extremes.cpu()
+    extremes = extremes.to(geometry_dtype(pts.dtype))
     return host_grid_geometry(extremes.numpy(), float(eps))
 
 
@@ -349,8 +363,8 @@ def build_grid_with_geometry(points: torch.Tensor, eps: float,
     dev = points.device
     npts = points.shape[0]
     kd = _TORCH_DTYPES[np.dtype(key_dtype)]
-    gmin_t = torch.as_tensor(gmin).to(dev)
-    dims_t = torch.as_tensor(dims).to(dev)
+    gmin_t = host_to_device(gmin, dev)
+    dims_t = host_to_device(dims, dev)
     eps_t = scalar_as(eps, points.dtype, dev)
     # the cells divide by eps in the geometry's dtype, as the reference's
     # weakly typed Python eps does (float32 for bfloat16 points)
@@ -679,7 +693,8 @@ def _cell_window_table_device(index: GridIndex, deltas,
     not computed, only filled.
     """
     npts = index.num_points
-    ncells = int(index.num_cells)
+    with host_sync():
+        ncells = int(index.num_cells)
     keys = _keys64(index)
     own_key = keys[:ncells]
     if merged:
@@ -816,9 +831,12 @@ def cell_window_caps(index: GridIndex, merged: bool = False) -> np.ndarray:
     else:
         deltas = stencil_offsets(index.n_dims, unicomp=False) @ strides
     caps = _cell_window_caps_device(
-        index, torch.as_tensor(deltas).to(index.device), merged)
-    ncells = int(index.num_cells)
-    return caps[:ncells].cpu().numpy().astype(np.int32)
+        index, host_to_device(deltas, index.device), merged)
+    with host_sync():
+        ncells = int(index.num_cells)
+    with host_sync():
+        caps = caps[:ncells].cpu()
+    return caps.numpy().astype(np.int32)
 
 
 # Plans are pure functions of the immutable index, cached per live index
@@ -875,7 +893,9 @@ def global_window_cap(index: GridIndex, merged: bool = False,
     """Aligned window capacity of an unbucketed launch: ``max_per_cell``
     per cell, the largest merged range window when merged."""
     if not merged:
-        return round_up(max(int(index.max_per_cell), 1), align)
+        with host_sync():
+            top = int(index.max_per_cell)
+        return round_up(max(top, 1), align)
 
     def build():
         caps = cell_window_caps_cached(index, merged=True)
@@ -888,6 +908,47 @@ def global_window_cap(index: GridIndex, merged: bool = False,
 # Sweeps of ``external_range_cap`` (cache misses), which a serving request
 # must never redo: the serving path's no-rebuild watchdog reads this.
 BUILD_EVENTS: collections.Counter = collections.Counter()
+
+# Events of the self-join path, counted where they happen (host integers
+# only): ``calls``, entries into ``self_join`` and ``self_join_batched``;
+# ``host_syncs``, the points where the host waits for the device, each
+# counted by ``host_sync``, which opens the span of that name;
+# ``emit_slots``, the hit-plane slots the emit walks, n_off x c x qp a
+# launch; ``emit_hits``, the hits among them (unordered pairs under
+# UNICOMP).
+JOIN_EVENTS: collections.Counter = collections.Counter()
+JOIN_EVENT_KEYS = ("calls", "host_syncs", "emit_slots", "emit_hits")
+
+
+def join_events() -> dict:
+    """Snapshot of ``JOIN_EVENTS``, every key present."""
+    return {k: JOIN_EVENTS[k] for k in JOIN_EVENT_KEYS}
+
+
+def trace_span(name: str):
+    """The profiler span ``name`` (``torch.profiler.record_function``) while
+    a profiler records, else a null context: outside a profile nothing
+    reads a span, and a record_function's enter and exit cost tens of
+    microseconds each inside a join."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+def host_sync():
+    """The span ``host_sync`` around one point where the host waits for a
+    CUDA device: a read of a device value (``.cpu()``, ``int()`` of a
+    device tensor) or a copy from pageable host memory to the device, which
+    waits for the stream. Each call counts one ``host_syncs``. On the CPU
+    the same points are counted, though nothing waits there."""
+    JOIN_EVENTS["host_syncs"] += 1
+    return trace_span("host_sync")
+
+
+def host_to_device(x, device) -> torch.Tensor:
+    """Host array ``x`` as a tensor on ``device``: a ``host_sync``."""
+    with host_sync():
+        return torch.as_tensor(x).to(device)
 
 
 def _external_span_device(index: GridIndex) -> torch.Tensor:
@@ -977,7 +1038,9 @@ def _build_occupancy_plan(index: GridIndex, align: int,
     caps_aligned = np.minimum(
         round_up(np.maximum(caps, 1), align), cap_global)
     cls_of_cell = np.searchsorted(np.asarray(classes), caps_aligned)
-    cls_of_row = cls_of_cell[index.point_cell_rank.cpu().numpy()]
+    with host_sync():
+        rank = index.point_cell_rank.cpu()
+    cls_of_row = cls_of_cell[rank.numpy()]
     hist, sels, kept = {}, [], []
     for k, cap in enumerate(classes):
         rows = np.flatnonzero(cls_of_row == k).astype(np.int32)

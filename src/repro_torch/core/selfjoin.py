@@ -44,26 +44,27 @@ the join's sweep follows that table's "dense-flat" verdict
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.analysis import sanitize
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.grid import (_NUMPY_DTYPES, CAP_ALIGN, BucketPlan,
-                                   GridIndex, RunPlan, _keys64, _pad_probe,
-                                   _rank_to_point, build_grid,
+from repro_torch.core.grid import (_NUMPY_DTYPES, CAP_ALIGN, JOIN_EVENTS,
+                                   BucketPlan, GridIndex, RunPlan, _keys64,
+                                   _pad_probe, _rank_to_point, build_grid,
                                    capacity_classes, cell_run_plan,
                                    cell_window_tables, check_merged_lane,
                                    filter_plan_rows, global_window_cap,
-                                   host_dims, index_cached, neighbor_rank,
+                                   host_dims, host_sync, host_to_device,
+                                   index_cached, neighbor_rank,
                                    occupancy_plan, pad_key_for,
                                    point_last_coords,
                                    range_window_descriptors,
                                    range_window_descriptors_at, resolve_device,
-                                   round_up, row_major_strides,
+                                   round_up, row_major_strides, trace_span,
                                    window_descriptors, window_descriptors_at)
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
 from repro_torch.kernels import autotune, ops
@@ -99,8 +100,8 @@ def _offset_tables(index: GridIndex, unicomp: bool):
     offs = stencil_offsets(index.n_dims, unicomp)
     deltas = offs @ row_major_strides(host_dims(index))
     is_zero = np.all(offs == 0, axis=1).astype(np.int32)
-    return (torch.as_tensor(deltas).to(index.device),
-            torch.as_tensor(is_zero).to(index.device))
+    return (host_to_device(deltas, index.device),
+            host_to_device(is_zero, index.device))
 
 
 def _merged_offset_tables(index: GridIndex, unicomp: bool):
@@ -111,8 +112,8 @@ def _merged_offset_tables(index: GridIndex, unicomp: bool):
     deltas = reduced @ row_major_strides(host_dims(index))
     dtab = np.stack([deltas, lo, hi])
     is_zero = np.all(reduced == 0, axis=1).astype(np.int32)
-    return (torch.as_tensor(dtab).to(index.device),
-            torch.as_tensor(is_zero).to(index.device))
+    return (host_to_device(dtab, index.device),
+            host_to_device(is_zero, index.device))
 
 
 def _resolve_merge(index: GridIndex, merge_last_dim: Optional[bool]) -> bool:
@@ -260,7 +261,7 @@ def _launch_positions(index: GridIndex, launch) -> torch.Tensor:
                                       device=index.device)
     sel_pad = np.zeros(qp, np.int32)
     sel_pad[:sel.shape[0]] = sel
-    return torch.as_tensor(sel_pad).to(index.device)
+    return host_to_device(sel_pad, index.device)
 
 
 def _launch_prep(index: GridIndex, points_pad, deltas, launch, *,
@@ -299,14 +300,17 @@ def _fused_launch(index: GridIndex, points_pad, deltas, is_zero, launch, *,
     masks compare the global ids of ``points_pad``'s id lane (B1 (d))."""
     _, _, _, _, c, tile = launch
     plan = None
-    with record_function("self_join.plan"):
-        tables = (cell_window_tables(index, deltas, merged=merged,
-                                     tag=unicomp) if run_loop else None)
-        ws, wc, wcells, q_batch, q_pos = _launch_prep(
-            index, points_pad, deltas, launch, merged=merged, tables=tables)
+    with trace_span("self_join.plan"):
+        with trace_span("self_join.plan.launch"):
+            tables = (cell_window_tables(index, deltas, merged=merged,
+                                         tag=unicomp) if run_loop else None)
+            ws, wc, wcells, q_batch, q_pos = _launch_prep(
+                index, points_pad, deltas, launch, merged=merged,
+                tables=tables)
         if run_loop:
-            plan = _launch_run_plan(index, q_pos, tile=tile)
-    with record_function("self_join.kernel"):
+            with trace_span("self_join.plan.run_plan"):
+                plan = _launch_run_plan(index, q_pos, tile=tile)
+    with trace_span("self_join.kernel"):
         hits, counts, base = ops.fused_join_hits(
             points_pad, q_batch, ws, wc, is_zero, q_pos,
             index.eps if refine_eps is None else refine_eps, c=c,
@@ -377,7 +381,9 @@ def _join_run_loop(index: GridIndex) -> bool:
     """The run loop pays when cells hold two or more points on average;
     below that runs are single rows and the run bookkeeping is overhead.
     The pair set is the row loop's either way."""
-    return index.num_points >= 2 * max(int(index.num_cells), 1)
+    with host_sync():
+        ncells = int(index.num_cells)
+    return index.num_points >= 2 * max(ncells, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -490,12 +496,19 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     gid_pairs=False``.
 
     The stages run inside ``torch.profiler.record_function`` spans
-    (``self_join.plan``, ``.kernel``, ``.emit``) that a profiler groups its
-    time by.
+    (``self_join.plan``, ``.kernel``, ``.emit``; ``grid.trace_span`` opens
+    them while a profiler records) that a profiler groups its time by;
+    inside them ``self_join.plan.tables`` (the sweep's tables,
+    launches and padded points), each launch's ``self_join.plan.launch``
+    (its descriptors) and ``self_join.plan.run_plan``, and
+    ``self_join.emit.sort``; ``host_sync`` spans mark where the host waits
+    for the device. The emit counts its slots and hits in
+    ``grid.JOIN_EVENTS``.
     """
     if run_loop is None:
         run_loop = _join_run_loop(index)
-    with record_function("self_join.plan"):
+    with trace_span("self_join.plan"), \
+            trace_span("self_join.plan.tables"):
         if merged:
             deltas, is_zero = _merged_offset_tables(index, unicomp)
         else:
@@ -511,8 +524,12 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     def finish(run):
         """Drain one launch; the next launch is already queued."""
         ws, hits, counts, base, q_pos, cap, tile = run
-        with record_function("self_join.emit"):
-            ordered = mult * int(counts.sum(dtype=torch.int64))
+        with trace_span("self_join.emit"):
+            with host_sync():
+                found = int(counts.sum(dtype=torch.int64))
+            JOIN_EVENTS["emit_hits"] += found
+            JOIN_EVENTS["emit_slots"] += hits.numel()
+            ordered = mult * found
             keys, vals = _emit_from_hits(
                 index, ids_dev, hits, counts, base, ws, q_pos, c=cap,
                 tq=tile, unicomp=unicomp, capacity=max(ordered, 1))
@@ -535,10 +552,11 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         prev = (ws, hits, counts, base, q_pos, launch[4], launch[5])
     finish(prev)
     sanitize.raise_pending()   # REPRO_TORCH_SANITIZE: launches drained
-    with record_function("self_join.emit"):
+    with trace_span("self_join.emit"):
         out = host.result() if host is not None else torch.cat(chunks, dim=0)
         if sort_result:
-            out = sort_pairs(out, index.num_points)
+            with trace_span("self_join.emit.sort"):
+                out = sort_pairs(out, index.num_points)
     return out
 
 
@@ -727,11 +745,11 @@ def _sweep_hits(index: GridIndex, delta, zero, q_start: int, *, q_size: int,
                 max_per_cell: int, unicomp: bool, hits_fn):
     """One offset of the unfused sweep: masked hits (UNICOMP triangle on
     the zero offset, else the self pair), with the gather's outputs."""
-    with record_function("self_join.plan"):
+    with trace_span("self_join.plan"):
         nbr_cells = _neighbor_ranks_for_delta(index, delta)
         q, cand, cand_pos, valid, q_pos, visited = _gather_batch(
             index, nbr_cells, q_start, q_size, max_per_cell)
-    with record_function("self_join.kernel"):
+    with trace_span("self_join.kernel"):
         hits = hits_fn(q, cand, valid, index.eps)
         if unicomp:
             hits = hits & ((cand_pos > q_pos[:, None]) | (zero == 0))
@@ -782,7 +800,7 @@ def _fill_batch(index: GridIndex, deltas, is_zero, q_start: int, *,
         hits, cand_pos, _, q_pos, _ = _sweep_hits(
             index, deltas[o], is_zero[o], q_start, q_size=q_size,
             max_per_cell=max_per_cell, unicomp=unicomp, hits_fn=hits_fn)
-        with record_function("self_join.emit"):
+        with trace_span("self_join.emit"):
             flat = hits.reshape(-1)
             rel = torch.cumsum(flat, 0, dtype=torch.int64) - 1
             qid = index.order[q_pos.long()][:, None].expand(hits.shape)
@@ -810,7 +828,7 @@ def _self_join_unfused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     npts = index.num_points
     n_batches = max(min(int(n_batches), max(npts, 1)), 1)
     q_size = -(-max(npts, 1) // n_batches)
-    with record_function("self_join.plan"):
+    with trace_span("self_join.plan"):
         deltas, is_zero = _offset_tables(index, unicomp)
     kw = dict(q_size=q_size, max_per_cell=_unfused_cap(index),
               unicomp=unicomp, hits_fn=hits_fn)
@@ -823,7 +841,7 @@ def _self_join_unfused(index: GridIndex, *, unicomp: bool, sort_result: bool,
         keys, vals, got = _fill_batch(index, deltas, is_zero, b * q_size,
                                       capacity=max(want, 1), **kw)
         filled.append(got)
-        with record_function("self_join.emit"):
+        with trace_span("self_join.emit"):
             chunk = torch.stack([keys[:want], vals[:want]], dim=1)
             if host is None:
                 chunks.append(chunk)
@@ -833,10 +851,11 @@ def _self_join_unfused(index: GridIndex, *, unicomp: bool, sort_result: bool,
     if filled != counts:
         raise RuntimeError(f"the unfused fill wrote {filled} pairs a batch, "
                            f"the count found {counts}")
-    with record_function("self_join.emit"):
+    with trace_span("self_join.emit"):
         out = host.result() if host is not None else torch.cat(chunks, dim=0)
         if sort_result:     # the paper sorts the key/value result
-            out = sort_pairs(out, max(npts, 1))
+            with trace_span("self_join.emit.sort"):
+                out = sort_pairs(out, max(npts, 1))
     return out
 
 
@@ -1208,19 +1227,23 @@ def _route_features(index: GridIndex, deltas) -> dict:
     live share of the (offset, query) probes of up to 1,024 query rows
     sampled at an even stride over sorted key order, under the per-cell
     stencil ``deltas``; ``c``, max_per_cell."""
-    ncells = max(int(index.num_cells), 1)
+    with host_sync():
+        live_cells = int(index.num_cells)
+    ncells = max(live_cells, 1)
     # a float product: a fine 6-D grid overflows int64, and only a ratio is
     # needed
     volume = max(float(np.prod(host_dims(index).astype(np.float64))), 1.0)
-    c = max(int(index.max_per_cell), 1)
+    with host_sync():
+        c = max(int(index.max_per_cell), 1)
     npts = index.num_points
     live_frac = 0.0
-    if npts and int(index.num_cells):
+    if npts and live_cells:
         keys = _keys64(index)[:ncells]
         sample = index.point_cell_rank[::-(-npts // 1024)][:1024].long()
         probe = keys[sample][None, :] + deltas.long()[:, None]
         pos = torch.clamp(torch.searchsorted(keys, probe), max=ncells - 1)
-        live_frac = float((keys[pos] == probe).double().mean())
+        with host_sync():
+            live_frac = float((keys[pos] == probe).double().mean())
     return {"occupancy": ncells / volume, "live_frac": live_frac, "c": c}
 
 
@@ -1356,7 +1379,7 @@ def _metric_self_join(canon: metric_lib.Canonical, *, unicomp: bool,
     loop) on the unit rows. Jaccard takes the per-cell sweep of the 1-D
     size grid, with the words in feature lanes and the kernel refining
     against t itself."""
-    with record_function("self_join.grid"):
+    with trace_span("self_join.grid"):
         index = _metric_grid(canon, device)
     if canon.metric == "jaccard":
         return _self_join_fused(
@@ -1372,6 +1395,19 @@ def _metric_self_join(canon: metric_lib.Canonical, *, unicomp: bool,
                             metric=canon.metric)
 
 
+def _entry(join):
+    """``join`` as a public entry point: each call counts one
+    ``JOIN_EVENTS["calls"]`` and runs inside the root span ``self_join``,
+    the parent of its stage spans."""
+    @functools.wraps(join)
+    def entry(*args, **kwargs):
+        JOIN_EVENTS["calls"] += 1
+        with trace_span("self_join"):
+            return join(*args, **kwargs)
+    return entry
+
+
+@_entry
 def self_join(points, eps, *, unicomp: bool = True,
               index: Optional[GridIndex] = None,
               distance_impl: str = "fused", sort_result: bool = True,
@@ -1417,7 +1453,7 @@ def self_join(points, eps, *, unicomp: bool = True,
                                      bucketed=bucketed, device=dev)
         points, eps = canon.geom, canon.eps
     _check_impl(distance_impl)
-    with record_function("self_join.grid"):
+    with trace_span("self_join.grid"):
         index = _resolve_index(points, eps, index, dev)
     if distance_impl != "fused":
         return _self_join_unfused(index, unicomp=unicomp,
@@ -1515,6 +1551,7 @@ def self_join_count(points, eps, *, unicomp: bool = True,
         distance_impl="jnp", route="jnp")
 
 
+@_entry
 def self_join_batched(points, eps, *, unicomp: bool = True,
                       n_batches: int = 3, index: Optional[GridIndex] = None,
                       distance_impl: str = "fused", sort_result: bool = True,
@@ -1535,7 +1572,7 @@ def self_join_batched(points, eps, *, unicomp: bool = True,
     """
     _check_impl(distance_impl)
     dev = resolve_device(device)
-    with record_function("self_join.grid"):
+    with trace_span("self_join.grid"):
         index = _resolve_index(points, eps, index, dev)
     if distance_impl != "fused":
         return _self_join_unfused(index, unicomp=unicomp,

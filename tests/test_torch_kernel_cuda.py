@@ -102,6 +102,34 @@ def test_profiler_ties_b1_to_its_span(cuda_device):
     assert b1 > 0 and span and span[0] >= b1
 
 
+@pytest.mark.parametrize("d,n,eps,on_card", [
+    (2, 50000, 0.4, True), (6, 20000, 30.0, True), (2, 50000, 0.4, False)],
+    ids=["2d", "6d", "2d-host-points"])
+def test_host_syncs_are_the_sync_debug_warnings(cuda_device, d, n, eps,
+                                                on_card):
+    """Every point where ``self_join`` waits for the card is a ``host_sync``:
+    one call moves ``JOIN_EVENTS["host_syncs"]`` by the number of waits
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports (host points add
+    their copy to the card)."""
+    import warnings
+    pts = torch.as_tensor(np.random.default_rng(d).uniform(0, 100, (n, d)))
+    if on_card:
+        pts = pts.to(cuda_device)
+    tsj.self_join(pts, eps, device=cuda_device)    # builds B1, untimed
+    torch.cuda.synchronize()
+    before = tgrid.join_events()["host_syncs"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tsj.self_join(pts, eps, device=cuda_device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert tgrid.join_events()["host_syncs"] - before == len(waits) > 0
+
+
 def _run_loop_launches(index, merged, unicomp):
     """Every launch of a run-loop sweep with its table-prep inputs and plan."""
     tables = tsj._merged_offset_tables if merged else tsj._offset_tables
