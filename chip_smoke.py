@@ -205,7 +205,10 @@ each printing one JSON line:
   kernels         one line: every kernel with launches, agreement and times
 
 ``python3 chip_smoke.py --kernel-times [SRC]`` times B3, B1 (e), B2,
-B1 (b), B4 and B1's self-join launches alone (``kernel_times``),
+B1 (b), B4, B1's self-join launches and the emit kernel alone
+(``kernel_times``), ``--emit-times [SRC]`` the emit only
+(``emit_cell_times``: the kernel and its plain version at both benchmark
+cells' launch shapes and on the Jaccard join, with the byte bound),
 ``--b1-times [SRC]`` the self-join launches only (``b1_times``: B1 (c)
 and (a) on the main path, B1 at f16, B1 (d) on a slab, a skewed
 workload's widest class, every bench workload's launches), and
@@ -801,7 +804,8 @@ def ptxas_by_kernel(log: str, kernel: str) -> dict:
     ``kernel`` in nvcc's ``-Xptxas -v`` output, keyed by its template
     arguments (B2's: row type, n, store width, as "f64_n2_w16"; B1's l2
     kernel: row type, merged, global ids, n_real (0: at run time), narrow
-    steps, as "f64_merged1_gid0_nr2_narrow0")."""
+    steps, as "f64_merged1_gid0_nr2_narrow0"; the emit's: vector bytes and
+    UNICOMP, as "v16_unicomp1")."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)", ln)
@@ -811,9 +815,11 @@ def ptxas_by_kernel(log: str, kernel: str) -> dict:
         if not name or kernel not in name:
             continue
         rest = name.split(kernel, 1)[1]
+        emit_ = re.match(r"ILi(\d+)ELb(\d)EE", rest)
         t = re.match(r"I(\w+?)Li(\d+)ELi(\d+)E", rest)
         b1 = re.match(r"I(\w+?)Lb(\d)ELb(\d)ELi(\d)ELb(\d)E", rest)
-        key = (f"{_MANGLED_TYPES.get(b1[1], b1[1])}_merged{b1[2]}_"
+        key = (f"v{emit_[1]}_unicomp{emit_[2]}" if emit_
+               else f"{_MANGLED_TYPES.get(b1[1], b1[1])}_merged{b1[2]}_"
                f"gid{b1[3]}_nr{b1[4]}_narrow{b1[5]}" if b1
                else f"{_MANGLED_TYPES.get(t[1], t[1])}_n{t[2]}_w{t[3]}" if t
                else rest)
@@ -1082,6 +1088,7 @@ def phase_main_path():
     import repro_torch
     from repro_torch.core import selfjoin as sj
     from repro_torch.kernels import distance_tile as dt
+    from repro_torch.kernels import emit_pairs as ep
     from repro_torch.kernels import fused_join as fj
     pts = syn(MAIN_POINTS, MAIN_DIMS)
     eps = MAIN_EPS
@@ -1099,7 +1106,7 @@ def phase_main_path():
     for rep in range(3):
         torch.cuda.reset_peak_memory_stats()
         fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = 0
-        dt.COUNTS_LAUNCHES = 0
+        dt.COUNTS_LAUNCHES = ep.KERNEL_LAUNCHES = 0
         with recorded_tiles() as tiles:
             t0 = time.perf_counter()
             pairs = repro_torch.self_join(pts, eps, device=DEVICE)
@@ -1114,10 +1121,12 @@ def phase_main_path():
             sync()
             oracle_s = time.perf_counter() - t0
         launches.append((fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES,
-                         dt.COUNTS_LAUNCHES))
-    check(all(k == r == expected for k, r, _ in launches) and expected > 0,
-          f"main path launched B1 (total, run loop) {launches} times, "
-          f"scheduled {expected} run-loop launches per run")
+                         dt.COUNTS_LAUNCHES, ep.KERNEL_LAUNCHES))
+    check(all(k == r == e == expected for k, r, _, e in launches)
+          and expected > 0,
+          f"main path launched B1 (total, run loop) and the emit "
+          f"{launches} times, scheduled {expected} run-loop launches per "
+          f"run")
     check(launches[-1][2] == 1, "the oracle did not launch B3 once")
     tiles = sorted(tiles)
     check(tiles == [fj.TQ_DEFAULT], f"the main path launched B1 at tiles "
@@ -1158,9 +1167,16 @@ def phase_main_path():
     bound_ms, bound_by, nbytes, flops = kernel_bound(prepared)
     runs = [p["plan"].n_runs for p in prepared]
     rows = [p["args"][1].shape[0] for p in prepared]
-    del pts_gpu, b3_counts
+    total_pairs = int(pairs.shape[0])
+    del pts_gpu, b3_counts, pairs
+    # the emit on the main path's own launches: the kernel, its plain
+    # version and its bound
+    emitted = emit_times(recorded_emits(
+        lambda: repro_torch.self_join(pts, eps, device=DEVICE)))
+    check(emitted["launches"] == expected, f"the main path emitted "
+          f"{emitted['launches']} launches, scheduled {expected}")
     emit("main_path", points=MAIN_POINTS, dims=MAIN_DIMS, eps=eps,
-         dtype="float64", total_pairs=int(pairs.shape[0]),
+         dtype="float64", total_pairs=total_pairs,
          run_loop=True, launches=launches[-1][0], tq=tiles,
          launch_caps=[p["kw"]["c"] for p in prepared], launch_rows=rows,
          launch_runs=runs, offsets=stats.offsets,
@@ -1175,7 +1191,10 @@ def phase_main_path():
          oracle_s=oracle_s, b3_ms=b3_ms, b3_runs_ms=b3_runs,
          b3_bound_ms=b3_bound[0], b3_bound_by=b3_bound[1],
          b3_issue_floor_ms=b3_issue, b3_rows_vs_plain=SAMPLED_QUERIES,
-         b3_rows_max_abs_err=b3_err)
+         b3_rows_max_abs_err=b3_err, emit_launches=launches[-1][3],
+         emit_ms=emitted["device_ms"], emit_events_ms=emitted["ms"],
+         emit_plain_ms=emitted["plain_ms"], emit_bound_ms=emitted["bound_ms"],
+         emit_equals_plain=True)
     return dict(b1=dict(launches=launches[-1][0], tq=tiles[0],
                         run_loop_launches=launches[-1][1],
                         ms=timed["run"], row_loop_ms=timed["row"],
@@ -1183,8 +1202,9 @@ def phase_main_path():
                         bound_by=bound_by),
                 b3_launches=launches[-1][2], b3_ms=b3_ms, b3_err=b3_err,
                 b3_bound=b3_bound, b3_issue=b3_issue,
+                emit=dict(emitted, launches=launches[-1][3]),
                 e2e=statistics.median(e2e), peak=peak,
-                total_pairs=int(pairs.shape[0]))
+                total_pairs=total_pairs)
 
 
 def unfused_launches(index, unicomp: bool = True):
@@ -2220,19 +2240,22 @@ def planted_found(pairs, first, second, npts: int) -> bool:
 
 
 def counted_join(join, expected: int, run_loop: bool, jaccard: bool):
-    """One run of ``join()`` with B1's counts set to 0 just before and read
-    just after: every scheduled launch went through the kernel (the run
-    loop and the Jaccard variant where they apply)."""
+    """One run of ``join()`` with B1's and the emit's counts set to 0 just
+    before and read just after: every scheduled launch went through the
+    kernel (the run loop and the Jaccard variant where they apply) and
+    through the emit kernel."""
+    from repro_torch.kernels import emit_pairs as ep
     from repro_torch.kernels import fused_join as fj
     fj.KERNEL_LAUNCHES = fj.RUN_LOOP_LAUNCHES = fj.JACCARD_LAUNCHES = 0
+    ep.KERNEL_LAUNCHES = 0
     join()
     sync()
     launches = (fj.KERNEL_LAUNCHES, fj.RUN_LOOP_LAUNCHES,
-                fj.JACCARD_LAUNCHES)
+                fj.JACCARD_LAUNCHES, ep.KERNEL_LAUNCHES)
     check(expected > 0 and launches == (expected, expected * run_loop,
-                                         expected * jaccard),
-          f"the join launched B1 (total, run loop, jaccard) {launches} "
-          f"times, scheduled {expected}")
+                                         expected * jaccard, expected),
+          f"the join launched B1 (total, run loop, jaccard) and the emit "
+          f"{launches} times, scheduled {expected}")
     return launches[0]
 
 
@@ -3451,6 +3474,124 @@ def b4_times(pts, eps) -> dict:
                 hits=hits, checksum=pos)
 
 
+# The benchmark cells' joins whose emit ``emit_times`` times: 2,000,000
+# uniform points in [0, 100)^d at eps (portbench/configs/*.json).
+EMIT_CELLS = {"syn2d2m": (2, 0.8), "syn6d2m": (6, 10.0)}
+
+
+def recorded_emits(join) -> list:
+    """The emit calls of one ``join()``, in launch order: the arguments
+    ``selfjoin._emit_chunk`` got, recorded by a spy (which keeps each
+    launch's B1 outputs alive), so that what ``emit_times`` times is the
+    join's own input."""
+    from repro_torch.core import selfjoin as sj
+    calls, real = [], sj._emit_chunk
+
+    def spy(index, ids, hits, counts, slot_base, win_start, q_pos, *, c,
+            tq, unicomp, found):
+        calls.append(dict(args=(hits, counts, slot_base, win_start, q_pos,
+                                ids),
+                          index=index, tq=tq, unicomp=unicomp, found=found))
+        return real(index, ids, hits, counts, slot_base, win_start, q_pos,
+                    c=c, tq=tq, unicomp=unicomp, found=found)
+
+    sj._emit_chunk = spy
+    try:
+        join()
+    finally:
+        sj._emit_chunk = real
+    sync()
+    return calls
+
+
+def emit_times(calls, reps: int = 5) -> dict:
+    """The emit of a join's fused launches (``recorded_emits``; B1's hit
+    planes made once, outside the timing): the kernel (``emit_pairs``) by
+    CUDA events over ``reps`` back-to-back passes (median of three) and by
+    kernel name under the profiler; the plain version
+    (``selfjoin._emit_from_hits`` and the stack, as a CPU tensor takes it)
+    by events, median of two; the two held equal row for row; and the byte
+    bound: the plane rows these inputs need (those of the rows with a hit;
+    a row without one is never read) read once and the pairs written once
+    (8 bytes a pair) at HBM_BYTES_PER_S."""
+    from repro_torch.core import selfjoin as sj
+    from repro_torch.kernels import emit_pairs as ep
+
+    def plain_pass():
+        out = []
+        for p in calls:
+            hits, counts, base, ws, qpos, ids = p["args"]
+            ordered = (2 if p["unicomp"] else 1) * p["found"]
+            keys, vals = sj._emit_from_hits(
+                p["index"], ids, hits, counts, base, ws, qpos,
+                c=hits.shape[2], tq=p["tq"], unicomp=p["unicomp"],
+                capacity=max(ordered, 1))
+            out.append(torch.stack([keys[:ordered], vals[:ordered]], dim=1))
+        return out
+
+    def kernel_pass():
+        return [ep.emit_pairs(*p["args"], tq=p["tq"],
+                              npts=p["index"].num_points, n_hits=p["found"],
+                              unicomp=p["unicomp"])
+                for p in calls]
+
+    planes = [p["args"][0] for p in calls]
+    live_rows = [int((p["args"][1] > 0).sum()) for p in calls]
+    live_plane = sum(n * h.shape[0] * h.shape[2]
+                     for n, h in zip(live_rows, planes))
+    found = sum(p["found"] for p in calls)
+    pair_bytes = sum((2 if p["unicomp"] else 1) * p["found"] * 8
+                     for p in calls)
+    out = dict(launches=len(calls), c=[int(h.shape[2]) for h in planes],
+               n_off=[int(h.shape[0]) for h in planes],
+               rows=[int(h.shape[1]) for h in planes], live_rows=live_rows,
+               slots=sum(h.numel() for h in planes), hits=found,
+               live_plane_bytes=live_plane, pair_bytes=pair_bytes,
+               bound_ms=(live_plane + pair_bytes) / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    check(all(torch.equal(a, b) for a, b in zip(kernel_pass(),
+                                                 plain_pass())),
+          "emit_times: the emit kernel differs from the plain version")
+    plain = [event_ms(plain_pass) for _ in range(2)]
+    runs = [event_ms(kernel_pass, reps) for _ in range(3)]
+    device = [profiled_device_ms(kernel_pass, reps=reps,
+                                 kernel="emit_pairs_kernel")
+              for _ in range(3)]
+    out.update(plain_ms=statistics.median(plain), plain_runs_ms=plain,
+               ms=statistics.median(runs), runs_ms=runs,
+               device_ms=statistics.median(device), device_runs_ms=device,
+               matched_plain=True)
+    out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def emit_cell_times() -> dict:
+    """``emit_times`` on the joins of both benchmark cells (``EMIT_CELLS``)
+    and of the 100,000-set Jaccard join, from the ``repro_torch`` first on
+    ``sys.path`` (``--emit-times [SRC]``, and within ``--kernel-times``),
+    with the kernel's ptxas registers and spills (empty when its library
+    was built before the call)."""
+    import repro_torch
+    from repro_torch.core import metric
+    from repro_torch.kernels import build
+    out = dict(ptxas=ptxas_by_kernel(
+        build.build_all(["emit_pairs"])["emit_pairs"][1],
+        "emit_pairs_kernel"))
+    for name, (d, eps) in EMIT_CELLS.items():
+        pts = syn(2_000_000, d)
+        calls = recorded_emits(
+            lambda: repro_torch.self_join(pts, eps, device=DEVICE))
+        out[name] = emit_times(calls)
+        del calls
+        torch.cuda.empty_cache()
+    mat, _, _ = jaccard_data(JACCARD_POINTS, JACCARD_VOCAB)
+    canon = metric.canonicalize(mat, JACCARD_T, metric="jaccard",
+                                vocab=JACCARD_VOCAB)
+    out["jaccard_100k_sets"] = emit_times(recorded_emits(
+        lambda: repro_torch.self_join(canon, None, device=DEVICE)), reps=2)
+    return out
+
+
 def kernel_times() -> dict:
     """B3, B1 (e), B2, B1 (b), B4 and B1's self-join launches alone, from
     the ``repro_torch`` first on ``sys.path``: B3 by CUDA events on the
@@ -3547,6 +3688,7 @@ def kernel_times() -> dict:
         as_half(raw, torch.bfloat16).to(DEVICE), eps)
     out["b1"] = b1_times()
     out["b1_ptxas"] = ptxas_by_kernel(built["fused_join"][1], B1_KERNEL)
+    out["emit"] = emit_cell_times()
     out["syncs"] = sync_check()
     return out
 
@@ -5831,7 +5973,8 @@ def main() -> int:
         return 2
     timers = {"--kernel-times": ("kernel_times", kernel_times),
               "--e2e-times": ("e2e_times", e2e_times),
-              "--b1-times": ("b1_times", b1_times)}
+              "--b1-times": ("b1_times", b1_times),
+              "--emit-times": ("emit_times", emit_cell_times)}
     if sys.argv[1:2] and sys.argv[1] in timers:
         # another checkout's src (the parent commit's, say) goes first
         for src in sys.argv[2:3]:
@@ -5974,6 +6117,22 @@ def smoke(table_dir: Path) -> int:
         "library_ms": None, "matched_plain": True,
         "timed_on": "one launch of the main path's unfused join, "
                     "2,000,000 x 32 x 2 f64",
+    }, {
+        "name": "emit_pairs", "route": "cuda",
+        "source": f"{csrc}/emit_pairs.cu",
+        "replaces": "src/repro/core/selfjoin.py:581 (jnp, no Pallas kernel)",
+        "launches": main["emit"]["launches"],
+        "launches_by_variant": {"main_path": main["emit"]["launches"],
+                                "cosine": metrics["cosine_launches"],
+                                "jaccard": metrics["launches"]},
+        "max_abs_err": 0, "ms": main["emit"]["device_ms"],
+        "events_ms": main["emit"]["ms"],
+        "plain_ms": main["emit"]["plain_ms"],
+        "bound_ms": main["emit"]["bound_ms"],
+        "bound_by": main["emit"]["bound_by"], "library_ms": None,
+        "matched_plain": True,
+        "timed_on": "the main path's self-join launches (recorded from its "
+                    "own run), 2,000,000 x 2 f64, device time by name",
     }] + half_kernels(half)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -10,7 +10,8 @@ the JAX package's formulation, an offset sweep. ``distance_impl="fused"``
      and per-launch window descriptors (one batched searchsorted);
   3. one fused gather-refine launch per bucket (``kernels.fused_join``): the
      hit plane, per-row counts and per-tile slot bases;
-  4. emit the pairs from the hit plane, with no second distance pass.
+  4. emit the pairs from the hit plane, with no second distance pass
+     (``kernels.emit_pairs`` on the card, one launch a fused launch).
 
 On data with two or more points a cell the launches take the cell-run loop
 (``_join_run_loop``): descriptors are gathered from per-cell tables and the
@@ -67,7 +68,7 @@ from repro_torch.core.grid import (_NUMPY_DTYPES, CAP_ALIGN, JOIN_EVENTS,
                                    round_up, row_major_strides, trace_span,
                                    window_descriptors, window_descriptors_at)
 from repro_torch.core.stencil import merged_stencil_offsets, stencil_offsets
-from repro_torch.kernels import autotune, ops
+from repro_torch.kernels import autotune, emit_pairs, ops
 from repro_torch.kernels.fused_join import (TQ_DEFAULT, emit_steps,
                                             fused_window_hits, pack_words,
                                             pad_points,
@@ -393,11 +394,12 @@ def _join_run_loop(index: GridIndex) -> bool:
 def _emit_from_hits(index: GridIndex, ids, hits, counts, slot_base,
                     win_start, q_pos, *, c: int, tq: int, unicomp: bool,
                     capacity: int):
-    """Device fill: scatter pairs to the slots the kernel's per-tile scan
-    (``slot_base``) assigned, offset by the scan of the tile totals, in the
-    steps of ``fused_join.emit_steps``. Rows are query-major (per query:
-    offsets in sweep order, slots in window order). Returns (keys, vals)
-    with ``capacity`` slots each."""
+    """The emit's plain version: scatter pairs to the slots the kernel's
+    per-tile scan (``slot_base``) assigned, offset by the scan of the tile
+    totals, in the steps of ``fused_join.emit_steps``. Rows are query-major
+    (per query: offsets in sweep order, slots in window order). Returns
+    (keys, vals) with ``capacity`` slots each. ``_emit_chunk`` runs it for
+    CPU tensors; on the card ``kernels.emit_pairs`` is held to it."""
     npts = index.num_points
     dev = hits.device
     q_pos_c = torch.clamp(q_pos, max=npts - 1).long()
@@ -420,6 +422,24 @@ def _emit_from_hits(index: GridIndex, ids, hits, counts, slot_base,
         else:
             put(torch.where(h, pos, capacity), qid, cid)
     return keys[:capacity], vals[:capacity]
+
+
+def _emit_chunk(index: GridIndex, ids, hits, counts, slot_base, win_start,
+                q_pos, *, c: int, tq: int, unicomp: bool,
+                found: int) -> torch.Tensor:
+    """One launch's ((2 if unicomp else 1) * found, 2) int32 pairs, in
+    ``_emit_from_hits``' order: the kernel ``emit_pairs`` on CUDA tensors,
+    the plain version stacked on CPU tensors."""
+    if hits.is_cuda:
+        return emit_pairs.emit_pairs(hits, counts, slot_base, win_start,
+                                     q_pos, ids, tq=tq,
+                                     npts=index.num_points, n_hits=found,
+                                     unicomp=unicomp)
+    ordered = (2 if unicomp else 1) * found
+    keys, vals = _emit_from_hits(index, ids, hits, counts, slot_base,
+                                 win_start, q_pos, c=c, tq=tq,
+                                 unicomp=unicomp, capacity=max(ordered, 1))
+    return torch.stack([keys[:ordered], vals[:ordered]], dim=1)
 
 
 def sort_pairs(pairs: torch.Tensor, n_ids: int) -> torch.Tensor:
@@ -474,12 +494,12 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
 
     Each launch's kernel returns its hit plane and counts; the result size
     follows from the counts and the fill only compacts the same plane, on
-    the index's device. Every bucketing, batching, sweep and loop choice
-    gives the same pair set. ``run_loop=None`` takes the cell-run loop when
-    ``_join_run_loop`` says so. ``n_batches`` cuts every launch to that
-    share of the rows; ``to_host`` copies each launch's pairs to the host
-    while the next launch runs and returns a CPU tensor, so the device
-    holds one batch's result at a time.
+    the index's device (``_emit_chunk``). Every bucketing, batching, sweep
+    and loop choice gives the same pair set. ``run_loop=None`` takes the
+    cell-run loop when ``_join_run_loop`` says so. ``n_batches`` cuts every
+    launch to that share of the rows; ``to_host`` copies each launch's
+    pairs to the host while the next launch runs and returns a CPU tensor,
+    so the device holds one batch's result at a time.
 
     ``metric`` / ``n_feat`` / ``feats`` / ``refine_eps``: the refine
     predicate, its feature payload in sorted point order, and the kernel
@@ -518,7 +538,6 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
             index, n_batches=n_batches, bucketed=bucketed, merged=merged,
             row_ok=row_ok, gid=ids_dev if gid_pairs else None, feats=feats)
         words = _sweep_words(points_pad, index, metric, n_feat)
-    mult = 2 if unicomp else 1
     host = _HostCopies(index.device) if to_host else None
 
     def finish(run):
@@ -529,11 +548,9 @@ def _self_join_fused(index: GridIndex, *, unicomp: bool, sort_result: bool,
                 found = int(counts.sum(dtype=torch.int64))
             JOIN_EVENTS["emit_hits"] += found
             JOIN_EVENTS["emit_slots"] += hits.numel()
-            ordered = mult * found
-            keys, vals = _emit_from_hits(
-                index, ids_dev, hits, counts, base, ws, q_pos, c=cap,
-                tq=tile, unicomp=unicomp, capacity=max(ordered, 1))
-            chunk = torch.stack([keys[:ordered], vals[:ordered]], dim=1)
+            chunk = _emit_chunk(index, ids_dev, hits, counts, base, ws,
+                                q_pos, c=cap, tq=tile, unicomp=unicomp,
+                                found=found)
             if host is None:
                 chunks.append(chunk)
             else:

@@ -3,6 +3,7 @@
 distance_tile.py -- brute-force hits and count tiles (kernels B2, B3)
 cell_join.py     -- the unfused sweep's candidate refine (kernel B4)
 fused_join.py    -- fused gather-refine sweep (kernel B1)
+emit_pairs.py    -- the self-join's emit: a hit plane into its pairs
 ops.py           -- the dispatch layer the drivers call
 build.py         -- nvcc build and ctypes loading of ``csrc/*.cu``
 """

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-cudart", "shared", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_join", "distance_tile", "cell_join")
+SOURCES = ("fused_join", "distance_tile", "cell_join", "emit_pairs")
 
 _LIBS: dict = {}
 # nvcc builds started and libraries loaded since import: work a serving

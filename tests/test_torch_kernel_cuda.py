@@ -2,8 +2,9 @@
 
 The fused join (B1: the row loop, the cell-run loop, and the external-query
 mask in both; the Jaccard popcount refine, B1 (e), in all of them; the
-global-id masks of the slab join, B1 (d), in both loops), the
-brute-force tiles (B2 hits, B3 counts) and the unfused sweep's refine (B4),
+global-id masks of the slab join, B1 (d), in both loops), the self-join's
+emit (``emit_pairs``), the brute-force tiles (B2 hits, B3 counts) and the
+unfused sweep's refine (B4),
 at float64, float32, float16 and bfloat16 (B2-bf16 and the half instances),
 must equal their plain versions bit for bit, and the entry points on the
 card (the joins, fused and unfused, the counts, the external-query join and
@@ -17,6 +18,8 @@ installed:
 
 (``--noconftest`` because ``tests/conftest.py`` clears JAX's caches.)
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +32,9 @@ from repro_torch.core import query_join as tqj
 from repro_torch.core import selfjoin as tsj
 from repro_torch.kernels import cell_join as tcj
 from repro_torch.kernels import distance_tile as tdt
+from repro_torch.kernels import emit_pairs as tep
 from repro_torch.kernels import fused_join as tfj
+from torch_workloads import EMIT_SHAPES, emit_inputs
 
 
 # every row dtype the kernels take; the half ones follow the JAX package's
@@ -353,8 +358,9 @@ def test_kernel_wrappers_do_not_synchronise(cuda_device, dtype, eps_on):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_redesigned_wrappers_do_not_synchronise(cuda_device, dtype):
     """One call of B1 (b) (on a new stream, so its arrival counters are
-    made inside the call) and one of B4 (with a valid view off its W-byte
-    boundary, which the wrapper copies) under
+    made inside the call), one of B4 (with a valid view off its W-byte
+    boundary, which the wrapper copies) and one of the emit (its hit count
+    given, as the join passes it) under
     ``torch.cuda.set_sync_debug_mode("error")``; each equals its plain
     version."""
     args, run_ord = _external_inputs(dtype, 1024, 33, 3, True, cuda_device,
@@ -365,6 +371,8 @@ def test_redesigned_wrappers_do_not_synchronise(cuda_device, dtype):
     flat = torch.ones(300 * 2 + 1, dtype=torch.bool, device=cuda_device)
     valid = flat[1:].view(300, 2)
     eps = tmetric.scalar_as(3.0, dtype, cuda_device)
+    emit_args = _emit_args(emit_inputs(5, 33), cuda_device)
+    n_hits = int(emit_args[1].sum())
     st = torch.cuda.Stream()
     st.wait_stream(torch.cuda.current_stream())
     torch.cuda.synchronize()
@@ -373,9 +381,13 @@ def test_redesigned_wrappers_do_not_synchronise(cuda_device, dtype):
         with torch.cuda.stream(st):
             b1b = tfj.fused_join_hits(*args, eps, method="kernel", **kw)
             b4 = tcj.cell_join_hits(pts[:300], cand, valid, eps)
+            emitted = tep.emit_pairs(*emit_args, tq=32,
+                                     npts=emit_args[5].shape[0],
+                                     n_hits=n_hits, unicomp=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    assert torch.equal(emitted, _plain_emit(emit_args, tq=32, unicomp=True))
     plain = {k: v for k, v in kw.items() if k not in ("run_ord", "run_loop")}
     for x, y in zip(b1b, tfj.fused_join_hits(*args, 3.0, method="reference",
                                              **plain)):
@@ -532,6 +544,127 @@ def test_self_join_batched_on_card_matches_self_join(cuda_device):
                                     n_batches=n_batches, device=cuda_device)
         assert got.device.type == "cpu"
         assert torch.equal(got, want.cpu())
+
+
+def _emit_args(inputs, device):
+    """``emit_inputs``' arrays as the emit's tensors on ``device``."""
+    return [torch.as_tensor(a).to(device) for a in inputs]
+
+
+def _plain_emit(args, *, tq, unicomp, npts=None):
+    """``_emit_from_hits`` (the plain version, here on the card) stacked
+    as the join stacked it, over ``npts`` points (all of ``ids``')."""
+    hits, counts, base, ws, qpos, ids = args
+    ordered = (2 if unicomp else 1) * int(counts.sum())
+    index = types.SimpleNamespace(num_points=npts or ids.shape[0])
+    keys, vals = tsj._emit_from_hits(index, ids, hits, counts, base, ws,
+                                     qpos, c=hits.shape[2], tq=tq,
+                                     unicomp=unicomp,
+                                     capacity=max(ordered, 1))
+    return torch.stack([keys[:ordered], vals[:ordered]], dim=1)
+
+
+@pytest.mark.parametrize("n_off,c", EMIT_SHAPES)
+@pytest.mark.parametrize("unicomp", [True, False])
+@pytest.mark.parametrize("ids_kind", ["order", "global", "no_hits"])
+def test_emit_kernel_matches_plain_version(cuda_device, n_off, c, unicomp,
+                                           ids_kind):
+    """The emit kernel at every row layout (c of 1, 7, 16, 33 and 300) on a
+    bucketed launch with padding rows, dead rows and runs of them and
+    windows past the last point, with the points' ids and the slab join's
+    global ids, and on a launch with no hit: the plain version's pairs,
+    row for row, one launch each."""
+    args = _emit_args(emit_inputs(n_off, c, seed=n_off * 100 + c,
+                                  global_ids=ids_kind == "global",
+                                  no_hits=ids_kind == "no_hits"),
+                      cuda_device)
+    n_hits = int(args[1].sum())
+    before = tep.KERNEL_LAUNCHES
+    got = tep.emit_pairs(*args, tq=32, npts=args[5].shape[0], n_hits=n_hits,
+                         unicomp=unicomp)
+    assert tep.KERNEL_LAUNCHES == before + 1
+    assert (n_hits == 0) == (ids_kind == "no_hits")
+    assert torch.equal(got, _plain_emit(args, tq=32, unicomp=unicomp))
+
+
+@pytest.mark.parametrize("data", ["2d", "6d", "crowded"])
+@pytest.mark.parametrize("unicomp", [True, False])
+def test_emit_kernel_on_join_launches(cuda_device, data, unicomp,
+                                      monkeypatch):
+    """Every launch of a join (bucketed, the run loop where the join takes
+    it), its emit's inputs recorded as the join hands them over and
+    emitted by the kernel and by the plain version: equal row for row."""
+    pts, eps = {"2d": (np.random.default_rng(0).uniform(0, 100,
+                                                        (20000, 2)), 1.0),
+                "6d": (np.random.default_rng(1).uniform(0, 100,
+                                                        (20000, 6)), 30.0),
+                "crowded": RUN_DATA["crowded"]}[data]
+    calls, real = [], tsj._emit_chunk
+
+    def spy(index, ids, hits, counts, slot_base, win_start, q_pos, *, c,
+            tq, unicomp, found):
+        calls.append(([hits, counts, slot_base, win_start, q_pos, ids],
+                      index.num_points, tq, found))
+        return real(index, ids, hits, counts, slot_base, win_start, q_pos,
+                    c=c, tq=tq, unicomp=unicomp, found=found)
+
+    monkeypatch.setattr(tsj, "_emit_chunk", spy)
+    tsj.self_join(pts, eps, unicomp=unicomp, device=cuda_device)
+    total = 0
+    for args, npts, tq, n_hits in calls:
+        got = tep.emit_pairs(*args, tq=tq, npts=npts, n_hits=n_hits,
+                             unicomp=unicomp)
+        assert torch.equal(got, _plain_emit(args, tq=tq, unicomp=unicomp,
+                                            npts=npts))
+        total += got.shape[0]
+    assert calls and total > 0
+
+
+def test_self_join_emits_once_a_fused_launch(cuda_device, monkeypatch):
+    """One ``self_join`` on the card adds its number of fused launches to
+    ``emit_pairs.KERNEL_LAUNCHES``, and never runs the plain emit."""
+    launched = []
+    fused_launch = tsj._fused_launch
+
+    def count(*args, **kw):
+        launched.append(kw["keep_hits"])
+        return fused_launch(*args, **kw)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain emit ran on the card")
+
+    monkeypatch.setattr(tsj, "_fused_launch", count)
+    monkeypatch.setattr(tsj, "_emit_from_hits", plain)
+    pts = np.random.default_rng(6).exponential(10.0, (30000, 3))
+    before = tep.KERNEL_LAUNCHES
+    got = tsj.self_join(pts, 1.2, device=cuda_device)
+    assert len(launched) > 1 and all(launched)
+    assert tep.KERNEL_LAUNCHES - before == len(launched)
+    monkeypatch.undo()
+    assert torch.equal(got.cpu(), tsj.self_join(pts, 1.2, device="cpu"))
+
+
+def test_emit_kernel_in_the_emit_span(cuda_device):
+    """The emit launches inside the torch op ``repro_torch::emit_pairs``,
+    so the profiler counts its device time in ``self_join.emit``; its name
+    is not B1's."""
+    from torch.profiler import ProfilerActivity, profile
+    pts = np.random.default_rng(0).uniform(0, 100, (20000, 2))
+    tsj.self_join(pts, 0.4, device=cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tsj.self_join(pts, 0.4, device=cuda_device)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    names = [e.key for e in events if "emit_pairs_kernel" in e.key]
+    emit = sum(e.self_device_time_total for e in events
+               if "emit_pairs_kernel" in e.key)
+    span = [e.device_time_total for e in events
+            if e.key == "self_join.emit"
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    assert names and not any("fused_join_kernel" in n for n in names)
+    assert emit > 0 and span and span[0] >= emit
 
 
 def external_queries(pts, eps, n=2048, seed=11):

@@ -203,3 +203,40 @@ def slab_blocks(pts, eps: float, n_slabs: int, halo_capacity=None):
                    gid=g.numpy(), owned=(o & v).numpy())
               for c, g, v, o in zip(cand_c, cand_g, cand_v, cand_o)]
     return blocks, gmin, dims, tgrid.device_key_dtype(dims, padded=True)
+
+
+# The emit's launch shapes (n_off, c) that the kernel lays out differently
+# (``kernels.emit_pairs.row_layout``): c of 1, 7, 16, 33 and past 256,
+# rows of one vector (32 rows a warp step) up to rows of many warp steps,
+# and 6-D's 122 windows of 16 slots.
+EMIT_SHAPES = [(1, 1), (3, 1), (3, 7), (2, 8), (1, 16), (122, 16), (5, 33),
+               (3, 300)]
+
+
+def emit_inputs(n_off: int, c: int, *, rows: int = 200, tq: int = 32,
+                npts: int = 500, density: float = 0.3, seed: int = 0,
+                global_ids: bool = False, no_hits: bool = False):
+    """A seeded fused launch's emit inputs, as numpy arrays: ``(hits,
+    counts, slot_base, win_start, q_pos, ids)`` over ``rows`` query rows
+    padded to a multiple of ``tq`` (a bucketed launch's padding rows: no
+    hits, positions past the last point, which the emit clamps), with a
+    fifth of the rows and a run of 40 rows all dead, window starts that
+    run past the last point, and ``ids`` a permutation of the points or,
+    with ``global_ids``, the slab join's global ids (up to 10^7)."""
+    rng = np.random.default_rng(seed)
+    qp = -(-rows // tq) * tq
+    hits = (rng.random((n_off, qp, c)) < density).astype(np.int8)
+    hits[:, rows:] = 0
+    hits[:, rng.choice(rows, rows // 5, replace=False)] = 0
+    hits[:, rows // 3:rows // 3 + 40] = 0
+    if no_hits:
+        hits[:] = 0
+    counts = hits.sum(axis=(0, 2), dtype=np.int32)
+    tiles = counts.reshape(-1, tq)
+    slot_base = (np.cumsum(tiles, axis=1) - tiles).reshape(-1)
+    win_start = rng.integers(0, npts, (n_off, qp)).astype(np.int32)
+    q_pos = rng.integers(0, npts, qp).astype(np.int32)
+    q_pos[rows:] = npts + np.arange(qp - rows)
+    ids = (rng.choice(10 ** 7, npts, replace=False) if global_ids
+           else rng.permutation(npts)).astype(np.int32)
+    return hits, counts, slot_base.astype(np.int32), win_start, q_pos, ids
